@@ -1,0 +1,125 @@
+"""Whole-NAFBlock forward: the hand-written CUDA kernel K1 and its plain twin.
+
+Counterpart of ``dcpt_tpu/ops/naf_block.py::naf_block_fused``.  Both functions
+take the JAX op's layouts: the map is (B, H, W, C) channels-last, every 1x1
+weight is (in, out), the depthwise weight is (3, 3, dw), and beta / gamma are
+(C,).  A module passes its PyTorch parameters as transposed views; the wrapper
+transposes them back, which costs nothing for such views.
+
+* ``naf_block_ref``: plain PyTorch, what the kernel must compute.
+* ``naf_block_fused``: on a CUDA tensor it launches the kernel in
+  ``csrc/naf_block.cu`` (fp32 or bf16 I/O, fp32 math) or raises; on a CPU
+  tensor it returns ``naf_block_ref``.  ``naf_block_fused.launches`` counts
+  the calls that launched the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from .cuda_build import load_library
+
+
+def layer_norm_last(t: torch.Tensor, weight, bias, eps: float) -> torch.Tensor:
+    """Channel LayerNorm over the last axis: fp32 statistics (biased variance), the
+    normalised map back in the input dtype, then the affine (dcpt_tpu's LayerNorm2d)."""
+    tf = t.float()
+    mu = tf.mean(-1, keepdim=True)
+    var = ((tf - mu) ** 2).mean(-1, keepdim=True)
+    return ((tf - mu) * torch.rsqrt(var + eps)).to(t.dtype) * weight + bias
+
+
+def naf_block_ref(x, n1w, n1b, w1, b1, wdw, bdw, wsca, bsca, w3, b3, beta,
+                  n2w, n2b, w4, b4, w5, b5, gamma, eps: float = 1e-6):
+    """The full NAFBlock on (B, H, W, C) in plain PyTorch (dcpt_tpu's naf_block_ref)."""
+    dw = w1.shape[1]
+    ffn = w4.shape[1]
+    t = layer_norm_last(x, n1w, n1b, eps) @ w1 + b1
+    # depthwise 3x3 with zero padding of the expanded map t
+    t = F.conv2d(t.permute(0, 3, 1, 2), wdw.permute(2, 0, 1).unsqueeze(1), bdw, padding=1, groups=dw)
+    t = t.permute(0, 2, 3, 1)
+    g = t[..., : dw // 2] * t[..., dw // 2 :]
+    att = g.mean(dim=(1, 2), keepdim=True) @ wsca + bsca
+    y = x + ((g * att) @ w3 + b3) * beta
+    h = layer_norm_last(y, n2w, n2b, eps) @ w4 + b4
+    out = (h[..., : ffn // 2] * h[..., ffn // 2 :]) @ w5 + b5
+    return y + out * gamma
+
+
+_ENTRY = {torch.float32: "naf_block_fwd_f32", torch.bfloat16: "naf_block_fwd_bf16"}
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = load_library("naf_block", ["naf_block.cu"])
+    for name in _ENTRY.values():
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 25 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.naf_block_num_tiles.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.naf_block_num_tiles.restype = ctypes.c_int
+    return lib
+
+
+def _check(x: torch.Tensor, params: list[torch.Tensor]) -> None:
+    if x.dim() != 4 or not x.is_contiguous():
+        raise ValueError(f"naf_block_fused: x must be a contiguous (B, H, W, C) tensor, got {tuple(x.shape)} "
+                         f"with strides {x.stride()}")
+    if x.dtype not in _ENTRY:
+        raise TypeError(f"naf_block_fused: the kernel takes float32 or bfloat16, got {x.dtype}")
+    c = x.shape[3]
+    if c % 64 or not 64 <= c <= 8192:
+        raise ValueError(f"naf_block_fused: the kernel takes C in 64..8192 in steps of 64, got C={c}")
+    shapes = [(c,), (c,), (c, 2 * c), (2 * c,), (3, 3, 2 * c), (2 * c,), (c, c), (c,), (c, c), (c,), (c,),
+              (c,), (c,), (c, 2 * c), (2 * c,), (c, c), (c,), (c,)]
+    for i, (p, shape) in enumerate(zip(params, shapes)):
+        if tuple(p.shape) != shape:
+            raise ValueError(f"naf_block_fused: parameter {i + 1} has shape {tuple(p.shape)}, the kernel "
+                             f"takes {shape} (dw = ffn = 2C)")
+        if p.device != x.device or p.dtype != x.dtype:
+            raise TypeError(f"naf_block_fused: parameter {i + 1} is {p.dtype} on {p.device}, x is {x.dtype} "
+                            f"on {x.device}")
+
+
+def _launch(lib, x, n1w, n1b, w1, b1, wdw, bdw, wsca, bsca, w3, b3, beta,
+            n2w, n2b, w4, b4, w5, b5, gamma, eps: float, stream: int) -> torch.Tensor:
+    """Allocate the output and scratch and run the kernel's C entry on ``stream``."""
+    b, h, w, c = x.shape
+    # the kernel reads every 1x1 as (out, in) and the depthwise weight as (dw, 3, 3)
+    weights = [n1w, n1b, w1.t(), b1, wdw.permute(2, 0, 1), bdw, wsca.t(), bsca, w3.t(), b3, beta,
+               n2w, n2b, w4.t(), b4, w5.t(), b5, gamma]
+    weights = [t.contiguous() for t in weights]
+    g = torch.empty_like(x)
+    part = torch.empty((b, lib.naf_block_num_tiles(h, w), c), dtype=torch.float32, device=x.device)
+    att = torch.empty((b, c), dtype=torch.float32, device=x.device)
+    y = torch.empty((b, h, w, c), dtype=torch.float32, device=x.device)
+    hidden = torch.empty_like(y)
+    z = torch.empty_like(x)
+    err = getattr(lib, _ENTRY[x.dtype])(
+        x.data_ptr(), *(t.data_ptr() for t in weights), g.data_ptr(), part.data_ptr(), att.data_ptr(),
+        y.data_ptr(), hidden.data_ptr(), z.data_ptr(), b, h, w, c, eps, stream)
+    if err != 0:
+        raise RuntimeError(f"naf_block kernel launch failed with CUDA error {err}")
+    return z
+
+
+def naf_block_fused(x, n1w, n1b, w1, b1, wdw, bdw, wsca, bsca, w3, b3, beta,
+                    n2w, n2b, w4, b4, w5, b5, gamma, eps: float = 1e-6):
+    """The whole NAFBlock over (B, H, W, C): the CUDA kernel on a CUDA tensor,
+    the plain twin on a CPU tensor."""
+    params = [n1w, n1b, w1, b1, wdw, bdw, wsca, bsca, w3, b3, beta, n2w, n2b, w4, b4, w5, b5, gamma]
+    if x.device.type == "cpu":
+        return naf_block_ref(x, *params, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"naf_block_fused: no kernel for device {x.device}")
+    _check(x, params)
+    naf_block_fused.launches += 1
+    with torch.cuda.device(x.device):
+        return _launch(_lib(), x, *params, eps, torch.cuda.current_stream().cuda_stream)
+
+
+naf_block_fused.launches = 0

@@ -1,0 +1,123 @@
+"""The port's CUDA kernels against their plain twins, on the card.
+
+Every test here is marked ``cuda`` and skips without an NVIDIA GPU: a CUDA
+kernel has no CPU mode.  The file imports neither JAX nor dcpt_tpu, so it runs
+where only PyTorch is installed; from the repo root:
+
+    python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
+
+(``--noconftest``: tests/conftest.py sets up JAX for the rest of the suite.)
+"""
+
+from unittest import mock
+
+import numpy as np
+import pytest
+import torch
+
+from dcpt_tpu_torch.archs.nafnet_arch import NAFBlock, NAFNetBaseline
+from dcpt_tpu_torch.ops import naf_block as tnb
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _block_inputs(b, h, w, c, seed, device, dtype):
+    """x and the 18 parameters in the op's layout, beta / gamma / norm affines random."""
+    rng = np.random.default_rng(seed)
+
+    def r(*shape, scale=0.5, shift=0.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale + shift).astype(np.float32)).to(device, dtype)
+
+    s = c ** -0.5
+    x = r(b, h, w, c, scale=1.0)
+    return x, [r(c, shift=1.0), r(c), r(c, 2 * c, scale=s), r(2 * c), r(3, 3, 2 * c, scale=1 / 3), r(2 * c),
+               r(c, c, scale=s), r(c), r(c, c, scale=s), r(c), r(c), r(c, shift=1.0), r(c), r(c, 2 * c, scale=s),
+               r(2 * c), r(c, c, scale=s), r(c), r(c)]
+
+
+@pytest.mark.parametrize("shape,dtype,tol", [
+    ((2, 16, 16, 64), torch.float32, 1e-4),
+    ((2, 24, 40, 64), torch.float32, 1e-4),   # ragged tiles
+    ((1, 64, 64, 128), torch.float32, 1e-4),  # 32-pixel P2 tiles
+    ((1, 1, 1, 1024), torch.float32, 1e-4),   # the middle block of a 16 x 16 input
+    ((2, 16, 16, 512), torch.bfloat16, 2e-2),
+])
+def test_k1_matches_twin(cuda, shape, dtype, tol):
+    """fp32 math in both; error relative to max(1, max|ref|). The bf16 kernel is held
+    against the twin in fp32 on the same rounded inputs."""
+    x, params = _block_inputs(*shape, seed=2, device=cuda, dtype=dtype)
+    before = tnb.naf_block_fused.launches
+    z = tnb.naf_block_fused(x, *params)
+    assert tnb.naf_block_fused.launches == before + 1
+    ref = tnb.naf_block_ref(x.float(), *[p.float() for p in params])
+    torch.cuda.synchronize()
+    assert z.shape == x.shape and z.dtype == dtype
+    err = (z.float() - ref).abs().max().item() / max(1.0, ref.abs().max().item())
+    assert err <= tol, err
+
+
+def test_k1_raises_on_what_it_does_not_take(cuda):
+    x, params = _block_inputs(1, 4, 4, 8, seed=0, device=cuda, dtype=torch.float32)
+    before = tnb.naf_block_fused.launches
+    with pytest.raises(ValueError, match="C in 64"):
+        tnb.naf_block_fused(x, *params)
+    assert tnb.naf_block_fused.launches == before
+
+
+def _plain_forward(self, inp):
+    x = inp.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+    return tnb.naf_block_ref(x, *self.op_args(), self.norm1.eps).permute(0, 3, 1, 2)
+
+
+def _seeded_net(device):
+    """A width-64 NAFNetBaseline with random beta / gamma / norm affines (at init
+    every block is the identity, which would hide the kernel's body)."""
+    torch.manual_seed(0)
+    net = NAFNetBaseline(width=64, middle_blk_num=1, enc_blk_nums=[1, 1], dec_blk_nums=[1, 1])
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if name.endswith(("beta", "gamma")) or ".norm" in name:
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.5 + (1.0 if name.endswith("norm1.weight") else 0.0))
+    return net.to(device).eval()
+
+
+def test_network_kernel_path_matches_plain_path(cuda):
+    """One kernel call per NAFBlock, and the output of the plain path within 1e-4 (fp32)."""
+    net = _seeded_net(cuda)
+    x = torch.rand(2, 3, 48, 40, generator=torch.Generator().manual_seed(2)).to(cuda)
+    before = tnb.naf_block_fused.launches
+    with torch.inference_mode():
+        out, _ = net(x)
+        with mock.patch.object(NAFBlock, "forward", _plain_forward):
+            ref, _ = net(x)
+    assert tnb.naf_block_fused.launches == before + 5
+    assert (out - ref).abs().max().item() <= 1e-4
+
+
+def test_network_runs_k1_in_bf16(cuda):
+    """The bf16 network calls K1 in bf16 at every block. Against the plain path in
+    fp32 on the same bf16-rounded weights and input, the error relative to
+    max(1, max|ref|) stays within 5e-2: about a dozen bf16 roundings (2^-8 each)
+    lie in series between input and output."""
+    net = _seeded_net(cuda).to(torch.bfloat16)
+    x = torch.rand(1, 3, 32, 32, generator=torch.Generator().manual_seed(2)).to(cuda, torch.bfloat16)
+    before = tnb.naf_block_fused.launches
+    with torch.inference_mode():
+        out, _ = net(x)
+        assert tnb.naf_block_fused.launches == before + 5
+        net.float()
+        with mock.patch.object(NAFBlock, "forward", _plain_forward):
+            ref, _ = net(x.float())
+    assert out.dtype == torch.bfloat16
+    err = (out.float() - ref).abs().max().item() / max(1.0, ref.abs().max().item())
+    assert err <= 5e-2, err
