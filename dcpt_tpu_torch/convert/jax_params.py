@@ -24,7 +24,15 @@ _NAFNET_INVERSE = [
     (re.compile(r"^decoder_(\d+)_(\d+)\."), r"decoder\1.\2."),
     (re.compile(r"\.sca_1\."), r".sca.1."),
 ]
-INVERSE_KEY_MAPS = {"NAFNetBaseline": _NAFNET_INVERSE}
+# inverse of dcpt_tpu/archs/degrad_classify_arch.py::_DC_RENAMES
+_DC_INVERSE = [
+    (re.compile(r"^conv_embed_(\d+)\."), r"conv_embed.\1."),
+    (re.compile(r"^bottleneck_layers_(\d+)_(\d+)\."), r"bottleneck_layers.\1.\2."),
+    (re.compile(r"^last_stage_(\d+)\."), r"last_stage.\1."),
+    (re.compile(r"^downsample_layers_(\d+)\."), r"downsample_layers.\1.0."),
+    (re.compile(r"\.(conv1|conv2|conv3|shortcut)_norm\."), r".\1.norm."),
+]
+INVERSE_KEY_MAPS = {"NAFNetBaseline": _NAFNET_INVERSE, "PromptIR_DC": _DC_INVERSE, "PromptIR_NoImg_DC": _DC_INVERSE}
 
 
 def _flatten(tree: dict, prefix: str = ""):

@@ -1,11 +1,12 @@
-"""Paired restoration datasets of the eval path (dcpt_tpu/data/paired_image_dataset.py).
+"""Paired restoration datasets (dcpt_tpu/data/paired_image_dataset.py).
 
 Each sample is ``{"lq", "gt"}`` CHW RGB float32 tensors plus their paths.
-Semantics follow the JAX package exactly: the denoise set adds Gaussian noise
-seeded ``np.random.seed(0)`` in val/test (reference paired_image_dataset.py:
-397-402); the dehaze set derives the GT name as ``lq_name.split('_')[0] +
-suffix``.  The training phase (random crops, flips) comes with the training
-slice and raises here.
+Semantics follow the JAX package exactly: in the train phase a paired random
+crop of ``gt_size`` and the flip / transpose augmentation (python ``random``);
+the denoise set adds Gaussian noise seeded ``np.random.seed(index)`` in train
+and ``np.random.seed(0)`` in val/test (reference paired_image_dataset.py:
+390-402); the dehaze set derives the GT name as ``lq_name.split('_')[0] +
+suffix``.
 """
 
 from __future__ import annotations
@@ -19,16 +20,16 @@ from ..utils.file_client import FileClient
 from ..utils.img_util import imfrombytes, img2tensor
 from ..utils.registry import DATASET_REGISTRY
 from .data_util import paired_paths_from_folder, paths_from_folder
-from .transforms import center_crop
+from .transforms import augment, center_crop, paired_random_crop
 
 
 class _BaseDataset:
-    """Shared plumbing: disk reads, decode flag, optional centre crop."""
+    """Shared plumbing: disk reads, decode flag, the train crop or the eval centre crop."""
 
     def __init__(self, opt: dict):
         self.opt = opt
-        if opt["phase"] == "train":
-            raise NotImplementedError("dcpt_tpu_torch ports the eval phase of the datasets; training comes later")
+        self.train = opt["phase"] == "train"
+        self.gt_size = opt.get("gt_size", 128)
         unported = [k for k in ("mean", "std", "prctile_norm", "meta_info_file") if opt.get(k)]
         if unported or not opt.get("decode", True) or opt["io_backend"]["type"] != "disk":
             raise NotImplementedError("dataset options not ported to dcpt_tpu_torch yet: mean / std / prctile_norm / "
@@ -44,7 +45,10 @@ class _BaseDataset:
             self.file_client = FileClient(backend_opt.pop("type"), **backend_opt)
         return imfrombytes(self.file_client.get(path), flag=self.flag, float32=True)
 
-    def _crop(self, img_gt, img_lq):
+    def _crop(self, img_gt, img_lq, gt_path, scale: int = 1):
+        if self.train:
+            img_gt, img_lq = paired_random_crop(img_gt, img_lq, self.gt_size, scale, gt_path)
+            return augment([img_gt, img_lq], self.opt["use_hflip"], self.opt["use_rot"])
         if self.center_crop is not None:
             img_gt = center_crop(img_gt, self.center_crop)
             img_lq = center_crop(img_lq, self.center_crop)
@@ -77,8 +81,9 @@ class PairedImageDataset(_BaseDataset):
     def __getitem__(self, index):
         gt_path = self.paths[index]["gt_path"]
         lq_path = self.paths[index]["lq_path"]
-        img_gt, img_lq = self._crop(self._read(gt_path), self._read(lq_path))
-        img_gt = img_gt[0 : img_lq.shape[0] * self.scale, 0 : img_lq.shape[1] * self.scale, ...]
+        img_gt, img_lq = self._crop(self._read(gt_path), self._read(lq_path), gt_path, self.scale)
+        if not self.train:
+            img_gt = img_gt[0 : img_lq.shape[0] * self.scale, 0 : img_lq.shape[1] * self.scale, ...]
         img_gt, img_lq = self._bgr2rgb(img_gt, img_lq)
         return self._finish(img_gt, img_lq, lq_path, gt_path)
 
@@ -101,7 +106,7 @@ class PairedImageDenoiseDataset(_BaseDataset):
     def __getitem__(self, index):
         gt_path = self.paths[index]
         img_gt = self._read(gt_path)
-        img_gt, img_lq = self._crop(img_gt, img_gt.copy())
+        img_gt, img_lq = self._crop(img_gt, img_gt.copy(), gt_path)
         img_gt, img_lq = self._bgr2rgb(img_gt, img_lq)
         if self.sigma_type == "constant":
             sigma_value = self.sigma_range
@@ -109,7 +114,8 @@ class PairedImageDenoiseDataset(_BaseDataset):
             sigma_value = random.uniform(self.sigma_range[0], self.sigma_range[1])
         else:
             sigma_value = random.choice(self.sigma_range)
-        np.random.seed(seed=0)  # the reference's val/test seeding (paired_image_dataset.py:397-402)
+        # the reference's seeding: per index in train, 0 in val/test (paired_image_dataset.py:397-402)
+        np.random.seed(seed=index if self.train else 0)
         img_lq = img_lq + np.random.normal(0, sigma_value / 255.0, img_lq.shape)
         return self._finish(img_gt, img_lq, gt_path, gt_path)
 
@@ -131,7 +137,7 @@ class PairedImageDehazeDataset(_BaseDataset):
         lq_path = self.paths[index]
         img_lq = self._read(lq_path)
         gt_path = os.path.join(self.gt_folder, lq_path.split("/")[-1].split("_")[0] + self.suffix)
-        img_gt, img_lq = self._crop(self._read(gt_path), img_lq)
+        img_gt, img_lq = self._crop(self._read(gt_path), img_lq, gt_path)
         img_gt, img_lq = self._bgr2rgb(img_gt, img_lq)
         return self._finish(img_gt, img_lq, gt_path, gt_path)
 

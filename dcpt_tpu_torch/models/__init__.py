@@ -4,7 +4,7 @@ from copy import deepcopy
 
 from ..utils.logger import get_root_logger
 from ..utils.registry import MODEL_REGISTRY
-from . import sr_model  # noqa: F401  (registers SRModel)
+from . import degradation_classification_model, degradation_classification_pretrain_model, sr_model  # noqa: F401
 
 __all__ = ["build_model"]
 

@@ -1,9 +1,9 @@
 """Build a CUDA source of ``dcpt_tpu_torch/csrc`` with ``nvcc`` and load it with ctypes.
 
 Each library is built at first use into ``build/kernels/<name>-<hash>/`` at the
-root of the checkout (listed in ``.gitignore``); the hash covers the sources
-and the compiler flags, so an edited kernel is rebuilt and an unchanged one is
-loaded as it is.  The sources expose a plain C interface: no PyTorch headers,
+root of the checkout (listed in ``.gitignore``); the hash covers the sources,
+the shared headers of ``csrc`` and the compiler flags, so an edited kernel is
+rebuilt and an unchanged one is loaded as it is.  The sources expose a plain C interface: no PyTorch headers,
 so a build takes seconds.  Nothing here runs at import time.
 """
 
@@ -44,7 +44,7 @@ def build_library(name: str, sources: list[str]) -> tuple[Path, float]:
     """
     paths = [CSRC / s for s in sources]
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in paths:
+    for p in paths + sorted(CSRC.glob("*.cuh")):  # the sources and every header they may include
         digest.update(p.name.encode())
         digest.update(p.read_bytes())
     out_dir = BUILD_ROOT / f"{name}-{digest.hexdigest()[:16]}"

@@ -11,6 +11,15 @@ transposes them back, which costs nothing for such views.
   ``csrc/naf_block.cu`` (fp32 or bf16 I/O, fp32 math) or raises; on a CPU
   tensor it returns ``naf_block_ref``.  ``naf_block_fused.launches`` counts
   the calls that launched the kernel.
+
+Under autograd (grad mode on and x or a parameter requiring a gradient) the
+block runs as ``NAFBlockFunction``, the counterpart of dcpt_tpu's
+``jax.custom_vjp``: its forward saves x, the parameters and the SCA residuals
+``pooled`` / ``att`` (and on the card the maps the backward reads, see
+``csrc/naf_block_bwd.cu``), its backward returns the 19 cotangents from
+kernel K2 (``ops/naf_block_bwd.py``).  On a CPU tensor the same Function runs
+the plain forward and K2's plain version.  Training in bf16 through the
+kernels is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -25,17 +34,18 @@ from .cuda_build import load_library
 
 
 def layer_norm_last(t: torch.Tensor, weight, bias, eps: float) -> torch.Tensor:
-    """Channel LayerNorm over the last axis: fp32 statistics (biased variance), the
-    normalised map back in the input dtype, then the affine (dcpt_tpu's LayerNorm2d)."""
-    tf = t.float()
+    """Channel LayerNorm over the last axis: statistics in fp32 or wider (biased
+    variance), the normalised map back in the input dtype, then the affine
+    (dcpt_tpu's LayerNorm2d)."""
+    tf = t if t.dtype == torch.float64 else t.float()
     mu = tf.mean(-1, keepdim=True)
     var = ((tf - mu) ** 2).mean(-1, keepdim=True)
     return ((tf - mu) * torch.rsqrt(var + eps)).to(t.dtype) * weight + bias
 
 
-def naf_block_ref(x, n1w, n1b, w1, b1, wdw, bdw, wsca, bsca, w3, b3, beta,
-                  n2w, n2b, w4, b4, w5, b5, gamma, eps: float = 1e-6):
-    """The full NAFBlock on (B, H, W, C) in plain PyTorch (dcpt_tpu's naf_block_ref)."""
+def _ref_forward(x, n1w, n1b, w1, b1, wdw, bdw, wsca, bsca, w3, b3, beta,
+                 n2w, n2b, w4, b4, w5, b5, gamma, eps: float):
+    """naf_block_ref's output and its SCA residuals pooled, att (B, C)."""
     dw = w1.shape[1]
     ffn = w4.shape[1]
     t = layer_norm_last(x, n1w, n1b, eps) @ w1 + b1
@@ -43,11 +53,19 @@ def naf_block_ref(x, n1w, n1b, w1, b1, wdw, bdw, wsca, bsca, w3, b3, beta,
     t = F.conv2d(t.permute(0, 3, 1, 2), wdw.permute(2, 0, 1).unsqueeze(1), bdw, padding=1, groups=dw)
     t = t.permute(0, 2, 3, 1)
     g = t[..., : dw // 2] * t[..., dw // 2 :]
-    att = g.mean(dim=(1, 2), keepdim=True) @ wsca + bsca
-    y = x + ((g * att) @ w3 + b3) * beta
+    pooled = g.mean(dim=(1, 2))
+    att = pooled @ wsca + bsca
+    y = x + ((g * att[:, None, None, :]) @ w3 + b3) * beta
     h = layer_norm_last(y, n2w, n2b, eps) @ w4 + b4
     out = (h[..., : ffn // 2] * h[..., ffn // 2 :]) @ w5 + b5
-    return y + out * gamma
+    return y + out * gamma, pooled, att
+
+
+def naf_block_ref(x, n1w, n1b, w1, b1, wdw, bdw, wsca, bsca, w3, b3, beta,
+                  n2w, n2b, w4, b4, w5, b5, gamma, eps: float = 1e-6):
+    """The full NAFBlock on (B, H, W, C) in plain PyTorch (dcpt_tpu's naf_block_ref)."""
+    return _ref_forward(x, n1w, n1b, w1, b1, wdw, bdw, wsca, bsca, w3, b3, beta,
+                        n2w, n2b, w4, b4, w5, b5, gamma, eps)[0]
 
 
 _ENTRY = {torch.float32: "naf_block_fwd_f32", torch.bfloat16: "naf_block_fwd_bf16"}
@@ -58,7 +76,7 @@ def _lib() -> ctypes.CDLL:
     lib = load_library("naf_block", ["naf_block.cu"])
     for name in _ENTRY.values():
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 25 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 30 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     lib.naf_block_num_tiles.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.naf_block_num_tiles.restype = ctypes.c_int
@@ -85,26 +103,85 @@ def _check(x: torch.Tensor, params: list[torch.Tensor]) -> None:
                             f"on {x.device}")
 
 
-def _launch(lib, x, n1w, n1b, w1, b1, wdw, bdw, wsca, bsca, w3, b3, beta,
-            n2w, n2b, w4, b4, w5, b5, gamma, eps: float, stream: int) -> torch.Tensor:
-    """Allocate the output and scratch and run the kernel's C entry on ``stream``."""
-    b, h, w, c = x.shape
-    # the kernel reads every 1x1 as (out, in) and the depthwise weight as (dw, 3, 3)
+def torch_layout(params) -> list[torch.Tensor]:
+    """The 18 parameters as the CUDA kernels read them: every 1x1 as (out, in),
+    the depthwise weight as (dw, 3, 3), contiguous (free for a module's views)."""
+    n1w, n1b, w1, b1, wdw, bdw, wsca, bsca, w3, b3, beta, n2w, n2b, w4, b4, w5, b5, gamma = params
     weights = [n1w, n1b, w1.t(), b1, wdw.permute(2, 0, 1), bdw, wsca.t(), bsca, w3.t(), b3, beta,
                n2w, n2b, w4.t(), b4, w5.t(), b5, gamma]
-    weights = [t.contiguous() for t in weights]
+    return [t.contiguous() for t in weights]
+
+
+def _launch(lib, x, params, eps: float, stream: int, residuals: bool = False):
+    """Allocate the output and scratch and run the kernel's C entry on ``stream``.
+
+    Returns z, or with ``residuals`` (z, res): res = (g, t, u, y, h, o,
+    pooled, att), the fp32 maps the backward kernel reads."""
+    b, h, w, c = x.shape
+    weights = torch_layout(params)
+    f32 = dict(dtype=torch.float32, device=x.device)
     g = torch.empty_like(x)
-    part = torch.empty((b, lib.naf_block_num_tiles(h, w), c), dtype=torch.float32, device=x.device)
-    att = torch.empty((b, c), dtype=torch.float32, device=x.device)
-    y = torch.empty((b, h, w, c), dtype=torch.float32, device=x.device)
+    part = torch.empty((b, lib.naf_block_num_tiles(h, w), c), **f32)
+    att = torch.empty((b, c), **f32)
+    y = torch.empty((b, h, w, c), **f32)
     hidden = torch.empty_like(y)
     z = torch.empty_like(x)
+    if residuals:
+        saved = [torch.empty((b, c), **f32), torch.empty((b, h, w, 2 * c), **f32), torch.empty_like(y),
+                 torch.empty((b, h, w, 2 * c), **f32), torch.empty_like(y)]  # pooled, t, u, h, o
+        saved_ptrs = [t.data_ptr() for t in saved]
+    else:
+        saved_ptrs = [None] * 5
     err = getattr(lib, _ENTRY[x.dtype])(
         x.data_ptr(), *(t.data_ptr() for t in weights), g.data_ptr(), part.data_ptr(), att.data_ptr(),
-        y.data_ptr(), hidden.data_ptr(), z.data_ptr(), b, h, w, c, eps, stream)
+        y.data_ptr(), hidden.data_ptr(), z.data_ptr(), *saved_ptrs, b, h, w, c, eps, stream)
     if err != 0:
         raise RuntimeError(f"naf_block kernel launch failed with CUDA error {err}")
-    return z
+    if not residuals:
+        return z
+    pooled, t, u, hh, o = saved
+    return z, (g, t, u, y, hh, o, pooled, att)
+
+
+def _kernel_forward(x, params, eps: float, residuals: bool = False):
+    """Check the inputs, count the launch and run K1 on x's device and current stream."""
+    _check(x, params)
+    naf_block_fused.launches += 1
+    with torch.cuda.device(x.device):
+        return _launch(_lib(), x, params, eps, torch.cuda.current_stream().cuda_stream, residuals)
+
+
+class NAFBlockFunction(torch.autograd.Function):
+    """The NAFBlock with its analytic backward (dcpt_tpu's ``custom_vjp``, fp32).
+
+    ``apply(x, eps, *params)``; on the card the forward is K1 writing its
+    residuals and the backward K2, on the CPU both are the plain versions."""
+
+    @staticmethod
+    def forward(ctx, x, eps, *params):
+        if x.device.type == "cpu":
+            z, pooled, att = _ref_forward(x, *params, eps)
+            res = ()
+        else:
+            z, res = _kernel_forward(x, list(params), eps, residuals=True)
+            pooled, att = res[-2:]
+            res = res[:-2]
+        ctx.eps = eps
+        ctx.save_for_backward(x, *params, pooled, att, *res)
+        return z
+
+    @staticmethod
+    def backward(ctx, dz):
+        from .naf_block_bwd import naf_block_bwd
+
+        x, *saved = ctx.saved_tensors
+        params, (pooled, att), res = saved[:18], saved[18:20], saved[20:]
+        grads = naf_block_bwd(x, *params, pooled, att, dz, res, ctx.eps)
+        return (grads[0], None, *grads[1:])
+
+
+def _needs_grad(x, params) -> bool:
+    return torch.is_grad_enabled() and (x.requires_grad or any(p.requires_grad for p in params))
 
 
 def naf_block_fused(x, n1w, n1b, w1, b1, wdw, bdw, wsca, bsca, w3, b3, beta,
@@ -112,14 +189,17 @@ def naf_block_fused(x, n1w, n1b, w1, b1, wdw, bdw, wsca, bsca, w3, b3, beta,
     """The whole NAFBlock over (B, H, W, C): the CUDA kernel on a CUDA tensor,
     the plain twin on a CPU tensor."""
     params = [n1w, n1b, w1, b1, wdw, bdw, wsca, bsca, w3, b3, beta, n2w, n2b, w4, b4, w5, b5, gamma]
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"naf_block_fused: no kernel for device {x.device}")
+    if _needs_grad(x, params):
+        if x.device.type == "cuda" and x.dtype != torch.float32:
+            raise NotImplementedError(
+                f"naf_block_fused: training in {x.dtype} through the NAFBlock kernels (mixed precision with "
+                "bf16 K1/K2) is not ported yet (ROADMAP Q1, deferred from slice 2); train in float32")
+        return NAFBlockFunction.apply(x, eps, *params)
     if x.device.type == "cpu":
         return naf_block_ref(x, *params, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"naf_block_fused: no kernel for device {x.device}")
-    _check(x, params)
-    naf_block_fused.launches += 1
-    with torch.cuda.device(x.device):
-        return _launch(_lib(), x, *params, eps, torch.cuda.current_stream().cuda_stream)
+    return _kernel_forward(x, params, eps)
 
 
 naf_block_fused.launches = 0

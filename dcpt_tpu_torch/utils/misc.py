@@ -1,4 +1,4 @@
-"""Host-side helpers: seeding, time strings, directories (dcpt_tpu/utils/misc.py)."""
+"""Host-side helpers: seeding, time strings, directories, resume rewiring (dcpt_tpu/utils/misc.py)."""
 
 from __future__ import annotations
 
@@ -33,12 +33,32 @@ def mkdir_and_rename(path: str) -> None:
 
 
 def make_exp_dirs(opt: dict) -> None:
-    """Create the results directory layout of an eval run."""
+    """Create the experiments (training) or results (eval) directory layout (reference: misc.py:40-57)."""
     path_opt = dict(opt["path"])
-    mkdir_and_rename(path_opt.pop("results_root"))
+    mkdir_and_rename(path_opt.pop("experiments_root" if opt.get("is_train") else "results_root"))
     for key, path in path_opt.items():
         if ("strict_load" in key) or ("pretrain_network" in key) or ("resume" in key) or ("param_key" in key):
             continue
         if path:
             os.makedirs(path, exist_ok=True)
 
+
+def check_resume(opt: dict, resume_iter: int) -> None:
+    """When resuming, point every ``pretrain_network_*`` at the run's own
+    ``net_*_<iter>.pth`` and load raw params rather than an EMA (reference:
+    misc.py:102-137)."""
+    if not opt["path"].get("resume_state"):
+        return
+    networks = [key for key in opt if key.startswith("network_")]
+    if any(opt["path"].get(f"pretrain_{network}") is not None for network in networks):
+        print("pretrain_network path will be ignored during resuming.", flush=True)
+    ignore = opt["path"].get("ignore_resume_networks") or ()
+    for network in networks:
+        if network not in ignore:
+            name = f"pretrain_{network}"
+            opt["path"][name] = osp.join(opt["path"]["models"], f"net_{network.replace('network_', '')}_{resume_iter}.pth")
+            print(f"Set {name} to {opt['path'][name]}", flush=True)
+    for param_key in [key for key in opt["path"] if key.startswith("param_key")]:
+        if opt["path"][param_key] == "params_ema":
+            opt["path"][param_key] = "params"
+            print(f"Set {param_key} to params", flush=True)

@@ -1,10 +1,12 @@
 """YAML-driven run configuration (dcpt_tpu/utils/options.py).
 
-The config-key surface of the reference harness's eval side: ``-opt`` path
-to a yml file and ``--force_yml a:b:c=value`` nested overrides;
-``datasets.<phase>`` dicts get ``phase`` / ``scale`` stamped onto them; the
-run's outputs go to ``<root>/results/<name>``.  The yml is read by the port's
-own loader (``yaml_lite``).
+The config-key surface of the reference harness: ``-opt`` path to a yml
+file, ``--force_yml a:b:c=value`` nested overrides and ``--auto_resume``;
+``datasets.<phase>`` dicts get ``phase`` / ``scale`` stamped onto
+them; a training run's outputs go to ``<root>/experiments/<name>`` (models,
+training_states), an eval run's to ``<root>/results/<name>``.  One process:
+rank 0 of world size 1.  The yml is read by the port's own loader
+(``yaml_lite``).
 
 ``num_gpu: 0`` runs on the CPU; ``num_gpu >= 1`` or ``auto`` runs on CUDA and
 raises when no CUDA device is present.
@@ -13,6 +15,7 @@ raises when no CUDA device is present.
 from __future__ import annotations
 
 import argparse
+import os
 import os.path as osp
 import random
 from typing import Any
@@ -91,17 +94,17 @@ def resolve_num_gpu(opt: dict) -> None:
 
 
 def parse_options(root_path: str, is_train: bool = False, args: list[str] | None = None) -> tuple[dict, argparse.Namespace]:
-    """CLI + yml -> options dict (reference: options.py:100-205); eval, single process."""
-    if is_train:
-        raise NotImplementedError("dcpt_tpu_torch ports the eval harness; training comes later")
+    """CLI + yml -> options dict (reference: options.py:100-205), single process."""
     parser = argparse.ArgumentParser()
     parser.add_argument("-opt", type=str, required=True, help="Path to option YAML file.")
+    parser.add_argument("--auto_resume", action="store_true")
     parser.add_argument(
         "--force_yml", nargs="+", default=None, help="Force to update yml files. Examples: train:ema_decay=0.999"
     )
     parsed = parser.parse_args(args)
 
     opt = yaml_load(parsed.opt)
+    opt["dist"], opt["rank"], opt["world_size"] = False, 0, 1
 
     seed = opt.get("manual_seed")
     if seed is None:
@@ -112,6 +115,8 @@ def parse_options(root_path: str, is_train: bool = False, args: list[str] | None
     set_random_seed(seed)
 
     apply_force_yml(opt, parsed.force_yml)
+    opt["auto_resume"] = parsed.auto_resume
+    opt["is_train"] = is_train
     resolve_num_gpu(opt)
 
     for phase, dataset in (opt.get("datasets") or {}).items():
@@ -127,8 +132,32 @@ def parse_options(root_path: str, is_train: bool = False, args: list[str] | None
         if val and ("resume_state" in key or "pretrain_network" in key):
             opt["path"][key] = osp.expanduser(val)
 
-    results_root = osp.join(root_path, "results", opt["name"])
-    opt["path"]["results_root"] = results_root
-    opt["path"]["log"] = results_root
-    opt["path"]["visualization"] = osp.join(results_root, "visualization")
+    if is_train:
+        experiments_root = osp.join(root_path, "experiments", opt["name"])
+        opt["path"]["experiments_root"] = experiments_root
+        opt["path"]["models"] = osp.join(experiments_root, "models")
+        opt["path"]["training_states"] = osp.join(experiments_root, "training_states")
+        opt["path"]["log"] = experiments_root
+        opt["path"]["visualization"] = osp.join(experiments_root, "visualization")
+    else:
+        results_root = osp.join(root_path, "results", opt["name"])
+        opt["path"]["results_root"] = results_root
+        opt["path"]["log"] = results_root
+        opt["path"]["visualization"] = osp.join(results_root, "visualization")
     return opt, parsed
+
+
+def copy_opt_file(opt_file: str, experiments_root: str) -> None:
+    """Archive the run's yml beside its outputs, headed by the command line (reference: options.py:208-223)."""
+    import shutil
+    import sys
+    import time
+
+    os.makedirs(experiments_root, exist_ok=True)
+    filename = osp.join(experiments_root, osp.basename(opt_file))
+    shutil.copyfile(opt_file, filename)
+    with open(filename, "r+") as f:
+        lines = f.readlines()
+        lines.insert(0, f"# GENERATE TIME: {time.asctime()}\n# CMD:\n# {' '.join(sys.argv)}\n\n")
+        f.seek(0)
+        f.writelines(lines)

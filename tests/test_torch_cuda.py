@@ -1,4 +1,4 @@
-"""The port's CUDA kernels against their plain twins, on the card.
+"""The port's CUDA kernels (K1, K2, K3) against their plain versions, on the card.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU: a CUDA
 kernel has no CPU mode.  The file imports neither JAX nor dcpt_tpu, so it runs
@@ -16,7 +16,9 @@ import pytest
 import torch
 
 from dcpt_tpu_torch.archs.nafnet_arch import NAFBlock, NAFNetBaseline
+from dcpt_tpu_torch.ops import layernorm2d as tln
 from dcpt_tpu_torch.ops import naf_block as tnb
+from dcpt_tpu_torch.ops import naf_block_bwd as tnbb
 
 pytestmark = pytest.mark.cuda
 
@@ -121,3 +123,93 @@ def test_network_runs_k1_in_bf16(cuda):
     assert out.dtype == torch.bfloat16
     err = (out.float() - ref).abs().max().item() / max(1.0, ref.abs().max().item())
     assert err <= 5e-2, err
+
+
+def _rel(a, ref):
+    return (a - ref).abs().max().item() / max(1.0, ref.abs().max().item())
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 16, 64), (2, 24, 40, 64), (1, 64, 64, 128), (1, 1, 1, 1024),
+                                   (2, 5, 11, 512)])
+def test_k2_matches_plain_backward(cuda, shape):
+    """K2 from K1's residuals against naf_block_bwd_ref on all 19 cotangents, fp32:
+    error relative to max(1, max|ref|) within 1e-3 (weight gradients sum over
+    the pixels in another order)."""
+    x, params = _block_inputs(*shape, seed=3, device=cuda, dtype=torch.float32)
+    dz = torch.randn(shape, generator=torch.Generator().manual_seed(4)).to(cuda)
+    _, res = tnb._kernel_forward(x, params, 1e-6, residuals=True)
+    *maps, pooled, att = res
+    before = tnbb.naf_block_bwd.launches
+    got = tnbb.naf_block_bwd(x, *params, pooled, att, dz, maps)
+    assert tnbb.naf_block_bwd.launches == before + 1
+    ref = tnbb.naf_block_bwd_ref(x, *params, pooled, att, dz)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(got, ref)):
+        assert a.shape == b.shape, i
+        assert _rel(a, b) <= 1e-3, (i, _rel(a, b))
+
+
+def test_k2_is_deterministic(cuda):
+    x, params = _block_inputs(2, 16, 16, 256, seed=5, device=cuda, dtype=torch.float32)
+    dz = torch.randn(x.shape, generator=torch.Generator().manual_seed(6)).to(cuda)
+    _, res = tnb._kernel_forward(x, params, 1e-6, residuals=True)
+    *maps, pooled, att = res
+    first = tnbb.naf_block_bwd(x, *params, pooled, att, dz, maps)
+    second = tnbb.naf_block_bwd(x, *params, pooled, att, dz, maps)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("rows,c", [(8192, 512), (2048, 1024), (512, 512), (37, 640)])
+def test_k3_matches_plain(cuda, rows, c):
+    """K3 forward and backward against the plain versions, fp32, within 1e-4
+    relative to max(1, max|ref|)."""
+    gen = torch.Generator().manual_seed(rows + c)
+    x = (torch.randn(rows, c, generator=gen) * 3 + 1).to(cuda)
+    w, b = torch.randn(c, generator=gen).to(cuda), torch.randn(c, generator=gen).to(cuda)
+    g = torch.randn(rows, c, generator=gen).to(cuda)
+    out, y, rsig = tln._launch_fwd(tln._lib(), x, w, b, 1e-6, tln._stream(), residuals=True)
+    gx, gw, gb = tln._launch_bwd(tln._lib(), g, y, rsig, w, tln._stream())
+    ref_out, ref_y, ref_rsig = tln.layer_norm_2d_ref(x, w, b, 1e-6)
+    ref_gx, ref_gw, ref_gb = tln.layer_norm_2d_bwd_ref(g, ref_y, ref_rsig, w)
+    torch.cuda.synchronize()
+    for a, r in [(out, ref_out), (y, ref_y), (gx, ref_gx), (gw, ref_gw), (gb, ref_gb)]:
+        assert _rel(a, r) <= 1e-4, _rel(a, r)
+
+
+def test_k3_function_counts_launches(cuda):
+    x = torch.randn(2, 4, 4, 512, device=cuda, requires_grad=True)
+    w = torch.randn(512, device=cuda, requires_grad=True)
+    b = torch.randn(512, device=cuda, requires_grad=True)
+    fwd, bwd = tln.layer_norm_2d.launches, tln.layer_norm_2d.bwd_launches
+    tln.layer_norm_2d(x, w, b).square().sum().backward()
+    assert (tln.layer_norm_2d.launches, tln.layer_norm_2d.bwd_launches) == (fwd + 1, bwd + 1)
+    ref = torch.nn.functional.layer_norm(x.detach(), (512,), w.detach(), b.detach(), 1e-6)
+    assert _rel(tln.layer_norm_2d(x.detach(), w.detach(), b.detach()), ref) <= 1e-4
+
+
+def test_network_gradients_match_plain_path(cuda):
+    """A backward through NAFNetBaseline on the card runs K1 and K2 at every block
+    and gives every parameter a gradient within 1e-3 (relative to the tensor's
+    max|ref|) of the plain path's autograd."""
+    net = _seeded_net(cuda).train()
+    x = torch.rand(2, 3, 48, 40, generator=torch.Generator().manual_seed(7)).to(cuda)
+    before = (tnb.naf_block_fused.launches, tnbb.naf_block_bwd.launches)
+    out, _ = net(x)
+    out.square().mean().backward()
+    assert (tnb.naf_block_fused.launches, tnbb.naf_block_bwd.launches) == (before[0] + 5, before[1] + 5)
+    got = {n: p.grad.clone() for n, p in net.named_parameters()}
+    net.zero_grad()
+    with mock.patch.object(NAFBlock, "forward", _plain_forward):
+        ref_out, _ = net(x)
+        ref_out.square().mean().backward()
+    for n, p in net.named_parameters():
+        assert got[n] is not None and p.grad is not None, n
+        err = (got[n] - p.grad).abs().max().item() / max(p.grad.abs().max().item(), 1e-12)
+        assert err <= 1e-3, (n, err)
+
+
+def test_bf16_training_raises(cuda):
+    x, params = _block_inputs(1, 8, 8, 64, seed=0, device=cuda, dtype=torch.bfloat16)
+    x.requires_grad_()
+    with pytest.raises(NotImplementedError, match="mixed precision"):
+        tnb.naf_block_fused(x, *params)
