@@ -26,7 +26,18 @@ Phases, each of which raises on failure (exit code 1):
    160 x 160 PNGs: 4 iterations with a checkpoint, the launch counts of K1,
    K2 and K3 per step checked, a resume for 2 more; then one step's gradients
    through the kernels against the plain path's (``check_step_gradients``),
-   and the ms per step and peak memory of both paths.
+   and the ms per step and peak memory of both paths;
+8. kernel K6 (``mdta_block_fused``, the whole Restormer / PromptIR
+   TransformerBlock) against its plain version at the Restormer stage shapes
+   of a 128 x 128 input and PromptIR's three noise-level shapes (B = 1) in
+   both flavours (ReLU / BiasFree / 1e-6 and softmax / WithBias / 1e-5), two
+   ragged shapes, bf16 at C = 48 and 384, each run twice for equal bits; its
+   ms per Restormer and per PromptIR forward beside the plain version's and the bound;
+9. the eval paths of the shipped ``test_Restormer_5d.yml`` and
+   ``test_PromptIR_5d.yml`` through ``test_pipeline`` at full width on the
+   PNGs of [4] and seeded weights, with exactly 44 and 47 K6 launches per
+   image, a ragged image's output held against the plain path on the card,
+   each net's device time per forward by kernel, and the eval rates of both paths.
 
 The line before the last is a JSON object with each kernel's launches, error,
 times and bound; the last line is ``{"ok": true, "device": {...}}``.  Without a
@@ -53,6 +64,7 @@ KERNELS = {
     "naf_block_fused": ("dcpt_tpu_torch/csrc/naf_block.cu", "dcpt_tpu/ops/naf_block.py:353"),
     "naf_block_bwd": ("dcpt_tpu_torch/csrc/naf_block_bwd.cu", "dcpt_tpu/ops/naf_block_bwd.py:255"),
     "layer_norm_2d": ("dcpt_tpu_torch/csrc/layernorm2d.cu", "dcpt_tpu/ops/layernorm2d.py:140"),
+    "mdta_block_fused": ("dcpt_tpu_torch/csrc/mdta_block.cu", "dcpt_tpu/ops/mdta_block.py:369"),
 }
 # the card's peaks (NVIDIA's H100 SXM data sheet): fp32 outside the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
@@ -82,6 +94,20 @@ DEVICE_FUNCTIONS = {
 # (worst) and 6.3e-3 (median); the limits leave room above that and catch a fault
 # of order one (readings in PERF.md, section 6).
 REAL_GRAD_WORST, REAL_GRAD_MEDIAN = 1e-1, 2e-2
+TRANSFORMER_YMLS = {"Restormer": ROOT / "options" / "all_in_one" / "test" / "test_Restormer_5d.yml",
+                    "PromptIR": ROOT / "options" / "all_in_one" / "test" / "test_PromptIR_5d.yml"}
+# K6's flavours: (use_softmax, ln_bias, eps)
+RESTORMER_FLAVOUR, PROMPTIR_FLAVOUR = (False, False, 1e-6), (True, True, 1e-5)
+# the shipped Restormer / PromptIR body (dim 48, blocks [4, 6, 6, 8], 4 refinement,
+# heads [1, 2, 4, 8]) on a 128 x 128 input: (C, H = W, heads) -> TransformerBlocks
+# per forward (enc1; enc2 + dec2; enc3 + dec3; latent; dec1 + refinement)
+K6_BODY = {(48, 128, 1): 4, (96, 64, 2): 12, (192, 32, 4): 12, (384, 16, 8): 8, (96, 128, 1): 8}
+# PromptIR's noise_level3, 2, 1: 384 + 320, 192 + 128 and 96 + 64 channels at heads[2] = 4
+K6_NOISE = {(704, 16, 4): 1, (320, 32, 4): 1, (160, 64, 4): 1}
+K6_RAGGED = [(61, 41, 48, 1), (1, 1, 384, 8)]  # (H, W, C, heads)
+K6_PER_FORWARD = {"Restormer": 44, "PromptIR": 47}
+K6_FUNCTIONS = {"mdta_qkv_kernel", "mdta_dw_kernel", "mdta_gram_kernel", "colsum_kernel<6>", "mdta_attn_kernel",
+                "mdta_av_kernel", "mdta_proj_kernel", "mdta_ffn_in_kernel", "mdta_gate_kernel", "mdta_ffn_out_kernel"}
 
 
 def card_line() -> str:
@@ -119,6 +145,15 @@ def k2_work(c: int, pixels: int) -> tuple[float, float]:
     the residuals (10 C per pixel) and the weights read, dx and the parameter
     gradients written once."""
     return pixels * (24 * c * c + 72 * c), 4 * (11 * pixels * c + 2 * (6 * c * c + 32 * c))
+
+
+def k6_work(c: int, f: int, ch: int, pixels: int) -> tuple[float, float]:
+    """(flops, bytes) of one K6 call: per pixel the 1x1 products (3C^2 + C^2 +
+    3FC multiply-adds), the head blocks of the Gram and v . attn^T (C ch each)
+    and the depthwise 3x3 on 3C + 2F channels; x read, z written and the
+    weights read once."""
+    weights = 4 * c * c + 3 * f * c + 9 * (3 * c + 2 * f) + 4 * c + c // ch
+    return pixels * (2 * (4 * c * c + 3 * f * c + 2 * c * ch) + 18 * (3 * c + 2 * f)), 4 * (2 * pixels * c + weights)
 
 
 def k3_work(rows: int, c: int) -> tuple[float, float]:
@@ -320,9 +355,10 @@ def images_per_s(model, lq, iters: int = 20) -> float:
     return iters * lq.shape[0] / (time.perf_counter() - t0)
 
 
-def run_slice() -> None:
+def run_slice() -> list[str]:
     """The shipped yml through the port's test_pipeline, then the kernel path
-    against the plain path on one image, and the eval rate at 128 x 128."""
+    against the plain path on one image, and the eval rate at 128 x 128;
+    returns the --force_yml dataroot overrides of the synthetic PNGs."""
     import shutil
 
     import numpy as np
@@ -392,6 +428,7 @@ def run_slice() -> None:
         plain_rate = images_per_s(model, lq)
     print(f"[4] eval forward at 128x128, batch 1, fp32: kernel path {rate:.2f} images/s "
           f"(peak {peak:.0f} MiB), plain path {plain_rate:.2f} images/s", flush=True)
+    return force
 
 
 def check_k2() -> dict:
@@ -719,6 +756,194 @@ def run_training() -> dict:
           f"plain path {plain_step_ms:.2f} ms/step (peak {plain_peak:.0f} MiB)", flush=True)
     return {"launches": launches, "step_ms": step_ms, "plain_step_ms": plain_step_ms}
 
+def mdta_params(c: int, heads: int, gen, dtype, device):
+    """K6's parameters in the op's layout, F = int(2.66 C): weights of unit gain,
+    random LayerNorm affines and temperatures.  Each weight is drawn in
+    PyTorch's layout and passed as the op-layout view a module passes, so the
+    wrapper copies nothing, as on the nets' path."""
+    import torch
+
+    def r(*shape, scale=0.3, shift=0.0):
+        return (torch.randn(*shape, generator=gen) * scale + shift).to(device=device, dtype=dtype)
+
+    f = int(c * 2.66)
+    return [r(c, shift=1.0), r(c), r(3 * c, c, scale=c ** -0.5).t(), r(3 * c, 3, 3, scale=1 / 3).permute(1, 2, 0),
+            r(heads, 1, 1, shift=1.0), r(c, c, scale=c ** -0.5).t(), r(c, shift=1.0), r(c),
+            r(2 * f, c, scale=c ** -0.5).t(), r(2 * f, 3, 3, scale=1 / 3).permute(1, 2, 0), r(c, f, scale=f ** -0.5).t()]
+
+
+def check_k6() -> dict:
+    """K6 against its plain version on the card at the stage, noise-level and
+    ragged shapes in both flavours (B = 1), each call twice for equal bits;
+    totals per Restormer and per PromptIR forward at 128 x 128: device time
+    (``ms``, ``plain_ms``) and CUDA events around back-to-back calls (``call_ms``)."""
+    import torch
+
+    from dcpt_tpu_torch.ops.mdta_block import mdta_block_fused, mdta_block_ref
+
+    gen = torch.Generator().manual_seed(9)
+    names = {RESTORMER_FLAVOUR: "relu", PROMPTIR_FLAVOUR: "softmax"}
+    cases = [(s, s, c, heads, RESTORMER_FLAVOUR, "float32") for c, s, heads in K6_BODY]
+    cases += [(s, s, c, heads, PROMPTIR_FLAVOUR, "float32") for c, s, heads in [*K6_BODY, *K6_NOISE]]
+    cases += [(h, w, c, heads, fl, "float32") for h, w, c, heads in K6_RAGGED for fl in names]
+    cases += [(s, s, c, heads, fl, "bfloat16") for c, s, heads in [(48, 128, 1), (384, 16, 8)] for fl in names]
+    times, worst = {}, {"float32": 0.0, "bfloat16": 0.0}
+    print(f"  {'C':>4} {'H':>4} {'W':>4} {'heads':>5} {'act':>7} {'dtype':>9} {'max_abs':>10} {'rel':>10} "
+          f"{'kernel_ms':>10} {'plain_ms':>10} {'call_ms':>10} {'plain_call':>10} {'bound_ms':>10}  (kernel_ms, "
+          f"plain_ms: device time per call, torch.profiler; call_ms: CUDA events around back-to-back calls)")
+    with torch.no_grad():
+        for h, w, c, heads, flavour, dname in cases:
+            dtype = getattr(torch, dname)
+            x = torch.randn(1, h, w, c, generator=gen).to(device="cuda", dtype=dtype)
+            params = mdta_params(c, heads, gen, dtype, "cuda")
+            z = mdta_block_fused(x, *params, heads, *flavour)
+            again = mdta_block_fused(x, *params, heads, *flavour)
+            # the plain version computes in fp32 on the same (rounded) inputs; the kernel's math is fp32 too
+            ref = mdta_block_ref(x.float(), *[p.float() for p in params], heads, *flavour)
+            torch.cuda.synchronize()
+            if z.shape != x.shape or z.dtype != dtype or not torch.isfinite(z).all():
+                raise RuntimeError(f"K6 C={c} {h}x{w} {dname}: bad output {tuple(z.shape)} {z.dtype}")
+            if not torch.equal(z, again):
+                raise RuntimeError(f"K6 C={c} {h}x{w} {dname}: two runs on the same inputs differ")
+            err = (z.float() - ref).abs().max().item()
+            rel = err / max(1.0, ref.abs().max().item())
+            kernel = lambda: mdta_block_fused(x, *params, heads, *flavour)  # noqa: E731
+            plain = lambda: mdta_block_ref(x, *params, heads, *flavour)  # noqa: E731
+            # each call is a few hundred microseconds of host work (allocations, a dozen launches),
+            # so CUDA events around back-to-back calls can measure the host: time the device too
+            k_funcs = device_ms_by_function(kernel, 10)[0]
+            if set(k_funcs) != K6_FUNCTIONS:
+                raise RuntimeError(f"K6's profile shows {sorted(k_funcs)}, expected {sorted(K6_FUNCTIONS)}")
+            k_ms, p_ms = sum(k_funcs.values()), sum(device_ms_by_function(plain, 10)[0].values())
+            k_call, p_call = cuda_ms(kernel), cuda_ms(plain)
+            b_ms = bound([(1, *k6_work(c, int(2.66 * c), c // heads, h * w))])[0]
+            print(f"  {c:>4} {h:>4} {w:>4} {heads:>5} {names[flavour]:>7} {dname:>9} {err:>10.3e} {rel:>10.3e} "
+                  f"{k_ms:>10.4f} {p_ms:>10.4f} {k_call:>10.4f} {p_call:>10.4f} {b_ms:>10.4f}", flush=True)
+            if rel > TOL[dname]:
+                raise RuntimeError(f"K6 C={c} {h}x{w} {names[flavour]} {dname}: error {rel:.3e} above {TOL[dname]:.0e}")
+            worst[dname] = max(worst[dname], rel)
+            if dname == "float32" and h == w:
+                times[(c, h, heads, flavour)] = (k_ms, p_ms, k_call, p_call)
+    print("  K6 twice on the same inputs: equal bit for bit at every shape", flush=True)
+    per_net = {"Restormer": [(n, key, RESTORMER_FLAVOUR) for key, n in K6_BODY.items()],
+               "PromptIR": [(n, key, PROMPTIR_FLAVOUR) for key, n in [*K6_BODY.items(), *K6_NOISE.items()]]}
+    out = {"max_abs_err": worst["float32"], "bf16_rel_err": worst["bfloat16"], "library_ms": None}
+    for net, blocks in per_net.items():
+        bound_ms, bound_by = bound([(n, *k6_work(c, int(2.66 * c), c // heads, s * s)) for n, (c, s, heads), _ in blocks])
+        ms, plain_ms, call_ms, plain_call_ms = (sum(n * times[(*key, fl)][i] for n, key, fl in blocks)
+                                                for i in range(4))
+        prefix = "" if net == "Restormer" else "promptir_"
+        out.update({f"{prefix}ms": ms, f"{prefix}plain_ms": plain_ms, f"{prefix}call_ms": call_ms,
+                    f"{prefix}plain_call_ms": plain_call_ms, f"{prefix}bound_ms": bound_ms,
+                    f"{prefix}bound_by": bound_by})
+    return out
+
+
+def write_transformer_checkpoint(yml: Path, path: Path, seed: int) -> None:
+    """Seeded full-width weights of the yml's network_g, with random LayerNorm
+    affines and temperatures, saved under params_ema with the reference's keys."""
+    import torch
+
+    from dcpt_tpu_torch.archs import build_network
+    from dcpt_tpu_torch.utils.options import yaml_load
+
+    torch.manual_seed(seed)
+    net = build_network(yaml_load(str(yml))["network_g"])
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if ".norm" in name or name.endswith("temperature"):
+                p.copy_(torch.rand(p.shape, generator=gen) + 0.5 if name.endswith(("weight", "temperature"))
+                        else torch.randn(p.shape, generator=gen) * 0.3)
+    torch.save({"params_ema": net.state_dict()}, path)
+
+
+def _plain_transformer_forward(self, inp):
+    """TransformerBlock.forward (PromptTransformerBlock's too) with K6's plain version."""
+    import torch
+
+    from dcpt_tpu_torch.ops.mdta_block import mdta_block_ref
+
+    x = inp.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+    return mdta_block_ref(x, *self.op_args(), self.attn.num_heads, self.attn.use_softmax, self.norm1.with_bias,
+                          self.norm1.eps).permute(0, 3, 1, 2)
+
+
+def run_transformer_slices(force: list[str]) -> dict:
+    """Both shipped transformer eval ymls through test_pipeline at full width on
+    the PNGs of [4]; per net: K6 launches per image, a ragged image against the
+    plain path, device time per forward by kernel, eval rates of both paths."""
+    import numpy as np
+    import torch
+
+    from dcpt_tpu_torch.archs.restormer_arch import TransformerBlock
+    from dcpt_tpu_torch.models import build_model
+    from dcpt_tpu_torch.ops.mdta_block import mdta_block_fused
+    from dcpt_tpu_torch.test import test_pipeline
+    from dcpt_tpu_torch.utils.options import parse_options
+
+    n_images, launches = 10, {}
+    for seed, (arch, yml) in enumerate(TRANSFORMER_YMLS.items()):
+        ckpt = WORK / f"{arch}.pth"
+        write_transformer_checkpoint(yml, ckpt, seed=10 + seed)
+        args = ["-opt", str(yml), "--force_yml", *force, f"path:pretrain_network_g={ckpt}"]
+        mdta_block_fused.launches = 0
+        t0 = time.perf_counter()
+        results = test_pipeline(str(WORK / arch), args=args)
+        torch.cuda.synchronize()
+        launches[arch] = mdta_block_fused.launches
+        print(f"[9] test_pipeline on {yml.name}: {time.perf_counter() - t0:.1f} s, K6 launches {launches[arch]} for "
+              f"{n_images} forwards ({K6_PER_FORWARD[arch]} TransformerBlocks each)", flush=True)
+        for name, metrics in results.items():
+            print(f"    {name}: " + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items()), flush=True)
+        if set(results) != {"Rain100L", "CBSD68", "SOTS", "deblur", "LowLight"}:
+            raise RuntimeError(f"{arch}: datasets evaluated: {sorted(results)}")
+        if not all(np.isfinite(v) for m in results.values() for v in m.values()):
+            raise RuntimeError(f"{arch}: non-finite metrics: {results}")
+        if launches[arch] != K6_PER_FORWARD[arch] * n_images:
+            raise RuntimeError(f"{arch}: K6 ran {launches[arch]} times for {n_images} forwards, expected "
+                               f"{K6_PER_FORWARD[arch]} per forward")
+
+        opt, _ = parse_options(str(WORK / arch), is_train=False, args=args)
+        model = build_model(opt)
+        gen = torch.Generator().manual_seed(11)
+        model.feed_data({"lq": torch.rand(1, 3, 118, 70, generator=gen)})
+        model.pre_test()
+        model.test()
+        kernel_out = model.output.clone()
+        with mock.patch.object(TransformerBlock, "forward", _plain_transformer_forward):
+            model.test()
+        plain_out = model.output
+        if kernel_out.shape != (1, 3, 120, 72) or not torch.isfinite(kernel_out).all():
+            raise RuntimeError(f"{arch}: bad network output {tuple(kernel_out.shape)}")
+        rel = (kernel_out - plain_out).abs().max().item() / max(1.0, plain_out.abs().max().item())
+        print(f"[9] {arch}, one image (118x70, padded to 120x72, latent 15x9): kernel path vs plain path "
+              f"{rel:.3e} relative to max(1, max|plain|) (limit 1e-4, fp32, TF32 off)", flush=True)
+        if rel > 1e-4:
+            raise RuntimeError(f"{arch}: kernel path and plain path differ by {rel:.3e}")
+
+        lq = torch.rand(1, 3, 128, 128, generator=gen).cuda()
+        model.lq = lq
+        funcs, wall_ms = device_ms_by_function(model.test, 5)
+        missing = sorted(K6_FUNCTIONS - set(funcs))
+        if missing:
+            raise RuntimeError(f"{arch}: the forward's profile shows no {missing}")
+        k6_ms = sum(ms for f, ms in funcs.items() if f in K6_FUNCTIONS)
+        other_ms = sum(ms for f, ms in funcs.items() if f not in K6_FUNCTIONS)
+        top = sorted(((ms, f) for f, ms in funcs.items() if f in K6_FUNCTIONS), reverse=True)[:4]
+        print(f"[9] {arch} forward at 128x128 (torch.profiler, 5 forwards): device {k6_ms + other_ms:.2f} ms of "
+              f"{wall_ms:.2f} ms wall (busy {100 * (k6_ms + other_ms) / wall_ms:.1f} %): K6 {k6_ms:.2f} ms ("
+              + ", ".join(f"{f} {ms:.2f}" for ms, f in top) + f"), PyTorch (convs, shuffles, prompts) {other_ms:.2f} ms",
+              flush=True)
+        torch.cuda.reset_peak_memory_stats()
+        rate = images_per_s(model, lq)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        with mock.patch.object(TransformerBlock, "forward", _plain_transformer_forward):
+            plain_rate = images_per_s(model, lq)
+        print(f"[9] {arch} eval forward at 128x128, batch 1, fp32: kernel path {rate:.2f} images/s (peak {peak:.0f} "
+              f"MiB), plain path {plain_rate:.2f} images/s", flush=True)
+    return {arch: n // n_images for arch, n in launches.items()}
+
 
 def main() -> int:
     if not (ROOT / "dcpt_tpu_torch" / "__init__.py").exists():
@@ -739,7 +964,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     build_s = build_kernels()
-    print(f"[2] built K1, K2, K3 in {', '.join(f'{b:.1f}' for b in build_s)} s (nvcc, in parallel), "
+    print(f"[2] built K1, K2, K3, K6 in {', '.join(f'{b:.1f}' for b in build_s)} s (nvcc, in parallel), "
           f"phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     print("[3] K1 naf_block_fused vs naf_block_ref, B=2, TF32 off", flush=True)
@@ -747,7 +972,7 @@ def main() -> int:
     print(f"[3] K1 per NAFNet-w64 forward (B=2, 128x128, 36 blocks): kernel {k1['ms']:.3f} ms, "
           f"plain {k1['plain_ms']:.3f} ms, bound {k1['bound_ms']:.3f} ms ({k1['bound_by']})", flush=True)
 
-    run_slice()
+    force = run_slice()
 
     print(f"[5] K2 naf_block_bwd vs naf_block_bwd_ref, B=2, fp32, limit {K2_TOL:.0e} relative", flush=True)
     k2 = check_k2()
@@ -762,13 +987,28 @@ def main() -> int:
 
     train = run_training()
 
+    print("[8] K6 mdta_block_fused vs mdta_block_ref, B=1, TF32 off; limits 1e-4 (fp32), 2e-2 (bf16) relative to "
+          "max(1, max|ref|)", flush=True)
+    k6 = check_k6()
+    for net, pre, blocks in (("Restormer", "", 44), ("PromptIR", "promptir_", 47)):
+        print(f"[8] K6 per {net} forward (128x128, {blocks} blocks): device {k6[pre + 'ms']:.3f} ms (plain "
+              f"{k6[pre + 'plain_ms']:.3f} ms), back-to-back calls {k6[pre + 'call_ms']:.3f} ms (plain "
+              f"{k6[pre + 'plain_call_ms']:.3f} ms), bound {k6[pre + 'bound_ms']:.3f} ms ({k6[pre + 'bound_by']})",
+              flush=True)
+
+    k6_launches = run_transformer_slices(force)
+
+    launches = dict(train["launches"], mdta_block_fused=k6_launches["Restormer"])
     kernels = []
-    for name, measured in (("naf_block_fused", k1), ("naf_block_bwd", k2), ("layer_norm_2d", k3)):
+    for name, measured in (("naf_block_fused", k1), ("naf_block_bwd", k2), ("layer_norm_2d", k3),
+                           ("mdta_block_fused", k6)):
         source, replaces = KERNELS[name]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": train["launches"][name], "max_abs_err": measured["max_abs_err"],
+                        "launches": launches[name], "max_abs_err": measured["max_abs_err"],
                         "ms": measured["ms"], "plain_ms": measured["plain_ms"], "bound_ms": measured["bound_ms"],
                         "bound_by": measured["bound_by"], "library_ms": measured["library_ms"]})
+    kernels[-1].update(launches_promptir=k6_launches["PromptIR"], call_ms=k6["call_ms"],
+                       **{k: v for k, v in k6.items() if k.startswith("promptir_") and k != "promptir_bound_by"})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,7 @@
 from copy import deepcopy
 
 from ..utils.registry import ARCH_REGISTRY
-from . import degrad_classify_arch, nafnet_arch  # noqa: F401  (register their archs)
+from . import degrad_classify_arch, nafnet_arch, promptir_arch, restormer_arch  # noqa: F401  (register their archs)
 
 __all__ = ["build_network"]
 

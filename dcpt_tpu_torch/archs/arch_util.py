@@ -2,16 +2,26 @@
 
 Parameters keep PyTorch's default initialisation, which is the reference's:
 ``nn.Conv2d``'s kaiming-uniform(a=sqrt(5)) weights with fan-in uniform biases,
-and LayerNorm2d's weight 1 / bias 0.
+and LayerNorm2d's weight 1 / bias 0.  dcpt_tpu's ``pixel_shuffle`` and
+``pixel_unshuffle`` are PyTorch's own (``F.pixel_shuffle``, ``nn.PixelShuffle``
+and their inverses give the reference's channel order).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.layernorm2d import layer_norm_2d
 from ..ops.naf_block import layer_norm_last
+
+
+def resize_bilinear(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """Bilinear resize of an NCHW map, half-pixel centres, no antialias: what
+    dcpt_tpu's ``jax.image.resize(..., antialias=False)`` computes (its
+    ``arch_util.py:239-261``)."""
+    return F.interpolate(x, size=tuple(out_hw), mode="bilinear", align_corners=False)
 
 
 class LayerNorm2d(nn.Module):

@@ -32,7 +32,20 @@ _DC_INVERSE = [
     (re.compile(r"^downsample_layers_(\d+)\."), r"downsample_layers.\1.0."),
     (re.compile(r"\.(conv1|conv2|conv3|shortcut)_norm\."), r".\1.norm."),
 ]
-INVERSE_KEY_MAPS = {"NAFNetBaseline": _NAFNET_INVERSE, "PromptIR_DC": _DC_INVERSE, "PromptIR_NoImg_DC": _DC_INVERSE}
+# inverse of dcpt_tpu/archs/restormer_arch.py::_COMMON_RENAMES (and the same
+# renames in promptir_arch.py::_PROMPTIR_RENAMES); the level rename comes first
+_RESTORMER_COMMON = [
+    (re.compile(r"\.(norm1|norm2)\.(weight|bias)$"), r".\1.body.\2"),
+    (re.compile(r"^(down\d_\d|up\d_\d)\."), r"\1.body.0."),
+    (re.compile(r"^patch_embed\."), r"patch_embed.proj."),
+    (re.compile(r"^output_(\d+)\."), r"output.\1."),
+]
+_LEVEL = r"^(encoder_level\d|latent|decoder_level\d|refinement)_(\d+)\."
+_RESTORMER_INVERSE = [(re.compile(_LEVEL), r"\1.body.\2."), *_RESTORMER_COMMON]  # inverse of _SEQ_BODY
+_PLAIN_LEVELS_INVERSE = [(re.compile(_LEVEL), r"\1.\2."), *_RESTORMER_COMMON]  # of _SEQ_PLAIN, PromptIR's levels
+INVERSE_KEY_MAPS = {"NAFNetBaseline": _NAFNET_INVERSE, "PromptIR_DC": _DC_INVERSE, "PromptIR_NoImg_DC": _DC_INVERSE,
+                    "Restormer": _RESTORMER_INVERSE, "Restormer_origin": _PLAIN_LEVELS_INVERSE,
+                    "PromptIR": _PLAIN_LEVELS_INVERSE}
 
 
 def _flatten(tree: dict, prefix: str = ""):

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1, K2, K3) against their plain versions, on the card.
+"""The port's CUDA kernels (K1, K2, K3, K6) against their plain versions, on the card.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU: a CUDA
 kernel has no CPU mode.  The file imports neither JAX nor dcpt_tpu, so it runs
@@ -16,7 +16,10 @@ import pytest
 import torch
 
 from dcpt_tpu_torch.archs.nafnet_arch import NAFBlock, NAFNetBaseline
+from dcpt_tpu_torch.archs.promptir_arch import PromptIR
+from dcpt_tpu_torch.archs.restormer_arch import Restormer, TransformerBlock
 from dcpt_tpu_torch.ops import layernorm2d as tln
+from dcpt_tpu_torch.ops import mdta_block as tmb
 from dcpt_tpu_torch.ops import naf_block as tnb
 from dcpt_tpu_torch.ops import naf_block_bwd as tnbb
 
@@ -213,3 +216,87 @@ def test_bf16_training_raises(cuda):
     x.requires_grad_()
     with pytest.raises(NotImplementedError, match="mixed precision"):
         tnb.naf_block_fused(x, *params)
+
+
+def _mdta_inputs(b, h, w, c, heads, seed, device, dtype):
+    """x and K6's 11 parameters in the op's layout, weights of unit gain, F = int(2.66 C)."""
+    rng = np.random.default_rng(seed)
+    f = int(c * 2.66)
+
+    def r(*shape, scale=0.3, shift=0.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale + shift).astype(np.float32)).to(device, dtype)
+
+    return r(b, h, w, c, scale=1.0), [r(c, shift=1.0), r(c), r(c, 3 * c, scale=c ** -0.5), r(3, 3, 3 * c, scale=1 / 3),
+                                      r(heads, 1, 1, shift=1.0), r(c, c, scale=c ** -0.5), r(c, shift=1.0), r(c),
+                                      r(c, 2 * f, scale=c ** -0.5), r(3, 3, 2 * f, scale=1 / 3),
+                                      r(f, c, scale=f ** -0.5)]
+
+
+# (B, H, W, C, heads), flavour (use_softmax, ln_bias, eps), dtype, limit relative to max(1, max|ref|)
+@pytest.mark.parametrize("shape,flavour,dtype,tol", [
+    ((1, 64, 64, 48, 1), (False, False, 1e-6), torch.float32, 1e-4),    # Restormer level 1 (64-pixel tiles)
+    ((2, 16, 16, 384, 8), (False, False, 1e-6), torch.float32, 1e-4),   # the latent, two images
+    ((1, 61, 41, 96, 1), (False, False, 1e-6), torch.float32, 1e-4),    # ragged, one 96-wide head
+    ((1, 32, 32, 320, 4), (True, True, 1e-5), torch.float32, 1e-4),     # PromptIR noise_level2 (ch 80)
+    ((1, 16, 16, 704, 4), (True, True, 1e-5), torch.float32, 1e-4),     # noise_level3 (ch 176, F 1872)
+    ((1, 1, 1, 160, 4), (True, True, 1e-5), torch.float32, 1e-4),       # a 1 x 1 map
+    ((1, 32, 32, 48, 1), (True, True, 1e-5), torch.bfloat16, 2e-2),
+])
+def test_k6_matches_plain(cuda, shape, flavour, dtype, tol):
+    """fp32 math in both; the bf16 kernel is held against the plain version in fp32
+    on the same rounded inputs."""
+    b, h, w, c, heads = shape
+    x, params = _mdta_inputs(b, h, w, c, heads, seed=c, device=cuda, dtype=dtype)
+    before = tmb.mdta_block_fused.launches
+    with torch.no_grad():
+        z = tmb.mdta_block_fused(x, *params, heads, *flavour)
+    assert tmb.mdta_block_fused.launches == before + 1
+    ref = tmb.mdta_block_ref(x.float(), *[p.float() for p in params], heads, *flavour)
+    torch.cuda.synchronize()
+    assert z.shape == x.shape and z.dtype == dtype
+    assert _rel(z.float(), ref) <= tol, _rel(z.float(), ref)
+
+
+def test_k6_is_deterministic_and_returns_its_residuals(cuda):
+    x, params = _mdta_inputs(1, 40, 40, 96, 2, seed=3, device=cuda, dtype=torch.float32)
+    first, res = tmb._kernel_forward(x, params, 2, False, False, 1e-6, residuals=True)
+    second = tmb._kernel_forward(x, params, 2, False, False, 1e-6)
+    assert torch.equal(first, second)
+    v, gram, qn2, kn2, attn = res
+    assert v.shape == x.shape and gram.shape == (1, 96, 48) and qn2.shape == kn2.shape == (1, 96)
+    assert attn.shape == (1, 96, 96) and not attn[0, :48, 48:].any()
+
+
+def test_k6_raises_under_autograd(cuda):
+    """The backward kernel is not ported: no silent result without a grad_fn."""
+    x, params = _mdta_inputs(1, 8, 8, 48, 1, seed=0, device=cuda, dtype=torch.float32)
+    params[2].requires_grad_()
+    before = tmb.mdta_block_fused.launches
+    with pytest.raises(NotImplementedError, match="backward"):
+        tmb.mdta_block_fused(x, *params, 1, False, False)
+    assert tmb.mdta_block_fused.launches == before
+    with torch.no_grad():
+        assert tmb.mdta_block_fused(x, *params, 1, False, False).grad_fn is None
+
+
+def _plain_transformer_forward(self, inp):
+    x = inp.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+    return tmb.mdta_block_ref(x, *self.op_args(), self.attn.num_heads, self.attn.use_softmax, self.norm1.with_bias,
+                              self.norm1.eps).permute(0, 3, 1, 2)
+
+
+@pytest.mark.parametrize("arch,blocks", [("Restormer", 8), ("PromptIR", 11)])
+def test_transformer_nets_kernel_path_matches_plain_path(cuda, arch, blocks):
+    """Width 8, one block per level: one K6 call per TransformerBlock, and the
+    output of the plain path within 1e-4 (fp32, TF32 off) on a ragged input."""
+    torch.manual_seed(0)
+    cfg = dict(dim=8, num_blocks=[1, 1, 1, 1], num_refinement_blocks=1, heads=[1, 2, 4, 8])
+    net = (Restormer(**cfg) if arch == "Restormer" else PromptIR(**cfg)).to(cuda).eval()
+    x = torch.rand(1, 3, 48, 40, generator=torch.Generator().manual_seed(2)).to(cuda)
+    before = tmb.mdta_block_fused.launches
+    with torch.inference_mode():
+        out, _ = net(x)
+        assert tmb.mdta_block_fused.launches == before + blocks
+        with mock.patch.object(TransformerBlock, "forward", _plain_transformer_forward):
+            ref, _ = net(x)
+    assert _rel(out, ref) <= 1e-4

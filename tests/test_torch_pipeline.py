@@ -1,6 +1,7 @@
-"""The slice end to end: the shipped test_NAFNet_5d.yml through the PyTorch
-port's test_pipeline and through dcpt_tpu's, on the same synthetic data and
-one shared torch checkpoint (num_gpu 0, a tiny width and depth)."""
+"""The eval slices end to end: the shipped test_NAFNet_5d.yml, test_Restormer_5d.yml
+and test_PromptIR_5d.yml through the PyTorch port's test_pipeline and through
+dcpt_tpu's, on the same synthetic data and one shared torch checkpoint per net
+(num_gpu 0, a tiny width and depth)."""
 
 import os
 
@@ -11,12 +12,21 @@ import torch
 
 from dcpt_tpu.data import build_dataset as jax_build_dataset
 from dcpt_tpu.test import test_pipeline as jax_test_pipeline
+from dcpt_tpu_torch.archs import build_network
 from dcpt_tpu_torch.archs.nafnet_arch import NAFNetBaseline
 from dcpt_tpu_torch.data import build_dataset
 from dcpt_tpu_torch.test import test_pipeline as port_test_pipeline
 from dcpt_tpu_torch.utils.options import yaml_load
 
 YML = os.path.join(os.path.dirname(__file__), "..", "options", "all_in_one", "test", "test_NAFNet_5d.yml")
+# the shipped Restormer and PromptIR eval ymls, each with tiny network overrides
+# (PromptIR's as tests/test_pipeline_all_archs.py's: its prompts are 64/128/320 wide at any dim)
+TRANSFORMER_YMLS = {
+    "test_Restormer_5d.yml": {"type": "Restormer", "dim": 8, "num_blocks": [1, 1, 1, 1], "num_refinement_blocks": 1,
+                              "heads": [1, 2, 2, 4]},
+    "test_PromptIR_5d.yml": {"type": "PromptIR", "dim": 48, "num_blocks": [1, 1, 1, 1], "num_refinement_blocks": 1,
+                             "heads": [1, 2, 4, 8]},
+}
 TINY = ["network_g:width=8", "network_g:enc_blk_nums=[1,1]", "network_g:middle_blk_num=1",
         "network_g:dec_blk_nums=[1,1]"]
 SIZES = [(32, 32), (24, 40)]  # the second one is reflect-padded to 32 x 48
@@ -102,3 +112,37 @@ def test_num_gpu_without_cuda_raises(run_args):
     args = [a if a != "num_gpu=0" else "num_gpu=1" for a in args]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_test_pipeline(str(root / "cuda"), args=args)
+
+
+def _transformer_checkpoint(path, net_opt):
+    """Seeded weights of a tiny Restormer / PromptIR with random LayerNorm affines
+    and temperatures, saved under params_ema as the reference does."""
+    torch.manual_seed(0)
+    net = build_network(net_opt)
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if ".norm" in name or name.endswith("temperature"):
+                p.copy_(torch.rand(p.shape, generator=gen) + 0.5 if name.endswith(("weight", "temperature"))
+                        else torch.randn(p.shape, generator=gen) * 0.3)
+    torch.save({"params_ema": net.state_dict()}, path)
+
+
+@pytest.mark.parametrize("yml", list(TRANSFORMER_YMLS))
+def test_transformer_pipelines_match_dcpt_tpu(yml, run_args):
+    """PSNR within 0.01 dB and SSIM within 1e-4 of dcpt_tpu's pipeline on the same checkpoint."""
+    root, args = run_args
+    net_opt = TRANSFORMER_YMLS[yml]
+    ckpt = root / f"{net_opt['type']}.pth"
+    _transformer_checkpoint(str(ckpt), net_opt)
+    path = os.path.join(os.path.dirname(YML), yml)
+    force = [a for a in args[3:] if a.startswith(("datasets:", "num_gpu"))]
+    network = [f"network_g:{k}={v}".replace(" ", "") for k, v in net_opt.items() if k != "type"]
+    args = ["-opt", path, "--force_yml", *force, *network, f"path:pretrain_network_g={ckpt}"]
+    ours = port_test_pipeline(str(root / f"torch_{net_opt['type']}"), args=args)
+    ref = jax_test_pipeline(str(root / f"jax_{net_opt['type']}"), args=args)
+    assert set(ours) == set(ref) == {"Rain100L", "CBSD68", "SOTS", "deblur", "LowLight"}
+    for name in ref:
+        assert np.isfinite(ours[name]["psnr"]) and np.isfinite(ours[name]["ssim"])
+        assert abs(ours[name]["psnr"] - ref[name]["psnr"]) <= 0.01, (name, ours[name], ref[name])
+        assert abs(ours[name]["ssim"] - ref[name]["ssim"]) <= 1e-4, (name, ours[name], ref[name])
