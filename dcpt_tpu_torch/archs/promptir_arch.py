@@ -3,8 +3,8 @@
 The Restormer U-Net of ``restormer_arch.py`` with softmax attention, WithBias
 LayerNorm of eps 1e-5, and learnable prompt banks fused in at three decoder
 levels.  Every bias-free ``PromptTransformerBlock`` runs as one call of
-``ops.mdta_block.mdta_block_fused`` (kernel K6 on a CUDA tensor), as in
-``restormer_arch.py``.
+``ops.mdta_block.mdta_block_fused`` (kernel K6 on a CUDA tensor, K7 its
+backward under autograd), as in ``restormer_arch.py``.
 
 Reference quirks that dcpt_tpu keeps, and so does this port:
 

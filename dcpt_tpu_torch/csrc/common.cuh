@@ -1,6 +1,6 @@
 // Helpers shared by the port's CUDA sources: loads and stores in the I/O type,
-// a warp sum, and a deterministic column sum over rows (no atomics, so a sum
-// over pixels comes out the same bit for bit from run to run).
+// a warp sum, a depthwise 3x3 stencil, and a deterministic column sum over rows
+// (no atomics, so a sum over pixels comes out the same bit for bit from run to run).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -24,9 +24,29 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Depthwise 3x3 (cross-correlation, as F.conv2d) of channel c of a (B, H, W, ld)
+// fp32 map at pixel (b, yy, xx), zero outside the image; w (channels, 3, 3).
+template <typename T>
+__device__ __forceinline__ float dw3x3(const float* __restrict__ in, const T* __restrict__ w, int b, int yy, int xx,
+                                       int c, int H, int W, int ld_) {
+  float s = 0.f;
+#pragma unroll
+  for (int dy = -1; dy <= 1; ++dy) {
+    const int y = yy + dy;
+    if (y < 0 || y >= H) continue;
+#pragma unroll
+    for (int dx = -1; dx <= 1; ++dx) {
+      const int xq = xx + dx;
+      if (xq < 0 || xq >= W) continue;
+      s = fmaf(in[(((size_t)b * H + y) * W + xq) * ld_ + c], ld(w[(size_t)c * 9 + (dy + 1) * 3 + dx + 1]), s);
+    }
+  }
+  return s;
+}
+
 // out[b][r'][c] = sum over r in [r' * kSumRows, (r' + 1) * kSumRows) of in[b][r][c],
 // in row order; a row of in is ld floats apart, a row of out Cn.  Owner is the
-// number of the kernel that calls it (K2, K3), so a profile tells their sums apart.
+// number of the kernel that calls it (K2, K3, K6, K7), so a profile tells their sums apart.
 template <int Owner>
 __global__ void __launch_bounds__(kThreads)
 colsum_kernel(const float* __restrict__ in, int R, int Cn, int ld, float* __restrict__ out) {

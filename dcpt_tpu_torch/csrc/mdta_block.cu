@@ -87,59 +87,6 @@ __device__ __forceinline__ void ln_stats(const T* __restrict__ rows, int np, int
   }
 }
 
-// acc[r][i] = sum over k in [kbeg, kend) of A(p, k) * w[n][k] for the block's
-// rows p = ty + 16 r and columns n = n0 + tx + 16 i, A(p, k) = load_a(p, k),
-// w (N, ldw) row-major (PyTorch's (out, in)).  Columns n >= N and depths
-// k >= kend read as zero, so ragged widths need no padding.  Uses
-// gemm_smem_floats(RM) floats at smem.
-template <int RM, typename TW, typename LoadA>
-__device__ __forceinline__ void gemm_masked(float* smem, const TW* __restrict__ w, int ldw, int N, int n0, int kbeg,
-                                            int kend, LoadA load_a, float (&acc)[RM][4]) {
-  constexpr int P = 16 * RM, lda = P + 1;
-  float* sA = smem;
-  float* sW = sA + kKC * lda;
-  float unused[RM][4];
-#pragma unroll
-  for (int r = 0; r < RM; ++r)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[r][i] = 0.f;
-  for (int k0 = kbeg; k0 < kend; k0 += kKC) {
-    __syncthreads();
-    // lanes run along k: coalesced reads, conflict-free transposing stores (lda is odd)
-    for (int idx = threadIdx.x; idx < P * kKC; idx += kThreads) {
-      const int p = idx / kKC, kk = idx % kKC;
-      sA[kk * lda + p] = k0 + kk < kend ? load_a(p, k0 + kk) : 0.f;
-    }
-    const int kk = threadIdx.x & 31;
-    const bool kin = k0 + kk < kend;
-    for (int n = threadIdx.x >> 5; n < kNB; n += kThreads / 32)
-      sW[kk * kWS + n] = kin && n0 + n < N ? ld(w[(size_t)(n0 + n) * ldw + k0 + kk]) : 0.f;
-    __syncthreads();
-    mma_chunk<RM, false>(sA, lda, sW, sW, acc, unused);
-  }
-}
-
-// The products share one grid: (pixel tiles of 16 * RM, column blocks of kNB, B).
-#define GEMM_PROLOGUE                                                    \
-  constexpr int P = 16 * RM;                                             \
-  extern __shared__ float smem[];                                        \
-  const int b = blockIdx.z, p0 = blockIdx.x * P, n0 = blockIdx.y * kNB;  \
-  const int np = min(P, HW - p0);                                        \
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;                \
-  constexpr int kGemmFloats = kKC * (P + 1) + 2 * kWChunk; /* gemm_smem_floats(RM) */ \
-  float acc[RM][4];
-
-// Visit the block's outputs (row p < np, column n < N) with their accumulators.
-#define GEMM_EPILOGUE(N, BODY)                                  \
-  _Pragma("unroll") for (int r = 0; r < RM; ++r)                \
-  _Pragma("unroll") for (int i = 0; i < 4; ++i) {               \
-    const int p = ty + 16 * r, n = n0 + tx + 16 * i;            \
-    if (p < np && n < (N)) {                                    \
-      const float a = acc[r][i];                                \
-      BODY                                                      \
-    }                                                           \
-  }
-
 // LN(rows)[p][k] with the statistics in sMu / sRs: BiasFree keeps the
 // uncentred value (x * rsigma * w), WithBias centres it and adds b.
 template <typename T, typename TW>
@@ -166,26 +113,6 @@ mdta_qkv_kernel(const T* __restrict__ x, const T* __restrict__ n1w, const T* __r
   GEMM_EPILOGUE(3 * C, tb[(size_t)p * 3 * C + n] = a;)
 }
 
-// Depthwise 3x3 (cross-correlation, as F.conv2d) of channel c of a (B, H, W, ld)
-// fp32 map at pixel (b, yy, xx), zero outside the image; w (channels, 3, 3).
-template <typename T>
-__device__ __forceinline__ float dw3x3(const float* __restrict__ in, const T* __restrict__ w, int b, int yy, int xx,
-                                       int c, int H, int W, int ld_) {
-  float s = 0.f;
-#pragma unroll
-  for (int dy = -1; dy <= 1; ++dy) {
-    const int y = yy + dy;
-    if (y < 0 || y >= H) continue;
-#pragma unroll
-    for (int dx = -1; dx <= 1; ++dx) {
-      const int xq = xx + dx;
-      if (xq < 0 || xq >= W) continue;
-      s = fmaf(in[(((size_t)b * H + y) * W + xq) * ld_ + c], ld(w[(size_t)c * 9 + (dy + 1) * 3 + dx + 1]), s);
-    }
-  }
-  return s;
-}
-
 // qkv = depthwise 3x3 of t, all 3C channels; one thread per (pixel, channel)
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -209,50 +136,15 @@ mdta_dw_kernel(const float* __restrict__ t, const T* __restrict__ wdw, float* __
 __global__ void __launch_bounds__(kThreads)
 mdta_gram_kernel(const float* __restrict__ qkv, float* __restrict__ part, int HW, int C, int ch) {
   extern __shared__ float smem[];
-  float* sQ = smem;             // kKC pixels x kNB channels, row stride kWS
-  float* sK = sQ + kKC * kWS;
   const int tiles = (ch + kNB - 1) / kNB;
   const int h = blockIdx.y / (tiles * tiles), tile = blockIdx.y % (tiles * tiles);
   const int c0 = (tile / tiles) * kNB, d0 = (tile % tiles) * kNB;
   const int b = blockIdx.z, p0 = blockIdx.x * kChunk, np = min(kChunk, HW - p0);
   const float* base = qkv + ((size_t)b * HW + p0) * 3 * C;
-  const int qoff = h * ch + c0, koff = C + h * ch + d0;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float acc[4][4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[r][i] = 0.f;
-  float nq = 0.f, nk = 0.f;
-  for (int pp0 = 0; pp0 < np; pp0 += kKC) {
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < kKC * kNB; idx += kThreads) {
-      const int pp = idx / kNB, c = idx % kNB;  // lanes along channels: coalesced
-      const bool in = pp0 + pp < np;
-      const float* row = base + (size_t)(pp0 + pp) * 3 * C;
-      sQ[pp * kWS + c] = in && c0 + c < ch ? row[qoff + c] : 0.f;
-      sK[pp * kWS + c] = in && d0 + c < ch ? row[koff + c] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int pp = 0; pp < kKC; ++pp) {
-      float a[4], k[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) a[r] = sQ[pp * kWS + ty + 16 * r];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) k[i] = sK[pp * kWS + tx + 16 * i];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[r][i] = fmaf(a[r], k[i], acc[r][i]);
-    }
-    if (threadIdx.x < kNB)
-      for (int pp = 0; pp < kKC; ++pp) {
-        const float q = sQ[pp * kWS + threadIdx.x], k = sK[pp * kWS + threadIdx.x];
-        nq = fmaf(q, q, nq);
-        nk = fmaf(k, k, nk);
-      }
-  }
+  float acc[4][4], nq, nk;
+  head_tile_product<true>(smem, base + h * ch + c0, 3 * C, base + C + h * ch + d0, 3 * C, np, ch - c0, ch - d0, acc,
+                          nq, nk);
   float* row = part + ((size_t)b * gridDim.x + blockIdx.x) * ((size_t)C * ch + 2 * C);
 #pragma unroll
   for (int r = 0; r < 4; ++r)

@@ -11,8 +11,11 @@ The DCPT pre-training step (reference
 3. one backward of the sum of both losses (the taps are not detached, so the
    classifier's gradients reach the restoration net), then both optimizers step.
 
-On the card every NAFBlock's forward is kernel K1 and its backward K2, and the
-classifier's LayerNorms of 512 channels and more are K3.  dcpt_tpu's
+On the card every NAFBlock's forward is kernel K1 and its backward K2, every
+Restormer / PromptIR TransformerBlock's forward K6 and its backward K7, and the
+classifier's LayerNorms of 512 channels and more are K3.  A probe level that
+no tap reaches (Restormer's yml gives its four levels three taps) gets no
+gradient, and AdamW leaves it as it is.  dcpt_tpu's
 ``mixed_precision``, ``batched_trunk``, ``accumulate_steps`` and
 ``zero_sharding`` are not ported yet and raise.
 """

@@ -15,10 +15,14 @@ kernel reads them, which costs nothing for such views.
   tensor it returns ``mdta_block_ref``.  ``mdta_block_fused.launches`` counts
   the calls that launched the kernel.
 
-The block's backward (dcpt_tpu's K7, ``mdta_block_bwd``) is not ported yet:
-on a CUDA tensor under autograd the wrapper raises rather than return a
-result that autograd cannot differentiate.  On a CPU tensor the plain version
-stays differentiable.
+Under autograd (grad mode on and x or a parameter requiring a gradient) the
+block runs as ``MDTABlockFunction``, the counterpart of dcpt_tpu's
+``jax.custom_vjp``: on the card its forward is K6 keeping its residuals (the
+Gram's head blocks, the squared norms, attn, and the maps t, qkv, o, y, u, g
+that the backward reads, see ``csrc/mdta_block_bwd.cu``) and its backward
+kernel K7 (``ops/mdta_block_bwd.py``); on a CPU tensor the same Function runs
+the plain forward and K7's plain version.  Training in bf16 through the
+kernels is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -30,6 +34,11 @@ import torch
 import torch.nn.functional as F
 
 from .cuda_build import load_library
+
+
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """t in fp32, or as it is when it is wider (a float64 reference keeps float64)."""
+    return t if t.dtype == torch.float64 else t.float()
 
 
 def ln_channel(x2: torch.Tensor, weight, bias, eps: float, ln_bias: bool) -> torch.Tensor:
@@ -50,7 +59,7 @@ def _dwconv(t: torch.Tensor, wdw: torch.Tensor) -> torch.Tensor:
 
 
 def attn_from_stats(gram, qn2, kn2, temperature, heads: int, use_softmax: bool) -> torch.Tensor:
-    """(B, C, C) raw Gram + (B, C) squared norms -> the masked attention, fp32
+    """(B, C, C) raw Gram + (B, C) squared norms -> the masked attention, fp32 (or float64)
     (dcpt_tpu's ``_attn_from_stats``; F.normalize's eps: x / max(|x|, 1e-12))."""
     _, c, _ = gram.shape
     ch = c // heads
@@ -60,28 +69,45 @@ def attn_from_stats(gram, qn2, kn2, temperature, heads: int, use_softmax: bool) 
     head = torch.arange(c, device=gram.device) // ch
     blk = head[:, None] == head[None, :]
     if use_softmax:
-        return torch.softmax(attn.masked_fill(~blk, float("-inf")), dim=-1).float()
-    return torch.where(blk, torch.relu(attn), torch.zeros((), dtype=attn.dtype, device=attn.device)).float()
+        return _wide(torch.softmax(attn.masked_fill(~blk, float("-inf")), dim=-1))
+    return _wide(torch.where(blk, torch.relu(attn), torch.zeros((), dtype=attn.dtype, device=attn.device)))
+
+
+def head_blocks(full: torch.Tensor, heads: int) -> torch.Tensor:
+    """(B, C, C) -> (B, C, ch): row c keeps the columns of c's head."""
+    b, c, _ = full.shape
+    ch = c // heads
+    return full.reshape(b, heads, ch, heads, ch).diagonal(dim1=1, dim2=3).permute(0, 3, 1, 2).reshape(b, c, ch)
+
+
+def _ref_forward(x, n1w, n1b, wqkv, wdwq, temperature, wproj, n2w, n2b, win_, wdwf, wout,
+                 heads: int, use_softmax: bool, ln_bias: bool, eps: float):
+    """mdta_block_ref's output and the residuals K6 keeps for the backward:
+    the raw Gram's head blocks (B, C, ch), |q|^2 and |k|^2 (B, C), attn (B, C, C)."""
+    b, h, w, c = x.shape
+    ln1 = ln_channel(_wide(x.reshape(-1, c)), n1w, n1b, eps, ln_bias).reshape(b, h, w, c).to(x.dtype)
+    qkv = _wide(_dwconv(ln1 @ wqkv, wdwq))
+    q, k, v = qkv.reshape(b, h * w, 3 * c).split(c, dim=-1)
+    gram = torch.einsum("bpc,bpd->bcd", q, k)
+    qn2, kn2 = (q * q).sum(1), (k * k).sum(1)
+    attn = attn_from_stats(gram, qn2, kn2, temperature, heads, use_softmax)
+    out = torch.einsum("bpd,bcd->bpc", v, attn)
+    y = x + out.reshape(b, h, w, c).to(x.dtype) @ wproj
+
+    ln2 = ln_channel(_wide(y.reshape(-1, c)), n2w, n2b, eps, ln_bias).reshape(b, h, w, c).to(y.dtype)
+    t2 = _dwconv(ln2 @ win_, wdwf)
+    f2 = t2.shape[-1] // 2
+    gated = F.gelu(_wide(t2[..., :f2])) * _wide(t2[..., f2:])
+    return y + gated.to(y.dtype) @ wout, (head_blocks(gram, heads), qn2, kn2, attn)
 
 
 def mdta_block_ref(x, n1w, n1b, wqkv, wdwq, temperature, wproj, n2w, n2b, win_, wdwf, wout,
                    heads: int, use_softmax: bool, ln_bias: bool, eps: float):
     """The whole TransformerBlock on (B, H, W, C) in plain PyTorch (dcpt_tpu's
-    ``mdta_block_ref``): statistics in fp32, 1x1 products as matmuls, exact-erf GELU."""
-    b, h, w, c = x.shape
-    ln1 = ln_channel(x.reshape(-1, c).float(), n1w, n1b, eps, ln_bias).reshape(b, h, w, c).to(x.dtype)
-    qkv = _dwconv(ln1 @ wqkv, wdwq).float()
-    q, k, v = qkv.reshape(b, h * w, 3 * c).split(c, dim=-1)
-    gram = torch.einsum("bpc,bpd->bcd", q, k)
-    attn = attn_from_stats(gram, (q * q).sum(1), (k * k).sum(1), temperature, heads, use_softmax)
-    out = torch.einsum("bpd,bcd->bpc", v, attn)
-    y = x + out.reshape(b, h, w, c).to(x.dtype) @ wproj
-
-    ln2 = ln_channel(y.reshape(-1, c).float(), n2w, n2b, eps, ln_bias).reshape(b, h, w, c).to(y.dtype)
-    t2 = _dwconv(ln2 @ win_, wdwf)
-    f2 = t2.shape[-1] // 2
-    gated = F.gelu(t2[..., :f2].float()) * t2[..., f2:].float()
-    return y + gated.to(y.dtype) @ wout
+    ``mdta_block_ref``): statistics in fp32 (float64 for a float64 input), 1x1 products
+    as matmuls, exact-erf GELU."""
+    return _ref_forward(x, n1w, n1b, wqkv, wdwq, temperature, wproj, n2w, n2b, win_, wdwf, wout,
+                        heads, use_softmax, ln_bias, eps)[0]
 
 
 _ENTRY = {torch.float32: "mdta_block_fwd_f32", torch.bfloat16: "mdta_block_fwd_bf16"}
@@ -137,9 +163,11 @@ def _launch(lib, x, params, heads: int, use_softmax: bool, ln_bias: bool, eps: f
             residuals: bool = False):
     """Allocate the output and the fp32 scratch and run the kernel's C entry on ``stream``.
 
-    Returns z, or with ``residuals`` (z, (v, gram, qn2, kn2, attn)): v
-    (B, H, W, C), the head blocks of the raw Gram (B, C, ch), the squared
-    norms (B, C) and attn (B, C, C), all fp32 (what the backward reads)."""
+    Returns z, or with ``residuals`` (z, (gram, qn2, kn2, attn, t, qkv, o, y,
+    u, g)): the head blocks of the raw Gram (B, C, ch), the squared norms
+    (B, C) and attn (B, C, C), contiguous, then the forward's maps t, qkv
+    (B, H, W, 3C; v is qkv[..., 2C:]), o, y (B, H, W, C), u (B, H, W, 2F) and
+    g (B, H, W, F), all fp32: what the backward K7 reads."""
     b, h, w, c = x.shape
     f = params[-1].shape[0]
     ch = c // heads
@@ -163,8 +191,9 @@ def _launch(lib, x, params, heads: int, use_softmax: bool, ln_bias: bool, eps: f
         raise RuntimeError(f"mdta_block kernel launch failed with CUDA error {err}")
     if not residuals:
         return z
-    gram = red[:, : c * ch].view(b, c, ch)
-    return z, (qkv[..., 2 * c:], gram, red[:, c * ch: c * ch + c], red[:, c * ch + c:], attn)
+    stats = (red[:, : c * ch].reshape(b, c, ch).contiguous(), red[:, c * ch: c * ch + c].contiguous(),
+             red[:, c * ch + c:].contiguous())
+    return z, (*stats, attn, t, qkv, o, y, u, g)
 
 
 def _kernel_forward(x, params, heads: int, use_softmax: bool, ln_bias: bool, eps: float, residuals: bool = False):
@@ -176,20 +205,47 @@ def _kernel_forward(x, params, heads: int, use_softmax: bool, ln_bias: bool, eps
                        residuals)
 
 
+class MDTABlockFunction(torch.autograd.Function):
+    """The TransformerBlock with its analytic backward (dcpt_tpu's ``custom_vjp``, fp32).
+
+    ``apply(x, heads, use_softmax, ln_bias, eps, *params)``; on the card the
+    forward is K6 keeping its residuals and the backward K7, on the CPU both
+    are the plain versions."""
+
+    @staticmethod
+    def forward(ctx, x, heads, use_softmax, ln_bias, eps, *params):
+        if x.device.type == "cpu":
+            z, res = _ref_forward(x, *params, heads, use_softmax, ln_bias, eps)
+        else:
+            z, res = _kernel_forward(x, list(params), heads, use_softmax, ln_bias, eps, residuals=True)
+        ctx.config = (heads, use_softmax, ln_bias, eps)
+        ctx.save_for_backward(x, *params, *res)
+        return z
+
+    @staticmethod
+    def backward(ctx, dz):
+        from .mdta_block_bwd import mdta_block_bwd
+
+        x, *saved = ctx.saved_tensors
+        grads = mdta_block_bwd(x, *saved[:11], dz.contiguous(), tuple(saved[11:]), *ctx.config)
+        return (grads[0], None, None, None, None, *grads[1:])
+
+
 def mdta_block_fused(x, n1w, n1b, wqkv, wdwq, temperature, wproj, n2w, n2b, win_, wdwf, wout,
                      heads: int, use_softmax: bool, ln_bias: bool, eps: float = 1e-6):
     """The whole TransformerBlock over (B, H, W, C): the CUDA kernel on a CUDA
     tensor, the plain version on a CPU tensor."""
     params = [n1w, n1b, wqkv, wdwq, temperature, wproj, n2w, n2b, win_, wdwf, wout]
-    if x.device.type == "cpu":
-        return mdta_block_ref(x, *params, heads, use_softmax, ln_bias, eps)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"mdta_block_fused: no kernel for device {x.device}")
     if torch.is_grad_enabled() and (x.requires_grad or any(p.requires_grad for p in params)):
-        raise NotImplementedError(
-            "mdta_block_fused: the TransformerBlock's backward kernel (dcpt_tpu's mdta_block_bwd) is not ported "
-            "yet, so the CUDA kernel runs without autograd only; call it under torch.no_grad() or "
-            "torch.inference_mode()")
+        if x.device.type == "cuda" and x.dtype != torch.float32:
+            raise NotImplementedError(
+                f"mdta_block_fused: training in {x.dtype} through the TransformerBlock kernels (mixed precision "
+                "with bf16 K6/K7) is not ported yet (ROADMAP Q1, deferred from slice 4); train in float32")
+        return MDTABlockFunction.apply(x, heads, use_softmax, ln_bias, eps, *params)
+    if x.device.type == "cpu":
+        return mdta_block_ref(x, *params, heads, use_softmax, ln_bias, eps)
     return _kernel_forward(x, params, heads, use_softmax, ln_bias, eps)
 
 

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1, K2, K3, K6) against their plain versions, on the card.
+"""The port's CUDA kernels (K1, K2, K3, K6, K7) against their plain versions, on the card.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU: a CUDA
 kernel has no CPU mode.  The file imports neither JAX nor dcpt_tpu, so it runs
@@ -20,6 +20,7 @@ from dcpt_tpu_torch.archs.promptir_arch import PromptIR
 from dcpt_tpu_torch.archs.restormer_arch import Restormer, TransformerBlock
 from dcpt_tpu_torch.ops import layernorm2d as tln
 from dcpt_tpu_torch.ops import mdta_block as tmb
+from dcpt_tpu_torch.ops import mdta_block_bwd as tmbb
 from dcpt_tpu_torch.ops import naf_block as tnb
 from dcpt_tpu_torch.ops import naf_block_bwd as tnbb
 
@@ -262,21 +263,75 @@ def test_k6_is_deterministic_and_returns_its_residuals(cuda):
     first, res = tmb._kernel_forward(x, params, 2, False, False, 1e-6, residuals=True)
     second = tmb._kernel_forward(x, params, 2, False, False, 1e-6)
     assert torch.equal(first, second)
-    v, gram, qn2, kn2, attn = res
-    assert v.shape == x.shape and gram.shape == (1, 96, 48) and qn2.shape == kn2.shape == (1, 96)
+    gram, qn2, kn2, attn, t, qkv, o, y, u, g = res
+    assert gram.shape == (1, 96, 48) and qn2.shape == kn2.shape == (1, 96)
     assert attn.shape == (1, 96, 96) and not attn[0, :48, 48:].any()
+    assert t.shape == qkv.shape == (1, 40, 40, 288) and o.shape == y.shape == x.shape
+    assert u.shape == (1, 40, 40, 510) and g.shape == (1, 40, 40, 255)
 
 
 def test_k6_raises_under_autograd(cuda):
-    """The backward kernel is not ported: no silent result without a grad_fn."""
-    x, params = _mdta_inputs(1, 8, 8, 48, 1, seed=0, device=cuda, dtype=torch.float32)
+    """Training in bf16 through K6 / K7 is not ported: under autograd a bf16 block raises before any launch."""
+    x, params = _mdta_inputs(1, 8, 8, 48, 1, seed=0, device=cuda, dtype=torch.bfloat16)
     params[2].requires_grad_()
     before = tmb.mdta_block_fused.launches
-    with pytest.raises(NotImplementedError, match="backward"):
+    with pytest.raises(NotImplementedError, match="mixed precision"):
         tmb.mdta_block_fused(x, *params, 1, False, False)
     assert tmb.mdta_block_fused.launches == before
     with torch.no_grad():
         assert tmb.mdta_block_fused(x, *params, 1, False, False).grad_fn is None
+
+
+# (B, H, W, C, heads), flavour: a Restormer stage, a ragged map with a 96-wide head,
+# PromptIR's noise_level2 and a 3 x 2 map.  Not a 1 x 1 map: there q / |q| over
+# the pixels is sign(q), so dq and dk are an exact cancellation of two terms of
+# size 1 / |q| and both versions return float noise of that size.
+@pytest.mark.parametrize("shape,flavour", [
+    ((2, 32, 32, 192, 4), (False, False, 1e-6)),
+    ((1, 61, 41, 96, 1), (False, False, 1e-6)),
+    ((1, 32, 32, 320, 4), (True, True, 1e-5)),
+    ((2, 3, 2, 160, 4), (True, True, 1e-5)),
+])
+def test_k7_matches_plain_backward(cuda, shape, flavour):
+    """All 12 cotangents from K6's residuals within 1e-3 of max(1, max|ref|) (weight
+    gradients sum over pixels in another order), and the same bits twice."""
+    b, h, w, c, heads = shape
+    x, params = _mdta_inputs(b, h, w, c, heads, seed=c + h, device=cuda, dtype=torch.float32)
+    dz = torch.randn(x.shape, generator=torch.Generator().manual_seed(c)).to(cuda)
+    _, res = tmb._kernel_forward(x, params, heads, *flavour, residuals=True)
+    before = tmbb.mdta_block_bwd.launches
+    got = tmbb.mdta_block_bwd(x, *params, dz, res, heads, *flavour)
+    again = tmbb.mdta_block_bwd(x, *params, dz, res, heads, *flavour)
+    assert tmbb.mdta_block_bwd.launches == before + 2
+    ref = tmbb.mdta_block_bwd_ref(x, *params, *res[:4], dz, heads, *flavour)
+    torch.cuda.synchronize()
+    for i, (a, r, a2) in enumerate(zip(got, ref, again)):
+        assert a.shape == r.shape and torch.isfinite(a).all(), i
+        assert _rel(a, r) <= 1e-3, (i, _rel(a, r))
+        assert torch.equal(a, a2), i
+
+
+def test_restormer_trains_through_k6_and_k7(cuda):
+    """Width 8, one block per level: under autograd every TransformerBlock is an
+    MDTABlockFunction (K6 forward, K7 backward, one launch each), and the
+    gradients match the plain path's within 1e-3 of each tensor's max|ref|."""
+    torch.manual_seed(0)
+    net = Restormer(dim=8, num_blocks=[1, 1, 1, 1], num_refinement_blocks=1, heads=[1, 2, 4, 8]).to(cuda)
+    x = torch.rand(2, 3, 40, 48, generator=torch.Generator().manual_seed(1)).to(cuda)
+    before = (tmb.mdta_block_fused.launches, tmbb.mdta_block_bwd.launches)
+    out, taps = net(x)
+    # each level's tap is the (B, C, H, W) view of its last block's output
+    assert all(type(t.grad_fn.next_functions[0][0]).__name__ == "MDTABlockFunctionBackward" for t in taps.values())
+    out.square().mean().backward()
+    assert (tmb.mdta_block_fused.launches, tmbb.mdta_block_bwd.launches) == (before[0] + 8, before[1] + 8)
+    got = {n: p.grad.clone() for n, p in net.named_parameters()}
+    net.zero_grad()
+    with mock.patch.object(TransformerBlock, "forward", _plain_transformer_forward):
+        ref_out, _ = net(x)
+        ref_out.square().mean().backward()
+    for n, p in net.named_parameters():
+        assert got[n] is not None and p.grad is not None, n
+        assert (got[n] - p.grad).abs().max().item() <= 1e-3 * max(p.grad.abs().max().item(), 1e-12), n
 
 
 def _plain_transformer_forward(self, inp):

@@ -1,7 +1,8 @@
-"""K3's and K6's CUDA sources (``csrc/layernorm2d.cu``, ``csrc/mdta_block.cu``) built
-for the CPU by the port's CUDA emulation (``dcpt_tpu_torch.tools.cuda_emu``),
-against their plain versions: keeps the emulation working for the sources it is
-meant to check, and runs K6's indexing, masking and fixed-order sums here."""
+"""K3's, K6's and K7's CUDA sources (``csrc/layernorm2d.cu``, ``csrc/mdta_block.cu``,
+``csrc/mdta_block_bwd.cu``) built for the CPU by the port's CUDA emulation
+(``dcpt_tpu_torch.tools.cuda_emu``), against their plain versions: keeps the
+emulation working for the sources it is meant to check, and runs K6's and K7's
+indexing, masking and fixed-order sums here."""
 
 import ctypes
 import shutil
@@ -12,6 +13,7 @@ import torch
 
 from dcpt_tpu_torch.ops import layernorm2d as ln
 from dcpt_tpu_torch.ops import mdta_block as mb
+from dcpt_tpu_torch.ops import mdta_block_bwd as mbb
 from dcpt_tpu_torch.tools.cuda_emu import build as emu
 
 pytestmark = pytest.mark.skipif(shutil.which("g++") is None, reason="the CUDA emulation compiles with g++")
@@ -66,7 +68,9 @@ def test_mdta_block_emulated_vs_plain(k6_lib, b, h, w, c, heads, use_softmax, ln
     """z within 1e-5 of max(1, max|ref|); the residuals (v, the head blocks of the
     Gram, the squared norms, attn) against the plain computation."""
     x, params = _block_inputs(b, h, w, c, heads, seed=c + h)
-    z, (v, gram, qn2, kn2, attn) = mb._launch(k6_lib, x, params, heads, use_softmax, ln_bias, eps, 0, residuals=True)
+    z, (gram, qn2, kn2, attn, _, qkv, *_) = mb._launch(k6_lib, x, params, heads, use_softmax, ln_bias, eps, 0,
+                                                       residuals=True)
+    v = qkv[..., 2 * c:]
     ref = mb.mdta_block_ref(x, *params, heads, use_softmax, ln_bias, eps)
     torch.testing.assert_close(z, ref, atol=1e-5 * max(1.0, ref.abs().max().item()), rtol=0)
     ln1 = mb.ln_channel(x.reshape(-1, c), params[0], params[1], eps, ln_bias).reshape(x.shape)
@@ -89,3 +93,25 @@ def test_mdta_block_emulated_bf16(k6_lib):
     ref = mb.mdta_block_ref(x.float(), *[p.float() for p in params], 2, True, True, 1e-5)
     assert z.dtype == torch.bfloat16
     assert (z.float() - ref).abs().max().item() <= 2e-2 * max(1.0, ref.abs().max().item())
+
+
+@pytest.fixture(scope="module")
+def k7_lib(tmp_path_factory):
+    return mbb._bind(ctypes.CDLL(str(emu.build("mdta_block_bwd.cu", tmp_path_factory.mktemp("cuda_emu_k7")))))
+
+
+def test_mdta_block_bwd_emulated_vs_plain(k6_lib, k7_lib):
+    """K7 from K6's residuals (softmax, WithBias) on one tile of pixels, a 4 x 4
+    map with two 8-wide heads (ragged columns in every product: F = 42), kept
+    to one tile because the emulation runs a thread per CUDA thread: all 12
+    cotangents within 1e-5 of max(1, max|ref|).  The ReLU / BiasFree flavour,
+    ragged maps and the multi-chunk dattn, tap and weight-gradient sums run on
+    the card (tests/test_torch_cuda.py, chip_smoke.py [10])."""
+    x, params = _block_inputs(1, 4, 4, 16, 2, seed=7)
+    dz = torch.from_numpy(np.random.default_rng(8).standard_normal(x.shape).astype(np.float32))
+    _, res = mb._launch(k6_lib, x, params, 2, True, True, 1e-5, 0, residuals=True)
+    got = mbb._launch(k7_lib, x, params, dz, res, 2, True, True, 1e-5, 0)
+    ref = mbb.mdta_block_bwd_ref(x, *params, *res[:4], dz, 2, True, True, 1e-5)
+    for i, (a, r) in enumerate(zip(got, ref)):
+        assert a.shape == r.shape, i
+        torch.testing.assert_close(a, r, atol=1e-5 * max(1.0, r.abs().max().item()), rtol=0, msg=f"cotangent {i}")

@@ -117,6 +117,174 @@ def test_three_steps_match_dcpt_tpu(tmp_path, model_type):
             np.testing.assert_allclose(got[name].numpy(), value.numpy(), rtol=1e-4, atol=1e-5, err_msg=name)
 
 
+def _randomize_torch(net, rng):
+    """The LayerNorm affines, temperatures and mixing weights drawn at random, in place."""
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if name.endswith(("temperature", "mixing_weights")) or ".norm" in name:
+                shift = 1.0 if name.endswith(("weight", "temperature")) else 0.0
+                p.copy_(torch.from_numpy((rng.normal(0.0, 0.5, p.shape) + shift).astype(np.float32)))
+
+
+class _Override:
+    """A module seen with some of its attributes replaced; the others read through."""
+
+    def __init__(self, module, **replaced):
+        self._module, self._replaced = module, replaced
+
+    def __getattr__(self, name):
+        return self._replaced[name] if name in self._replaced else getattr(self._module, name)
+
+
+def _smooth_probe(mp, net_dc):
+    """The probe's ReLUs as SiLUs and its max-pools as average pools, in both
+    frameworks (dcpt_tpu's through the names its module looks up at call time)."""
+    import flax.linen
+    from torch import nn
+
+    import dcpt_tpu.archs.degrad_classify_arch as jax_dc
+    import dcpt_tpu_torch.archs.degrad_classify_arch as torch_dc
+
+    mp.setattr(jax_dc, "nn", _Override(flax.linen, relu=jax.nn.silu, max_pool=flax.linen.avg_pool))
+    mp.setattr(torch_dc, "F", _Override(torch.nn.functional, relu=torch.nn.functional.silu))
+    for down in net_dc.downsample_layers:
+        down[1], down[2] = nn.AvgPool2d(2), nn.SiLU()
+
+
+def _adam_moments(opt_state):
+    """(mu, nu) of the scale_by_adam state inside an optax chain's state."""
+    state = next(s for s in jax.tree_util.tree_leaves(opt_state, is_leaf=lambda s: hasattr(s, "mu"))
+                 if hasattr(s, "mu"))
+    return state.mu, state.nu
+
+
+def three_transformer_steps(tmp_path, network_g, network_dc, hook_names, n_taps):
+    """Three DCPTModel steps of a transformer net (Restormer or PromptIR) and the
+    probe in the port and in dcpt_tpu on the same batches, each step from the
+    same weights (the port takes dcpt_tpu's before steps 2 and 3; each
+    framework keeps its own Adam moments).  At every step:
+
+    * the losses within rtol 1e-4;
+    * every parameter's gradient (dcpt_tpu's read from its Adam first moment)
+      within 1e-4 of the tensor's max|g| plus 1e-6 of the step's largest
+      max|g|: a sum's rounding scales with its terms, not with the sum, and a
+      temperature's gradient cancels (PromptIR seed 1's
+      ``encoder_level1.0.attn.temperature`` at step 2: max|g| 2.1e-5, the
+      frameworks 2.2e-9 apart);
+    * the parameters after the update within rtol 1e-4 / atol 1e-5 wherever
+      Adam's denominator sqrt(v_hat) is at least 100 times the element's
+      measured gradient difference dg.  The update lr m_hat / (sqrt(v_hat) +
+      eps) moves by about 2 lr |dg| / sqrt(v_hat), so an element whose gradient
+      is within float noise of zero (at step 1 sqrt(v_hat) = |g|) takes an
+      update of either sign; the rule leaves out at most a thousandth of the
+      elements.
+
+    Why each step starts from the same weights, and why the probe's ReLUs and
+    max-pools run as SiLUs and average pools in both frameworks: run freely,
+    such an element ends step 1 a full 2 lr apart, and from step 2 on the
+    gradients of whole tensors part by up to 1e-2 of their max (Restormer seed
+    0); even from the same weights fp32 rounding flips a switch now and then
+    (Restormer seed 6, step 2: 2.4e-2 of ``decoder_level1``'s qkv weight).
+    With both measures every seed tried, 0 to 11 of each net, passes; the
+    test runs seed 0.
+
+    The weights start in the port (PyTorch's seeded init, with the norms,
+    temperatures and mixing weights randomised) and reach dcpt_tpu through its
+    own converter (``state_dict_to_params`` with each arch's
+    ``torch_key_map``), handed to its model in place of flax's eager
+    per-parameter init, which at these nets' hundreds of parameters takes over
+    a minute on the CPU.  The probe's levels from ``n_taps`` on see no tap:
+    dcpt_tpu creates no parameters for them, and the port leaves them
+    untouched (their gradients are None)."""
+    import flax.linen
+
+    from dcpt_tpu.archs import build_network as jax_build_network
+    from dcpt_tpu.convert.torch_checkpoint import state_dict_to_params
+    from dcpt_tpu.models.degradation_classification_model import DCModel as JaxDCModel
+
+    def opt(root):
+        o = _opt(root, "DCPTModel")
+        o.update(network_g=dict(network_g), network_dc=dict(network_dc), hook_names=hook_names)
+        return o
+
+    torch.manual_seed(0)  # the weights _randomize_torch leaves at PyTorch's init
+    model = build_model(opt(tmp_path / "torch"))
+    rng = np.random.default_rng(0)
+    _randomize_torch(model.net_g, rng)
+    _randomize_torch(model.net_dc, rng)
+    unused = tuple(f"{layer}.{i}." for i in range(n_taps, len(network_dc["feature_dims"]))
+                   for layer in ("bottleneck_layers", "downsample_layers"))
+    before = {n: v.clone() for n, v in model.net_dc.state_dict().items() if n.startswith(unused)}
+    arch = network_g["type"]
+    jax_params = {}
+    for net, spec in ((model.net_g, network_g), (model.net_dc, network_dc)):
+        jnet = jax_build_network({k: v for k, v in spec.items() if k != "h"})
+        # copies: the port's optimizer updates its parameters in place, and JAX may alias a numpy buffer
+        state = {k: v.numpy().copy() for k, v in net.state_dict().items() if not k.startswith(unused)}
+        jax_params[type(jnet)] = state_dict_to_params(state, key_map=type(jnet).torch_key_map)
+
+    def given_init(self, *args, **kwargs):
+        return {"params": jax.tree_util.tree_map(jax.numpy.asarray, jax_params[type(self)])}
+
+    jopt = opt(tmp_path / "jax")
+    jopt["num_gpu"] = 1
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(flax.linen.Module, "init", given_init)
+        mp.setattr(JaxDCModel, "_dummy_features", lambda self, x: None)
+        jmodel = jax_build_model(jopt)
+
+    b1, b2 = jopt["train"]["optim_g"]["betas"]
+    nets = ((model.net_g, arch, "params_g", "opt_state_g"),
+            (model.net_dc, "PromptIR_NoImg_DC", "params_dc", "opt_state_dc"))
+    last_mu = {}
+    with pytest.MonkeyPatch.context() as mp:
+        _smooth_probe(mp, model.net_dc)
+        for it, batch in enumerate(_batches(), start=1):
+            for net, name, params, _ in nets:
+                want = params_to_state_dict(jax.tree_util.tree_map(np.asarray, getattr(jmodel, params)), name)
+                net.load_state_dict(want, strict=False)
+            jmodel.update_learning_rate(it)
+            jmodel.feed_data(batch)
+            jmodel.optimize_parameters(it)
+            model.update_learning_rate(it)
+            model.feed_data({"lq": torch.from_numpy(batch["lq"].transpose(0, 3, 1, 2).copy()),
+                             "gt": torch.from_numpy(batch["gt"].transpose(0, 3, 1, 2).copy()),
+                             "dataset_idx": torch.from_numpy(batch["dataset_idx"])})
+            model.optimize_parameters(it)
+            assert set(model.log_dict) == set(jmodel.log_dict) == {"l_pix", "l_classify"}
+            for k, v in jmodel.log_dict.items():
+                np.testing.assert_allclose(model.log_dict[k], v, rtol=1e-4, err_msg=f"step {it} {k}")
+
+            stepped = {}
+            for net, name, params, opt_state in nets:
+                mu, nu = (jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), m)
+                          for m in _adam_moments(getattr(jmodel, opt_state)))
+                prev = last_mu.get(name, jax.tree_util.tree_map(np.zeros_like, mu))
+                grad = jax.tree_util.tree_map(lambda m, p: (m - b1 * p) / (1 - b1), mu, prev)
+                last_mu[name] = mu
+                grad, v_hat = (params_to_state_dict(jax.tree_util.tree_map(lambda a: a.astype(np.float32), t), name)
+                               for t in (grad, jax.tree_util.tree_map(lambda a: a / (1 - b2 ** it), nu)))
+                want = params_to_state_dict(jax.tree_util.tree_map(np.asarray, getattr(jmodel, params)), name)
+                trained = {n: p for n, p in net.named_parameters() if p.grad is not None}
+                assert set(trained) == set(want), f"step {it}: {sorted(set(trained) ^ set(want))}"
+                stepped[name] = (trained, grad, v_hat, want)
+            scale = max(np.abs(grad[n].numpy()).max() for trained, grad, _, _ in stepped.values() for n in trained)
+            compared = left_out = 0
+            for trained, grad, v_hat, want in stepped.values():
+                for n, p in trained.items():
+                    g, ref = p.grad.double().numpy(), grad[n].double().numpy()
+                    diff = np.abs(g - ref)
+                    assert diff.max() <= 1e-4 * np.abs(ref).max() + 1e-6 * scale, \
+                        f"step {it} gradient {n}: {diff.max():.3e} against max|g| {np.abs(ref).max():.3e}"
+                    kept = np.sqrt(v_hat[n].double().numpy()) >= 100 * diff
+                    np.testing.assert_allclose(p.detach().numpy()[kept], want[n].numpy()[kept], rtol=1e-4, atol=1e-5,
+                                               err_msg=f"step {it} {n}")
+                    compared, left_out = compared + int(kept.sum()), left_out + int((~kept).sum())
+            assert left_out <= 1e-3 * (compared + left_out), f"step {it}: {left_out} of {compared + left_out} left out"
+    for key, value in before.items():
+        assert torch.equal(model.net_dc.state_dict()[key], value), key
+
+
 def _write_train_sets(root):
     """Three 40 x 40 PNGs (pairs where the dataset has an lq folder) per dataset of the yml."""
     rng = np.random.default_rng(5)
