@@ -51,7 +51,26 @@ Phases, each of which raises on failure (exit code 1):
    the step's device time by kernel, the ms per step and peak memory of both
    paths; every K7 call of a batch-8 step against its plain version on that
    call's inputs, and one step's gradients through the kernels against the
-   plain path's.
+   plain path's;
+12. kernels K8 (``fused_swin_block``, the whole SwinIR SwinTransformerBlock)
+   and K10 (``fused_window_attention_ln``, its attention branch; and
+   ``fused_window_attention`` without the LayerNorm) against their map-level
+   plain versions at the shipped width (C 180, 6 heads, 8 x 8 windows): B = 1
+   at 128 x 128 with shift 0 and 4, B = 2 at 120 x 72 with shift 4, fp32 (TF32
+   off) and bf16, each run twice for equal bits; their ms per SwinIR forward
+   (36 calls at 128 x 128) beside the plain versions' and the bound;
+13. the eval path of the shipped ``test_SwinIR_5d.yml`` through
+   ``test_pipeline`` at full width on the PNGs of [4] and seeded weights, with
+   exactly 36 K8 launches per image, then again on the route that
+   ``DCPT_TPU_SWIN_BLOCK=0`` selects (36 K10 launches per image, metrics as on
+   the K8 route); a ragged image (118 x 70, padded to 120 x 72) through the K8
+   path against the plain path and against the K10 route; the device time of
+   a forward by kernel; and the eval rates of the K8, K10 and plain paths.
+
+On the H100 machines torch.profiler at times stops recording device time for
+the rest of a process.  A phase whose profile records none then runs once more
+in a fresh process on the same card, as do the phases after it
+(``run_phase``); a profile there that records none fails the script.
 
 The line before the last is a JSON object with each kernel's launches, error,
 times and bound; the last line is ``{"ok": true, "device": {...}}``.  Without a
@@ -62,6 +81,7 @@ and prints no result.
 from __future__ import annotations
 
 import json
+import multiprocessing
 import re
 import subprocess
 import sys
@@ -80,6 +100,8 @@ KERNELS = {
     "layer_norm_2d": ("dcpt_tpu_torch/csrc/layernorm2d.cu", "dcpt_tpu/ops/layernorm2d.py:140"),
     "mdta_block_fused": ("dcpt_tpu_torch/csrc/mdta_block.cu", "dcpt_tpu/ops/mdta_block.py:369"),
     "mdta_block_bwd": ("dcpt_tpu_torch/csrc/mdta_block_bwd.cu", "dcpt_tpu/ops/mdta_block_bwd.py:338"),
+    "fused_swin_block": ("dcpt_tpu_torch/csrc/swin_block.cu", "dcpt_tpu/ops/window_attention.py:302"),
+    "fused_window_attention": ("dcpt_tpu_torch/csrc/window_attention.cu", "dcpt_tpu/ops/window_attention.py:138"),
 }
 # the card's peaks (NVIDIA's H100 SXM data sheet): fp32 outside the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
@@ -108,6 +130,8 @@ DEVICE_FUNCTIONS = {
     "layer_norm_2d": {"ln_fwd_kernel", "ln_bwd_rows_kernel", "ln_bwd_cols_kernel", "colsum_kernel<3>"},
     "mdta_block_fused": K6_FUNCTIONS,
     "mdta_block_bwd": K7_FUNCTIONS,
+    "fused_swin_block": {"swin_block_kernel"},
+    "fused_window_attention": {"window_attention_kernel"},
 }
 # the DCPT step on the network as it is: each fp32 path's gradients against the
 # plain path in float64, relative to each tensor's max|ref|.  fp32 rounding flips
@@ -147,6 +171,16 @@ TRANSFORMER_PER_STEP = {"Restormer": {"mdta_block_fused": 84, "mdta_block_bwd": 
 # the transformer nets' plain step at batch 8 peaks at about 61 GB in fp32 (PERF.md), so
 # the comparison with float64 runs at this batch (the fp32 comparisons at batch 8)
 FLOAT64_GRAD_BATCH = 2
+SWINIR_YML = ROOT / "options" / "all_in_one" / "test" / "test_SwinIR_5d.yml"
+# the shipped SwinIR: embed 180, 6 heads of 30, 8 x 8 windows (64 tokens), mlp 2.0; six RSTBs
+# of six blocks, every second block shifted by 4, so a 128 x 128 forward makes 18 calls at each shift
+SWIN_C, SWIN_HEADS, SWIN_WS, SWIN_HIDDEN = 180, 6, 8, 360
+SWIN_PER_FORWARD = 36
+SWIN_CASES = [(1, 128, 128, 0), (1, 128, 128, 4), (2, 120, 72, 4)]  # (B, H, W, shift)
+# a library call timed beside K8 / K10 is held to the plain version only to show that it
+# computes the same function (a wrong weight layout is off by O(1)): nn.TransformerEncoderLayer's
+# fused eval path reads 1.05e-4 in fp32 on the H100, against K8's 5e-7
+LIBRARY_TOL = 1e-3
 
 
 def card_line() -> str:
@@ -208,6 +242,21 @@ def k7_work(c: int, f: int, ch: int, pixels: int, batch: int) -> tuple[float, fl
             4 * (pixels * (11 * c + 3 * f) + batch * per_image + 2 * weights))
 
 
+def k8_work(c: int, hidden: int, tokens: int, pixels: int) -> tuple[float, float]:
+    """(flops, bytes) of one K8 call: per pixel the products qkv, proj, fc1 and fc2
+    (3C^2 + C^2 + 2 C hidden multiply-adds) and the window attention's q k^T and
+    attn . v (2 N C, N tokens a window); x read, z written and the weights read once."""
+    weights = 4 * c * c + 2 * c * hidden + 9 * c + hidden
+    return pixels * 2 * (4 * c * c + 2 * c * hidden + 2 * tokens * c), 4 * (2 * pixels * c + weights)
+
+
+def k10_work(c: int, tokens: int, pixels: int) -> tuple[float, float]:
+    """(flops, bytes) of one K10 call with its LayerNorm: per pixel qkv and proj
+    (4 C^2 multiply-adds) and the attention (2 N C); x read, the branch written
+    and the weights read once."""
+    return pixels * 2 * (4 * c * c + 2 * tokens * c), 4 * (2 * pixels * c + 4 * c * c + 6 * c)
+
+
 def k3_work(rows: int, c: int) -> tuple[float, float]:
     """(flops, bytes) of one LayerNorm forward plus backward, counting the bytes the
     function needs: x read and out written, then g and x read and gx written;
@@ -265,11 +314,15 @@ def kernel_id(key: str) -> str:
     return m.group(1) + (m.group(2) or "") if m.group(1) == "colsum_kernel" else m.group(1)
 
 
+class NoDeviceTime(RuntimeError):
+    """torch.profiler recorded the host's calls but no device time."""
+
+
 def device_ms_by_function(fn, iters: int) -> tuple[dict[str, float], float]:
     """Device ms per call of ``fn`` by device function (``kernel_id``), from
     torch.profiler over ``iters`` calls after one warm-up call, and the host
-    clock's ms per call under the profiler; raises if the profiler records no
-    device time."""
+    clock's ms per call under the profiler; raises NoDeviceTime if the profiler
+    records no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -288,7 +341,8 @@ def device_ms_by_function(fn, iters: int) -> tuple[dict[str, float], float]:
             name = kernel_id(evt.key)
             times[name] = times.get(name, 0.0) + us / 1e3 / iters
     if not times:
-        raise RuntimeError("torch.profiler recorded no device time")
+        seen = sorted({evt.key[:40] for evt in prof.key_averages()})[:8]
+        raise NoDeviceTime(f"torch.profiler recorded no device time (its events: {seen})")
     return times, wall_ms
 
 
@@ -971,8 +1025,9 @@ def check_k6() -> dict:
 
 
 def write_transformer_checkpoint(yml: Path, path: Path, seed: int) -> None:
-    """Seeded full-width weights of the yml's network_g, with random LayerNorm
-    affines and temperatures, saved under params_ema with the reference's keys."""
+    """Seeded full-width weights of the yml's network_g (Restormer, PromptIR,
+    SwinIR), with random LayerNorm affines (all but SwinIR's final ``norm``) and
+    temperatures, saved under params_ema with the reference's keys."""
     import torch
 
     from dcpt_tpu_torch.archs import build_network
@@ -1213,6 +1268,294 @@ def run_transformer_training(force: list[str]) -> dict:
     return out
 
 
+def swin_params(gen, dtype, device):
+    """The 12 Swin block parameters at the shipped width in the op's (in, out)
+    layout: each weight drawn in PyTorch's (out, in) layout and passed as the
+    ``.t()`` view a module passes, random LayerNorm affines."""
+    import torch
+
+    c, hid = SWIN_C, SWIN_HIDDEN
+
+    def r(*shape, scale=0.3, shift=0.0):
+        return (torch.randn(*shape, generator=gen) * scale + shift).to(device=device, dtype=dtype)
+
+    return [r(c, shift=1.0), r(c), r(3 * c, c, scale=c ** -0.5).t(), r(3 * c), r(c, c, scale=c ** -0.5).t(), r(c),
+            r(c, shift=1.0), r(c), r(hid, c, scale=c ** -0.5).t(), r(hid), r(c, hid, scale=hid ** -0.5).t(), r(c)]
+
+
+def swin_library_layer(p, dtype):
+    """``nn.TransformerEncoderLayer`` (pre-norm, exact GELU, no dropout) holding
+    the Swin block parameters ``p``: one PyTorch call that computes K8's
+    function on (NW, N, C) windows."""
+    import torch
+
+    layer = torch.nn.TransformerEncoderLayer(SWIN_C, SWIN_HEADS, SWIN_HIDDEN, dropout=0.0, activation="gelu",
+                                             layer_norm_eps=1e-5, batch_first=True, norm_first=True)
+    layer = layer.to(device="cuda", dtype=dtype).eval()
+    params = [layer.norm1.weight, layer.norm1.bias, layer.self_attn.in_proj_weight, layer.self_attn.in_proj_bias,
+              layer.self_attn.out_proj.weight, layer.self_attn.out_proj.bias, layer.norm2.weight, layer.norm2.bias,
+              layer.linear1.weight, layer.linear1.bias, layer.linear2.weight, layer.linear2.bias]
+    with torch.no_grad():
+        for dst, src in zip(params, p):
+            dst.copy_(src.t() if src.dim() == 2 else src)  # the op's (in, out) weights -> (out, in)
+    return layer
+
+
+def check_k8_k10() -> dict:
+    """K8 and K10 (with and without its LayerNorm) against their map-level plain
+    versions at the SWIN_CASES shapes, fp32 and (B = 1) bf16, each call twice
+    for equal bits; per SwinIR forward at 128 x 128 (18 calls at each shift):
+    device time (``ms``, ``plain_ms``), CUDA events around back-to-back calls
+    (``call_ms``, ``plain_call_ms``) and the bound.  K8 is also held against,
+    and timed beside, ``nn.TransformerEncoderLayer`` on the partitioned windows,
+    and K10 without its LayerNorm beside ``F.multi_head_attention_forward``
+    (``library_ms``; for K10 beside ``no_ln_ms``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from dcpt_tpu_torch.ops import window_attention as wa
+
+    gen = torch.Generator().manual_seed(13)
+    cases = [(*case, "float32") for case in SWIN_CASES] + [(*case, "bfloat16") for case in SWIN_CASES[:2]]
+    heads, ws = SWIN_HEADS, SWIN_WS
+    names = ("fused_swin_block", "fused_window_attention", "fused_window_attention (no LN)")
+    worst = {(n, d): 0.0 for n in names for d in TOL}
+    times = {}
+    print(f"  {'kernel':>30} {'B':>2} {'H':>4} {'W':>4} {'shift':>5} {'dtype':>9} {'max_abs':>10} {'rel':>10} "
+          f"{'kernel_ms':>10} {'plain_ms':>10} {'call_ms':>10} {'plain_call':>10} {'bound_ms':>10} {'lib_err':>10} "
+          f"{'library_ms':>10}  (kernel_ms, plain_ms, library_ms: device time per call, torch.profiler; call_ms: "
+          f"CUDA events around back-to-back calls)")
+    with torch.no_grad():
+        for b, h, w, shift, dname in cases:
+            dtype = getattr(torch, dname)
+            x = torch.randn(b, h, w, SWIN_C, generator=gen).to(device="cuda", dtype=dtype)
+            p = swin_params(gen, dtype, "cuda")
+            pf = [t.float() for t in p]
+            # the libraries' input: the rolled map's (NW, N, C) windows, made outside their timing
+            win = wa.window_partition(torch.roll(x, (-shift, -shift), dims=(1, 2)), ws)
+            layer = swin_library_layer(p, dtype)
+            win_t = win.transpose(0, 1)
+
+            def attention():
+                """K10 without LN in one call: the biased in-projection, softmax(q k^T hd^-0.5) v
+                per head and the out-projection, on the (N, NW, C) windows."""
+                return F.multi_head_attention_forward(win_t, win_t, win_t, SWIN_C, heads, p[2].t(), p[3], None, None,
+                                                      False, 0.0, p[4].t(), p[5], training=False,
+                                                      need_weights=False)[0].transpose(0, 1)
+            # name: kernel, plain version, fp32 reference, (flops, bytes), one library call on the windows or None
+            runs = {
+                "fused_swin_block": (lambda: wa.fused_swin_block(x, *p, heads, ws, shift),
+                                     lambda: wa.swin_block_map_ref(x, *p, heads, ws, shift),
+                                     lambda: wa.swin_block_map_ref(x.float(), *pf, heads, ws, shift),
+                                     k8_work(SWIN_C, SWIN_HIDDEN, ws * ws, b * h * w), lambda: layer(win)),
+                "fused_window_attention": (lambda: wa.fused_window_attention_ln(x, *p[:6], heads, ws, shift),
+                                           lambda: wa.window_attention_map_ref(x, *p[2:6], heads, ws, shift,
+                                                                               (p[0], p[1], 1e-5)),
+                                           lambda: wa.window_attention_map_ref(x.float(), *pf[2:6], heads, ws, shift,
+                                                                               (pf[0], pf[1], 1e-5)),
+                                           k10_work(SWIN_C, ws * ws, b * h * w), None),
+                "fused_window_attention (no LN)": (
+                    lambda: wa.fused_window_attention(x, *p[2:6], heads, ws, shift),
+                    lambda: wa.window_attention_map_ref(x, *p[2:6], heads, ws, shift),
+                    lambda: wa.window_attention_map_ref(x.float(), *pf[2:6], heads, ws, shift),
+                    k10_work(SWIN_C, ws * ws, b * h * w), attention),
+            }
+            for name, (kernel, plain, reference, work, library) in runs.items():
+                z, again, ref = kernel(), kernel(), reference()
+                torch.cuda.synchronize()
+                if z.shape != x.shape or z.dtype != dtype or not torch.isfinite(z).all():
+                    raise RuntimeError(f"{name} {b}x{h}x{w} shift {shift} {dname}: bad output {tuple(z.shape)}")
+                if not torch.equal(z, again):
+                    raise RuntimeError(f"{name} {b}x{h}x{w} shift {shift} {dname}: two runs on the same inputs differ")
+                err = (z.float() - ref).abs().max().item()
+                rel = err / max(1.0, ref.abs().max().item())
+                if rel > TOL[dname]:
+                    raise RuntimeError(f"{name} {b}x{h}x{w} shift {shift} {dname}: error {rel:.3e} above "
+                                       f"{TOL[dname]:.0e}")
+                funcs = device_ms_by_function(kernel, 10)[0]
+                owner = name.split(" ")[0]
+                if set(funcs) != DEVICE_FUNCTIONS[owner]:
+                    raise RuntimeError(f"{name}'s profile shows {sorted(funcs)}, expected {DEVICE_FUNCTIONS[owner]}")
+                k_ms, p_ms = sum(funcs.values()), sum(device_ms_by_function(plain, 10)[0].values())
+                k_call, p_call = cuda_ms(kernel), cuda_ms(plain)
+                b_ms = bound([(1, *work)])[0]
+                lib_rel = lib_ms = float("nan")
+                if library is not None and dname == "float32":  # in bf16 a library rounds every intermediate
+                    lib_map = torch.roll(wa.window_reverse(library(), ws, h, w), (shift, shift), dims=(1, 2))
+                    lib_rel = (lib_map.float() - ref).abs().max().item() / max(1.0, ref.abs().max().item())
+                    if lib_rel > LIBRARY_TOL:
+                        raise RuntimeError(f"{name}'s library call {b}x{h}x{w} shift {shift} {dname}: error "
+                                           f"{lib_rel:.3e} against the plain version")
+                    lib_ms = sum(device_ms_by_function(library, 10)[0].values())
+                print(f"  {name:>30} {b:>2} {h:>4} {w:>4} {shift:>5} {dname:>9} {err:>10.3e} {rel:>10.3e} "
+                      f"{k_ms:>10.4f} {p_ms:>10.4f} {k_call:>10.4f} {p_call:>10.4f} {b_ms:>10.4f} {lib_rel:>10.3e} "
+                      f"{lib_ms:>10.4f}", flush=True)
+                worst[(name, dname)] = max(worst[(name, dname)], err)
+                if dname == "float32" and (b, h, w) == (1, 128, 128):
+                    times[(name, shift)] = (k_ms, p_ms, k_call, p_call, lib_ms)
+    print("  K8 and K10 twice on the same inputs: equal bit for bit at every shape", flush=True)
+
+    def per_forward(name, i):
+        return SWIN_PER_FORWARD // 2 * (times[(name, 0)][i] + times[(name, 4)][i])
+
+    out = {}
+    for name, work in (("fused_swin_block", k8_work(SWIN_C, SWIN_HIDDEN, SWIN_WS ** 2, 128 * 128)),
+                       ("fused_window_attention", k10_work(SWIN_C, SWIN_WS ** 2, 128 * 128))):
+        bound_ms, bound_by = bound([(SWIN_PER_FORWARD, *work)])
+        out[name] = {"max_abs_err": worst[(name, "float32")], "bf16_max_abs_err": worst[(name, "bfloat16")],
+                     "ms": per_forward(name, 0), "plain_ms": per_forward(name, 1), "call_ms": per_forward(name, 2),
+                     "plain_call_ms": per_forward(name, 3), "bound_ms": bound_ms, "bound_by": bound_by}
+    no_ln = "fused_window_attention (no LN)"
+    out["fused_swin_block"]["library_ms"] = per_forward("fused_swin_block", 4)
+    out["fused_window_attention"].update(library_ms=per_forward(no_ln, 4), no_ln_ms=per_forward(no_ln, 0),
+                                         no_ln_plain_ms=per_forward(no_ln, 1))
+    return out
+
+
+def _plain_swin_forward(self, x):
+    """SwinTransformerBlock.forward with K8's plain version."""
+    from dcpt_tpu_torch.ops.window_attention import swin_block_map_ref
+
+    return swin_block_map_ref(x, *self.op_args(), self.num_heads, self.window_size, self.shift_size, self.norm1.eps)
+
+
+def run_swinir_slice(force: list[str]) -> dict:
+    """The shipped SwinIR eval yml through test_pipeline at full width on the PNGs
+    of [4], on the K8 route and on the K10 route; a ragged image through the K8,
+    K10 and plain paths; the device time of a forward by kernel; the eval rates."""
+    import numpy as np
+    import torch
+
+    from dcpt_tpu_torch.archs import swinir_arch
+    from dcpt_tpu_torch.models import build_model
+    from dcpt_tpu_torch.ops.window_attention import fused_swin_block, fused_window_attention
+    from dcpt_tpu_torch.test import test_pipeline
+    from dcpt_tpu_torch.utils.options import parse_options
+
+    n_images = 10
+    ckpt = WORK / "SwinIR.pth"
+    write_transformer_checkpoint(SWINIR_YML, ckpt, seed=20)
+    args = ["-opt", str(SWINIR_YML), "--force_yml", *force, f"path:pretrain_network_g={ckpt}"]
+    launches, metrics = {}, {}
+    # the route DCPT_TPU_SWIN_BLOCK=0 selects: the module constant it sets at import
+    for route, block_kernel in (("K8", True), ("K10", False)):
+        swinir_arch.SWIN_BLOCK_KERNEL = block_kernel
+        fused_swin_block.launches = fused_window_attention.launches = 0
+        t0 = time.perf_counter()
+        results = test_pipeline(str(WORK / f"SwinIR_{route}"), args=args)
+        torch.cuda.synchronize()
+        launches[route] = {"fused_swin_block": fused_swin_block.launches,
+                           "fused_window_attention": fused_window_attention.launches}
+        print(f"[13] test_pipeline on {SWINIR_YML.name}, {route} route: {time.perf_counter() - t0:.1f} s, launches "
+              f"K8 {fused_swin_block.launches}, K10 {fused_window_attention.launches} for {n_images} forwards "
+              f"({SWIN_PER_FORWARD} SwinTransformerBlocks each)", flush=True)
+        for name, m in results.items():
+            print(f"    {name}: " + ", ".join(f"{k} {v:.4f}" for k, v in m.items()), flush=True)
+        if set(results) != {"Rain100L", "CBSD68", "SOTS", "deblur", "LowLight"}:
+            raise RuntimeError(f"SwinIR {route}: datasets evaluated: {sorted(results)}")
+        if not all(np.isfinite(v) for m in results.values() for v in m.values()):
+            raise RuntimeError(f"SwinIR {route}: non-finite metrics: {results}")
+        want = SWIN_PER_FORWARD * n_images
+        expect = {"fused_swin_block": want if block_kernel else 0, "fused_window_attention": 0 if block_kernel else want}
+        if launches[route] != expect:
+            raise RuntimeError(f"SwinIR {route}: launches {launches[route]}, expected {expect}")
+        metrics[route] = results
+    swinir_arch.SWIN_BLOCK_KERNEL = True
+    gap = max(abs(metrics["K8"][d][k] - metrics["K10"][d][k]) for d in metrics["K8"] for k in metrics["K8"][d])
+    print(f"[13] metrics of the K10 route against the K8 route: largest difference {gap:.3e}", flush=True)
+    if gap > 1e-2:
+        raise RuntimeError(f"SwinIR: the K10 route's metrics differ from the K8 route's by {gap:.3e}")
+
+    opt, _ = parse_options(str(WORK / "SwinIR_K8"), is_train=False, args=args)
+    model = build_model(opt)
+    gen = torch.Generator().manual_seed(21)
+    model.feed_data({"lq": torch.rand(1, 3, 118, 70, generator=gen)})
+    model.pre_test()
+    model.test()
+    outs = {"K8": model.output.clone()}
+    swinir_arch.SWIN_BLOCK_KERNEL = False
+    model.test()
+    outs["K10"] = model.output.clone()
+    swinir_arch.SWIN_BLOCK_KERNEL = True
+    with mock.patch.object(swinir_arch.SwinTransformerBlock, "forward", _plain_swin_forward):
+        model.test()
+    plain_out = model.output
+    if outs["K8"].shape != (1, 3, 120, 72) or not torch.isfinite(outs["K8"]).all():
+        raise RuntimeError(f"SwinIR: bad network output {tuple(outs['K8'].shape)}")
+    scale = max(1.0, plain_out.abs().max().item())
+    rel = (outs["K8"] - plain_out).abs().max().item() / scale
+    rel_k10 = (outs["K10"] - outs["K8"]).abs().max().item() / scale
+    print(f"[13] one image (118x70, padded to 120x72, 15 x 9 windows): K8 path vs plain path {rel:.3e}, K10 route vs "
+          f"K8 path {rel_k10:.3e}, relative to max(1, max|plain|) (limit 1e-4, fp32, TF32 off)", flush=True)
+    if rel > 1e-4 or rel_k10 > 1e-4:
+        raise RuntimeError(f"SwinIR: K8 path vs plain {rel:.3e}, K10 route vs K8 {rel_k10:.3e}")
+
+    lq = torch.rand(1, 3, 128, 128, generator=gen).cuda()
+    model.lq = lq
+    profile = {}
+    for route, block_kernel in (("K8", True), ("K10", False)):
+        swinir_arch.SWIN_BLOCK_KERNEL = block_kernel
+        kernel = "fused_swin_block" if block_kernel else "fused_window_attention"
+        funcs, wall_ms = device_ms_by_function(model.test, 5)
+        mine = sum(ms for f, ms in funcs.items() if f in DEVICE_FUNCTIONS[kernel])
+        if not mine:
+            raise RuntimeError(f"SwinIR {route}: the forward's profile shows no {DEVICE_FUNCTIONS[kernel]}")
+        other = sum(funcs.values()) - mine
+        top = sorted(((ms, f) for f, ms in funcs.items() if f not in DEVICE_FUNCTIONS[kernel]), reverse=True)[:4]
+        print(f"[13] SwinIR forward at 128x128, {route} route (torch.profiler, 5 forwards): device {mine + other:.2f} ms "
+              f"of {wall_ms:.2f} ms wall (busy {100 * (mine + other) / wall_ms:.1f} %): {route} {mine:.2f} ms, "
+              f"PyTorch {other:.2f} ms (" + ", ".join(f"{f} {ms:.2f}" for ms, f in top) + ")", flush=True)
+        profile[route] = {"device_ms": mine + other, "kernel_ms": mine, "wall_ms": wall_ms}
+    rates = {}
+    for route, block_kernel in (("K8", True), ("K10", False)):
+        swinir_arch.SWIN_BLOCK_KERNEL = block_kernel
+        torch.cuda.reset_peak_memory_stats()
+        rates[route] = (images_per_s(model, lq), torch.cuda.max_memory_allocated() / 2**20)
+    swinir_arch.SWIN_BLOCK_KERNEL = True
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(swinir_arch.SwinTransformerBlock, "forward", _plain_swin_forward):
+        rates["plain"] = (images_per_s(model, lq), torch.cuda.max_memory_allocated() / 2**20)
+    print("[13] SwinIR eval forward at 128x128, batch 1, fp32: " + ", ".join(
+        f"{route} path {r:.2f} images/s (peak {peak:.0f} MiB)" for route, (r, peak) in rates.items()), flush=True)
+    return {"launches": launches, "profile": profile, "rates": rates}
+
+
+PHASE_RESULT = "CHIP_SMOKE_PHASE_RESULT "
+# set once torch.profiler has recorded no device time in this process
+_profiler_lost = False
+
+
+def run_phase(fn, *args):
+    """``fn(*args)``, a phase whose arguments and result are JSON.  If a profile
+    of the phase records no device time, the phase runs once more in a fresh
+    process on the same card, its output passed on, and so does every phase
+    after it; a profile there that records none fails the script."""
+    global _profiler_lost
+    import gc
+
+    import torch
+
+    if not _profiler_lost:
+        try:
+            return fn(*args)
+        except NoDeviceTime as e:
+            print(f"  {e}: {fn.__name__} again in a fresh process", flush=True)
+            _profiler_lost = True
+        gc.collect()  # the failed attempt's tensors, before the child takes its memory from the same card
+    torch.cuda.empty_cache()
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--phase", fn.__name__, json.dumps(args)],
+                            stdout=subprocess.PIPE, text=True)
+    result = None
+    for line in proc.stdout:
+        if line.startswith(PHASE_RESULT):
+            result = json.loads(line[len(PHASE_RESULT):])
+        else:
+            print(line, end="", flush=True)
+    if proc.wait() != 0 or result is None:
+        raise RuntimeError(f"{fn.__name__} failed in a fresh process (exit code {proc.returncode})")
+    return result
+
+
 def main() -> int:
     if not (ROOT / "dcpt_tpu_torch" / "__init__.py").exists():
         print("chip_smoke.py: the dcpt_tpu_torch package is not beside this script", file=sys.stderr)
@@ -1225,6 +1568,13 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the training loaders' workers start as fresh interpreters: after a few
+    # loaders of forked workers (fork or forkserver) torch.profiler records no
+    # device time in this process, which the later phases' profiles need
+    multiprocessing.set_start_method("spawn")
+    if sys.argv[1:2] == ["--phase"]:  # run_phase's fresh process
+        print(PHASE_RESULT + json.dumps(globals()[sys.argv[2]](*json.loads(sys.argv[3]))), flush=True)
+        return 0
 
     card = card_line()
     print(f"[1] card: {card}", flush=True)
@@ -1232,68 +1582,93 @@ def main() -> int:
 
     t0 = time.perf_counter()
     build_s = build_kernels()
-    print(f"[2] built K1, K2, K3, K6, K7 in {', '.join(f'{b:.1f}' for b in build_s)} s (nvcc, in parallel), "
+    print(f"[2] built K1, K2, K3, K6, K7, K8, K10 in {', '.join(f'{b:.1f}' for b in build_s)} s (nvcc, in parallel), "
           f"phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     print("[3] K1 naf_block_fused vs naf_block_ref, B=2, TF32 off", flush=True)
-    k1 = check_k1()
+    k1 = run_phase(check_k1)
     print(f"[3] K1 per NAFNet-w64 forward (B=2, 128x128, 36 blocks): kernel {k1['ms']:.3f} ms, "
           f"plain {k1['plain_ms']:.3f} ms, bound {k1['bound_ms']:.3f} ms ({k1['bound_by']})", flush=True)
 
-    force = run_slice()
+    force = run_phase(run_slice)
 
     print(f"[5] K2 naf_block_bwd vs naf_block_bwd_ref, B=2, fp32, limit {K2_TOL:.0e} relative", flush=True)
-    k2 = check_k2()
+    k2 = run_phase(check_k2)
     print(f"[5] K2 per NAFNet-w64 backward (B=2, 128x128, 36 blocks): kernel {k2['ms']:.3f} ms, "
           f"plain {k2['plain_ms']:.3f} ms, bound {k2['bound_ms']:.3f} ms ({k2['bound_by']})", flush=True)
 
     print("[6] K3 layer_norm_2d forward + backward vs plain and F.layer_norm, fp32, limit 1e-4", flush=True)
-    k3 = check_k3()
+    k3 = run_phase(check_k3)
     print(f"[6] K3 per DCPT step ({K3_PER_STEP} calls each way at batch 8): kernel {k3['ms']:.3f} ms, plain "
           f"{k3['plain_ms']:.3f} ms, F.layer_norm {k3['library_ms']:.3f} ms, bound {k3['bound_ms']:.3f} ms "
           f"({k3['bound_by']})", flush=True)
 
-    train = run_training()
+    train = run_phase(run_training)
 
     print("[8] K6 mdta_block_fused vs mdta_block_ref, B=1, TF32 off; limits 1e-4 (fp32), 2e-2 (bf16) relative to "
           "max(1, max|ref|)", flush=True)
-    k6 = check_k6()
+    k6 = run_phase(check_k6)
     for net, pre, blocks in (("Restormer", "", 44), ("PromptIR", "promptir_", 47)):
         print(f"[8] K6 per {net} forward (128x128, {blocks} blocks): device {k6[pre + 'ms']:.3f} ms (plain "
               f"{k6[pre + 'plain_ms']:.3f} ms), back-to-back calls {k6[pre + 'call_ms']:.3f} ms (plain "
               f"{k6[pre + 'plain_call_ms']:.3f} ms), bound {k6[pre + 'bound_ms']:.3f} ms ({k6[pre + 'bound_by']})",
               flush=True)
 
-    k6_launches = run_transformer_slices(force)
+    k6_launches = run_phase(run_transformer_slices, force)
 
     print(f"[10] K7 mdta_block_bwd vs mdta_block_bwd_ref, B=2 (and 8 at 128x128), fp32, TF32 off, limit "
           f"{K7_TOL:.0e} relative",
           flush=True)
-    k7 = check_k7()
+    k7 = run_phase(check_k7)
     for net, pre, blocks in (("Restormer", "", 44), ("PromptIR", "promptir_", 47)):
         print(f"[10] K7 per {net} backward (B=2, 128x128, {blocks} blocks): device {k7[pre + 'ms']:.3f} ms (plain "
               f"{k7[pre + 'plain_ms']:.3f} ms), back-to-back calls {k7[pre + 'call_ms']:.3f} ms (plain "
               f"{k7[pre + 'plain_call_ms']:.3f} ms), bound {k7[pre + 'bound_ms']:.3f} ms ({k7[pre + 'bound_by']})",
               flush=True)
 
-    transformer_train = run_transformer_training(train["force"])
+    transformer_train = run_phase(run_transformer_training, train["force"])
+
+    print(f"[12] K8 fused_swin_block vs swin_block_map_ref, K10 fused_window_attention(_ln) vs "
+          f"window_attention_map_ref, C {SWIN_C}, {SWIN_HEADS} heads, ws {SWIN_WS}, TF32 off; limits 1e-4 (fp32), 2e-2 "
+          f"(bf16) relative to max(1, max|ref|)", flush=True)
+    swin = run_phase(check_k8_k10)
+    for name, k in swin.items():
+        print(f"[12] {name} per SwinIR forward (128x128, {SWIN_PER_FORWARD} blocks): device {k['ms']:.3f} ms (plain "
+              f"{k['plain_ms']:.3f} ms), back-to-back calls {k['call_ms']:.3f} ms (plain {k['plain_call_ms']:.3f} ms), "
+              f"bound {k['bound_ms']:.3f} ms ({k['bound_by']})", flush=True)
+    k10 = swin["fused_window_attention"]
+    print(f"[12] one library call per block on the partitioned windows, per SwinIR forward: nn.TransformerEncoderLayer "
+          f"{swin['fused_swin_block']['library_ms']:.3f} ms (K8 {swin['fused_swin_block']['ms']:.3f} ms); "
+          f"F.multi_head_attention_forward {k10['library_ms']:.3f} ms (K10 without LN {k10['no_ln_ms']:.3f} ms, its "
+          f"plain version {k10['no_ln_plain_ms']:.3f} ms)", flush=True)
+
+    swin_slice = run_phase(run_swinir_slice, force)
 
     launches = dict(train["launches"], mdta_block_fused=k6_launches["Restormer"],
-                    mdta_block_bwd=transformer_train["Restormer"]["launches"]["mdta_block_bwd"])
+                    mdta_block_bwd=transformer_train["Restormer"]["launches"]["mdta_block_bwd"],
+                    fused_swin_block=swin_slice["launches"]["K8"]["fused_swin_block"],
+                    fused_window_attention=swin_slice["launches"]["K10"]["fused_window_attention"])
     kernels = []
     for name, measured in (("naf_block_fused", k1), ("naf_block_bwd", k2), ("layer_norm_2d", k3),
-                           ("mdta_block_fused", k6), ("mdta_block_bwd", k7)):
+                           ("mdta_block_fused", k6), ("mdta_block_bwd", k7),
+                           ("fused_swin_block", swin["fused_swin_block"]),
+                           ("fused_window_attention", swin["fused_window_attention"])):
         source, replaces = KERNELS[name]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": launches[name], "max_abs_err": measured["max_abs_err"],
                         "ms": measured["ms"], "plain_ms": measured["plain_ms"], "bound_ms": measured["bound_ms"],
                         "bound_by": measured["bound_by"], "library_ms": measured["library_ms"]})
-    kernels[-2].update(launches_promptir=k6_launches["PromptIR"], call_ms=k6["call_ms"],
-                       **{k: v for k, v in k6.items() if k.startswith("promptir_") and k != "promptir_bound_by"})
-    kernels[-1].update(launches_per_step=TRANSFORMER_PER_STEP["Restormer"]["mdta_block_bwd"],
-                       launches_promptir=transformer_train["PromptIR"]["launches"]["mdta_block_bwd"],
-                       call_ms=k7["call_ms"],
-                       **{k: v for k, v in k7.items() if k.startswith("promptir_") and k != "promptir_bound_by"})
+    kernels[3].update(launches_promptir=k6_launches["PromptIR"], call_ms=k6["call_ms"],
+                      **{k: v for k, v in k6.items() if k.startswith("promptir_") and k != "promptir_bound_by"})
+    for entry in kernels[5:]:
+        entry.update(launches_per_image=SWIN_PER_FORWARD, call_ms=swin[entry["name"]]["call_ms"],
+                     plain_call_ms=swin[entry["name"]]["plain_call_ms"])
+    # library_ms is K10 without its LayerNorm: beside it, the kernel's and the plain version's ms without it
+    kernels[6].update(no_ln_ms=k10["no_ln_ms"], no_ln_plain_ms=k10["no_ln_plain_ms"])
+    kernels[4].update(launches_per_step=TRANSFORMER_PER_STEP["Restormer"]["mdta_block_bwd"],
+                      launches_promptir=transformer_train["PromptIR"]["launches"]["mdta_block_bwd"],
+                      call_ms=k7["call_ms"],
+                      **{k: v for k, v in k7.items() if k.startswith("promptir_") and k != "promptir_bound_by"})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -43,9 +43,20 @@ _RESTORMER_COMMON = [
 _LEVEL = r"^(encoder_level\d|latent|decoder_level\d|refinement)_(\d+)\."
 _RESTORMER_INVERSE = [(re.compile(_LEVEL), r"\1.body.\2."), *_RESTORMER_COMMON]  # inverse of _SEQ_BODY
 _PLAIN_LEVELS_INVERSE = [(re.compile(_LEVEL), r"\1.\2."), *_RESTORMER_COMMON]  # of _SEQ_PLAIN, PromptIR's levels
+# inverse of dcpt_tpu/archs/swinir_arch.py::torch_key_map (upsample.{2n} holds the
+# n-th upsampling conv; the PixelShuffles between them hold no parameters)
+_SWINIR_INVERSE = [
+    (re.compile(r"^encode_layers_(\d+)\."), r"encode_layers.\1."),
+    (re.compile(r"^decode_layers_(\d+)\."), r"decode_layers\1."),
+    (re.compile(r"\.residual_group_blocks_(\d+)\."), r".residual_group.blocks.\1."),
+    (re.compile(r"\.conv_(\d+)\."), r".conv.\1."),  # the 3conv bottleneck
+    (re.compile(r"^patch_embed_norm\."), r"patch_embed.norm."),
+    (re.compile(r"^conv_before_upsample_0\."), r"conv_before_upsample.0."),
+    (re.compile(r"^upsample_conv(\d+)\."), lambda m: f"upsample.{2 * int(m.group(1))}."),
+]
 INVERSE_KEY_MAPS = {"NAFNetBaseline": _NAFNET_INVERSE, "PromptIR_DC": _DC_INVERSE, "PromptIR_NoImg_DC": _DC_INVERSE,
                     "Restormer": _RESTORMER_INVERSE, "Restormer_origin": _PLAIN_LEVELS_INVERSE,
-                    "PromptIR": _PLAIN_LEVELS_INVERSE}
+                    "PromptIR": _PLAIN_LEVELS_INVERSE, "SwinIR": _SWINIR_INVERSE}
 
 
 def _flatten(tree: dict, prefix: str = ""):

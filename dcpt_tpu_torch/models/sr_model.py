@@ -1,8 +1,9 @@
 """SRModel, eval half (dcpt_tpu/models/sr_model.py): pad, forward, unpad, score.
 
-``pre_test`` reflect-pads H, W to the arch's ``window_size`` multiple and
-``post_test`` crops back (reference sr_model.py:234-271); ``test`` runs the
-network under ``torch.inference_mode``; ``nondist_validation`` scores the
+``pre_test`` reflect-pads H, W to the arch's ``window_size`` multiple (or
+``val.pad_multiple``) and ``post_test`` crops back (reference
+sr_model.py:234-271); ``test`` runs the network under
+``torch.inference_mode``; ``nondist_validation`` scores the
 [0, 1]-clamped output with the host numpy metrics (reference sr_model.py:
 375-499).  ``test_tile``, the self-ensemble and ``save_img`` are not ported yet
 and raise.
@@ -23,6 +24,13 @@ from ..utils.registry import MODEL_REGISTRY
 from .base_model import BaseModel
 
 
+def check_window_size(window_size):
+    """A list or tuple window size collapses to its largest (dcpt_tpu's sr_model.py:51-55)."""
+    if isinstance(window_size, (tuple, list)):
+        return max(window_size)
+    return window_size
+
+
 @MODEL_REGISTRY.register()
 class SRModel(BaseModel):
     def __init__(self, opt: dict):
@@ -40,14 +48,16 @@ class SRModel(BaseModel):
         self.gt = data["gt"].to(self.device) if "gt" in data else None
 
     def pre_test(self) -> None:
-        """Reflect-pad H, W to window-size multiples (sr_model.py:244-260)."""
+        """Reflect-pad H, W to window-size multiples (sr_model.py:244-260), or to
+        the larger ``val.pad_multiple`` where the yml sets one (dcpt_tpu's shape buckets)."""
         self.mod_pad_h, self.mod_pad_w = 0, 0
-        window_size = self.opt["network_g"].get("window_size", 1)
-        if window_size <= 1:
+        window_size = check_window_size(self.opt["network_g"].get("window_size", 1))
+        multiple = max(window_size, (self.opt.get("val") or {}).get("pad_multiple") or 0)
+        if multiple <= 1:
             return
         _, _, h, w = self.lq.shape
-        self.mod_pad_h = (window_size - h % window_size) % window_size
-        self.mod_pad_w = (window_size - w % window_size) % window_size
+        self.mod_pad_h = (multiple - h % multiple) % multiple
+        self.mod_pad_w = (multiple - w % multiple) % multiple
         if self.mod_pad_h or self.mod_pad_w:
             self.lq = F.pad(self.lq, (0, self.mod_pad_w, 0, self.mod_pad_h), mode="reflect")
 

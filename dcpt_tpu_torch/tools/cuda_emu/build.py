@@ -5,13 +5,14 @@
 Each source is rewritten (kernel launches ``k<<<g, b, smem, stream>>>(...)``
 become ``emu::Launcher(k, g, b, smem)(...)``, ``extern __shared__`` arrays
 become the block's shared buffer) and compiled with g++ against the headers
-in ``include/``, which run one OS thread per CUDA thread, ``__syncthreads``
-and warp shuffles as barriers, and poison shared memory with NaN.  The
+in ``include/``, which run a block's CUDA threads as fibers on the calling
+thread, each as far as its next barrier (``__syncthreads``, or its warp's in
+a shuffle), and poison shared memory with NaN.  The
 library lands in ``build/cuda_emu/lib<name>.so`` with the same C entry
 points as nvcc's build: load it with ctypes and call an ops wrapper's
 ``_launch(lib, ...)`` on CPU tensors (their data pointers are host memory),
 then compare with the plain version (``tests/test_torch_cuda_emu.py`` does
-this for K3).  Slow (a thread per CUDA thread): use shapes of a few tiles.
+this for K3).  One CPU core runs every CUDA thread: use shapes of a few tiles.
 Static ``__shared__`` arrays are not emulated.  It catches indexing and
 barrier faults, not nvcc's own complaints.
 """
@@ -29,7 +30,7 @@ OUT = Path(__file__).resolve().parents[3] / "build" / "cuda_emu"
 
 
 def rewrite(text: str) -> str:
-    text = re.sub(r"extern __shared__ float (\w+)\[\];", r"float* \1 = emu::tl_smem;", text)
+    text = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?float (\w+)\[\];", r"float* \1 = emu::tl_smem;", text)
     return re.sub(r"([A-Za-z_]\w*(?:<[^<>;]*>)?)<<<(.*?)>>>\(", r"emu::Launcher(\1, \2)(", text, flags=re.S)
 
 

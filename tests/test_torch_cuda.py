@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1, K2, K3, K6, K7) against their plain versions, on the card.
+"""The port's CUDA kernels (K1, K2, K3, K6, K7, K8, K10) against their plain versions, on the card.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU: a CUDA
 kernel has no CPU mode.  The file imports neither JAX nor dcpt_tpu, so it runs
@@ -17,12 +17,15 @@ import torch
 
 from dcpt_tpu_torch.archs.nafnet_arch import NAFBlock, NAFNetBaseline
 from dcpt_tpu_torch.archs.promptir_arch import PromptIR
+from dcpt_tpu_torch.archs import swinir_arch
 from dcpt_tpu_torch.archs.restormer_arch import Restormer, TransformerBlock
+from dcpt_tpu_torch.archs.swinir_arch import SwinIR
 from dcpt_tpu_torch.ops import layernorm2d as tln
 from dcpt_tpu_torch.ops import mdta_block as tmb
 from dcpt_tpu_torch.ops import mdta_block_bwd as tmbb
 from dcpt_tpu_torch.ops import naf_block as tnb
 from dcpt_tpu_torch.ops import naf_block_bwd as tnbb
+from dcpt_tpu_torch.ops import window_attention as twa
 
 pytestmark = pytest.mark.cuda
 
@@ -353,5 +356,106 @@ def test_transformer_nets_kernel_path_matches_plain_path(cuda, arch, blocks):
         out, _ = net(x)
         assert tmb.mdta_block_fused.launches == before + blocks
         with mock.patch.object(TransformerBlock, "forward", _plain_transformer_forward):
+            ref, _ = net(x)
+    assert _rel(out, ref) <= 1e-4
+
+
+def _swin_inputs(b, h, w, c, heads, hidden, seed, device, dtype):
+    """x and the 12 Swin block parameters in the op's (in, out) layout, random LayerNorm affines."""
+    rng = np.random.default_rng(seed)
+
+    def r(*shape, scale=0.3, shift=0.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale + shift).astype(np.float32)).to(device, dtype)
+
+    return r(b, h, w, c, scale=1.0), [r(c, shift=1.0), r(c), r(c, 3 * c, scale=c ** -0.5), r(3 * c),
+                                      r(c, c, scale=c ** -0.5), r(c), r(c, shift=1.0), r(c),
+                                      r(c, hidden, scale=c ** -0.5), r(hidden), r(hidden, c, scale=hidden ** -0.5), r(c)]
+
+
+# (B, H, W, C, heads, ws, shift), dtype, limit relative to max(1, max|ref|): the
+# shipped width at both shifts, a ragged 15 x 9 window grid, a tiny width with 4 x 4 windows
+SWIN_CASES = [
+    ((1, 64, 64, 180, 6, 8, 0), torch.float32, 1e-4),
+    ((1, 64, 64, 180, 6, 8, 4), torch.float32, 1e-4),
+    ((2, 120, 72, 180, 6, 8, 4), torch.float32, 1e-4),
+    ((1, 8, 12, 12, 2, 4, 2), torch.float32, 1e-4),
+    ((1, 64, 64, 180, 6, 8, 4), torch.bfloat16, 2e-2),
+]
+
+
+@pytest.mark.parametrize("shape,dtype,tol", SWIN_CASES)
+def test_k8_matches_plain(cuda, shape, dtype, tol):
+    """One launch, within tol of swin_block_map_ref (fp32 on the same rounded inputs), the same bits twice."""
+    b, h, w, c, heads, ws, shift = shape
+    x, params = _swin_inputs(b, h, w, c, heads, 2 * c, seed=c + shift, device=cuda, dtype=dtype)
+    before = twa.fused_swin_block.launches
+    with torch.no_grad():
+        z = twa.fused_swin_block(x, *params, heads, ws, shift)
+        again = twa.fused_swin_block(x, *params, heads, ws, shift)
+    assert twa.fused_swin_block.launches == before + 2
+    ref = twa.swin_block_map_ref(x.float(), *[p.float() for p in params], heads, ws, shift)
+    torch.cuda.synchronize()
+    assert z.shape == x.shape and z.dtype == dtype
+    assert torch.equal(z, again)
+    assert _rel(z.float(), ref) <= tol, _rel(z.float(), ref)
+
+
+@pytest.mark.parametrize("with_ln", [True, False])
+@pytest.mark.parametrize("shape,dtype,tol", SWIN_CASES)
+def test_k10_matches_plain(cuda, shape, dtype, tol, with_ln):
+    b, h, w, c, heads, ws, shift = shape
+    x, params = _swin_inputs(b, h, w, c, heads, 2 * c, seed=c + shift + 1, device=cuda, dtype=dtype)
+    before = twa.fused_window_attention.launches
+    with torch.no_grad():
+        if with_ln:
+            out = twa.fused_window_attention_ln(x, *params[:6], heads, ws, shift)
+            again = twa.fused_window_attention_ln(x, *params[:6], heads, ws, shift)
+        else:
+            out = twa.fused_window_attention(x, *params[2:6], heads, ws, shift)
+            again = twa.fused_window_attention(x, *params[2:6], heads, ws, shift)
+    assert twa.fused_window_attention.launches == before + 2
+    pf = [p.float() for p in params]
+    ln = (pf[0], pf[1], 1e-5) if with_ln else None
+    ref = twa.window_attention_map_ref(x.float(), *pf[2:6], heads, ws, shift, ln)
+    torch.cuda.synchronize()
+    assert out.shape == x.shape and out.dtype == dtype
+    assert torch.equal(out, again)
+    assert _rel(out.float(), ref) <= tol, _rel(out.float(), ref)
+
+
+def test_swin_kernels_raise_under_autograd(cuda):
+    """Their backward K9 is not ported: under autograd both raise before any launch, naming K9."""
+    x, params = _swin_inputs(1, 8, 8, 12, 2, 24, seed=0, device=cuda, dtype=torch.float32)
+    params[2].requires_grad_()
+    before = (twa.fused_swin_block.launches, twa.fused_window_attention.launches)
+    with pytest.raises(NotImplementedError, match="K9"):
+        twa.fused_swin_block(x, *params, 2, 4, 2)
+    with pytest.raises(NotImplementedError, match="K9"):
+        twa.fused_window_attention_ln(x, *params[:6], 2, 4, 2)
+    with pytest.raises(NotImplementedError, match="K9"):
+        twa.fused_window_attention(x.requires_grad_(), *params[2:6], 2, 4, 2)
+    assert (twa.fused_swin_block.launches, twa.fused_window_attention.launches) == before
+    with torch.no_grad():
+        assert twa.fused_swin_block(x, *params, 2, 4, 2).grad_fn is None
+
+
+def _plain_swin_forward(self, x):
+    return twa.swin_block_map_ref(x, *self.op_args(), self.num_heads, self.window_size, self.shift_size)
+
+
+@pytest.mark.parametrize("block_kernel", [True, False])
+def test_swinir_kernel_path_matches_plain_path(cuda, monkeypatch, block_kernel):
+    """Embed 12, two RSTBs of two blocks: one K8 call per block (or one K10 call
+    with DCPT_TPU_SWIN_BLOCK=0), and the plain path's output within 1e-4 on a ragged input."""
+    torch.manual_seed(0)
+    monkeypatch.setattr(swinir_arch, "SWIN_BLOCK_KERNEL", block_kernel)
+    net = SwinIR(img_size=16, embed_dim=12, depths=[2, 2], num_heads=[2, 2], window_size=4).to(cuda).eval()
+    x = torch.rand(1, 3, 20, 12, generator=torch.Generator().manual_seed(2)).to(cuda)
+    counter = twa.fused_swin_block if block_kernel else twa.fused_window_attention
+    before = counter.launches
+    with torch.inference_mode():
+        out, _ = net(x)
+        assert counter.launches == before + 4
+        with mock.patch.object(swinir_arch.SwinTransformerBlock, "forward", _plain_swin_forward):
             ref, _ = net(x)
     assert _rel(out, ref) <= 1e-4

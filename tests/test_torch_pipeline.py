@@ -1,5 +1,5 @@
-"""The eval slices end to end: the shipped test_NAFNet_5d.yml, test_Restormer_5d.yml
-and test_PromptIR_5d.yml through the PyTorch port's test_pipeline and through
+"""The eval slices end to end: the shipped test_NAFNet_5d.yml, test_Restormer_5d.yml,
+test_PromptIR_5d.yml and test_SwinIR_5d.yml through the PyTorch port's test_pipeline and through
 dcpt_tpu's, on the same synthetic data and one shared torch checkpoint per net
 (num_gpu 0, a tiny width and depth)."""
 
@@ -26,6 +26,8 @@ TRANSFORMER_YMLS = {
                               "heads": [1, 2, 2, 4]},
     "test_PromptIR_5d.yml": {"type": "PromptIR", "dim": 48, "num_blocks": [1, 1, 1, 1], "num_refinement_blocks": 1,
                              "heads": [1, 2, 4, 8]},
+    # window 8 and img_size 128 as shipped, so the second block of each RSTB is shifted by 4
+    "test_SwinIR_5d.yml": {"type": "SwinIR", "embed_dim": 12, "depths": [2, 2], "num_heads": [2, 2]},
 }
 TINY = ["network_g:width=8", "network_g:enc_blk_nums=[1,1]", "network_g:middle_blk_num=1",
         "network_g:dec_blk_nums=[1,1]"]
@@ -115,8 +117,8 @@ def test_num_gpu_without_cuda_raises(run_args):
 
 
 def _transformer_checkpoint(path, net_opt):
-    """Seeded weights of a tiny Restormer / PromptIR with random LayerNorm affines
-    and temperatures, saved under params_ema as the reference does."""
+    """Seeded weights of a tiny Restormer / PromptIR / SwinIR with random LayerNorm
+    affines and temperatures, saved under params_ema as the reference does."""
     torch.manual_seed(0)
     net = build_network(net_opt)
     gen = torch.Generator().manual_seed(1)
