@@ -65,7 +65,26 @@ Phases, each of which raises on failure (exit code 1):
    ``DCPT_TPU_SWIN_BLOCK=0`` selects (36 K10 launches per image, metrics as on
    the K8 route); a ragged image (118 x 70, padded to 120 x 72) through the K8
    path against the plain path and against the K10 route; the device time of
-   a forward by kernel; and the eval rates of the K8, K10 and plain paths.
+   a forward by kernel; and the eval rates of the K8, K10 and plain paths;
+14. kernel K9 (``swin_block_bwd``, the Swin block backward, which recomputes
+   the forward from x) against its plain version at the shipped width: B = 2
+   at 128 x 128 with shift 0 and 4, B = 2 at 120 x 72 with shift 4 and B = 8
+   at 128 x 128 with shift 4, fp32, TF32 off, each run twice for equal bits;
+   its ms per SwinIR backward (36 calls at B = 2) beside the plain version's
+   and the bound;
+15. the training path of the shipped ``train_SwinIR_dcpt_5d.yml`` through
+   ``train_pipeline`` at full width, batch 8, gt_size 128, on the PNGs of [7]:
+   4 iterations saving every 2 with one training state kept, the launch
+   counts of K8, K9 and K3 per step checked, a resume for 2 more; the step's
+   device time by kernel; the ms per step and peak memory of the kernel path
+   and the plain path (at the largest batch the plain path fits, with its
+   OOM at batch 8 printed); every K9 call of a batch-8 step against its plain
+   version on that call's inputs; one step's gradients through the kernels
+   against the plain path's; one step on the ``DCPT_TPU_SWIN_BLOCK=0`` route
+   (K10 launches counted, gradients against the K8 route's); then the ms per
+   step of both paths again with cuDNN's algorithm timing on
+   (``torch.backends.cudnn.benchmark``, which the port's ``train_pipeline``
+   leaves off), printed as such: not the entry point's numbers.
 
 On the H100 machines torch.profiler at times stops recording device time for
 the rest of a process.  A phase whose profile records none then runs once more
@@ -102,6 +121,7 @@ KERNELS = {
     "mdta_block_bwd": ("dcpt_tpu_torch/csrc/mdta_block_bwd.cu", "dcpt_tpu/ops/mdta_block_bwd.py:338"),
     "fused_swin_block": ("dcpt_tpu_torch/csrc/swin_block.cu", "dcpt_tpu/ops/window_attention.py:302"),
     "fused_window_attention": ("dcpt_tpu_torch/csrc/window_attention.cu", "dcpt_tpu/ops/window_attention.py:138"),
+    "swin_block_bwd": ("dcpt_tpu_torch/csrc/swin_block_bwd.cu", "dcpt_tpu/ops/swin_block_bwd.py:159"),
 }
 # the card's peaks (NVIDIA's H100 SXM data sheet): fp32 outside the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
@@ -120,9 +140,10 @@ TRAIN_ITERS, RESUME_ITERS = 4, 2
 K1_PER_STEP, K2_PER_STEP, K3_PER_STEP = 72, 71, sum(K3_SHAPES.values())
 K6_FUNCTIONS = {"mdta_qkv_kernel", "mdta_dw_kernel", "mdta_gram_kernel", "colsum_kernel<6>", "mdta_attn_kernel",
                 "mdta_av_kernel", "mdta_proj_kernel", "mdta_ffn_in_kernel", "mdta_gate_kernel", "mdta_ffn_out_kernel"}
-K7_FUNCTIONS = {"k7_gate_kernel", "k7_prod_kernel", "k7_dw_bwd_kernel", "k7_ln_bwd_kernel", "k7_dattn_kernel",
-                "k7_cspace_kernel", "k7_dqkv_kernel", "k7_wgrad_kernel", "colsum_kernel<7>"}
-# each kernel's device functions by name (``colsum_kernel<N>`` is kernel N's fixed-order sum)
+K7_FUNCTIONS = {"k7_gate_kernel", "k7_prod_kernel", "k7_dw_bwd_kernel", "ln_bwd_kernel<7>", "k7_dattn_kernel",
+                "k7_cspace_kernel", "k7_dqkv_kernel", "wgrad_kernel<7>", "colsum_kernel<7>"}
+# each kernel's device functions by name (``colsum_kernel<N>``, ``ln_bwd_kernel<N>`` and
+# ``wgrad_kernel<N>`` are the shared passes as kernel N launches them)
 DEVICE_FUNCTIONS = {
     "naf_block_fused": {"naf_p1_kernel", "naf_sca_kernel", "naf_p2a_kernel", "naf_p2b_kernel", "naf_p2c_kernel"},
     "naf_block_bwd": {"bwd_f1_kernel", "bwd_prod_kernel", "bwd_a_kernel", "bwd_ln_kernel", "bwd_sca_kernel",
@@ -132,6 +153,8 @@ DEVICE_FUNCTIONS = {
     "mdta_block_bwd": K7_FUNCTIONS,
     "fused_swin_block": {"swin_block_kernel"},
     "fused_window_attention": {"window_attention_kernel"},
+    "swin_block_bwd": {"k9_ln_kernel", "k9_prod_kernel", "k9_attn_fwd_kernel", "k9_attn_bwd_kernel",
+                       "ln_bwd_kernel<9>", "wgrad_kernel<9>", "colsum_kernel<9>"},
 }
 # the DCPT step on the network as it is: each fp32 path's gradients against the
 # plain path in float64, relative to each tensor's max|ref|.  fp32 rounding flips
@@ -181,6 +204,16 @@ SWIN_CASES = [(1, 128, 128, 0), (1, 128, 128, 4), (2, 120, 72, 4)]  # (B, H, W, 
 # computes the same function (a wrong weight layout is off by O(1)): nn.TransformerEncoderLayer's
 # fused eval path reads 1.05e-4 in fp32 on the H100, against K8's 5e-7
 LIBRARY_TOL = 1e-3
+SWIN_TRAIN_YML = ROOT / "options" / "all_in_one" / "train" / "train_SwinIR_dcpt_5d.yml"
+# (B, H, W, shift): a SwinIR backward's two shifts at B = 2, the ragged grid, the train yml's batch
+K9_CASES = [(2, 128, 128, 0), (2, 128, 128, 4), (2, 120, 72, 4), (8, 128, 128, 4)]
+K9_TOL = 1e-3  # relative to max(1, max|ref|), as K7: weight gradients sum over up to 131 k tokens in another order
+# per DCPT step at batch 8: both passes run all 36 blocks forward (K8); the backward
+# (K9) runs through the 36 of the gt pass and the 18 under the lq pass's encode_layers
+# taps; the probe's norms are 180 wide, below K3's gate
+SWIN_PER_STEP = {"fused_swin_block": 72, "swin_block_bwd": 54, "layer_norm_2d": 0}
+# the float64 plain path of the SwinIR step keeps about 0.35 GB a block per image; this batch fits
+SWIN_FLOAT64_BATCH = 1
 
 
 def card_line() -> str:
@@ -257,6 +290,17 @@ def k10_work(c: int, tokens: int, pixels: int) -> tuple[float, float]:
     return pixels * 2 * (4 * c * c + 2 * tokens * c), 4 * (2 * pixels * c + 4 * c * c + 6 * c)
 
 
+def k9_work(c: int, hidden: int, tokens: int, pixels: int) -> tuple[float, float]:
+    """(flops, bytes) of one K9 call: per pixel the recomputed forward up to fc1
+    (4C^2 + C hidden + 2 N C multiply-adds: qkv, proj, fc1 and the attention; no
+    fc2, whose output the backward does not read) and the backward: the products
+    into token space (4C^2 + 2 C hidden), the weight gradients (the same) and
+    the attention's dattn, dv, dq and dk (4 N C); x and dz read, dx written, the
+    weights read and their gradients written once."""
+    weights = 4 * c * c + 2 * c * hidden + 9 * c + hidden
+    return pixels * 2 * (12 * c * c + 5 * c * hidden + 6 * tokens * c), 4 * (3 * pixels * c + 2 * weights)
+
+
 def k3_work(rows: int, c: int) -> tuple[float, float]:
     """(flops, bytes) of one LayerNorm forward plus backward, counting the bytes the
     function needs: x read and out written, then g and x read and gx written;
@@ -304,14 +348,20 @@ def cuda_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
+# device functions shared by several kernels, their first template argument the owner's number
+OWNED = ("colsum_kernel", "ln_bwd_kernel", "wgrad_kernel")
+
+
 def kernel_id(key: str) -> str:
     """A device function's name from a profiler key: ``void (anonymous
-    namespace)::colsum_kernel<2>(float const*, ...)`` -> ``colsum_kernel<2>``;
-    template arguments are kept only for colsum, whose argument names its owner."""
+    namespace)::wgrad_kernel<7, true>(float const*, ...)`` -> ``wgrad_kernel<7>``;
+    template arguments are dropped but for the owner of a shared function (``OWNED``)."""
     m = re.search(r"(\w+)(<[^()]*>)?\(", key)
     if m is None:
         return key
-    return m.group(1) + (m.group(2) or "") if m.group(1) == "colsum_kernel" else m.group(1)
+    if m.group(1) in OWNED and m.group(2):
+        return f"{m.group(1)}<{m.group(2)[1:-1].split(',')[0].strip()}>"
+    return m.group(1)
 
 
 class NoDeviceTime(RuntimeError):
@@ -669,16 +719,19 @@ def _plain_ln_forward(self, x):
 
 
 def plain_path():
-    """Every NAFBlock, TransformerBlock and LayerNorm2d on plain PyTorch (autograd of the plain versions)."""
+    """Every NAFBlock, TransformerBlock, SwinTransformerBlock and LayerNorm2d on plain
+    PyTorch (autograd of the plain versions)."""
     from contextlib import ExitStack
 
     from dcpt_tpu_torch.archs.arch_util import LayerNorm2d
     from dcpt_tpu_torch.archs.nafnet_arch import NAFBlock
     from dcpt_tpu_torch.archs.restormer_arch import TransformerBlock
+    from dcpt_tpu_torch.archs.swinir_arch import SwinTransformerBlock
 
     stack = ExitStack()
     stack.enter_context(mock.patch.object(NAFBlock, "forward", _plain_block_forward))
     stack.enter_context(mock.patch.object(TransformerBlock, "forward", _plain_transformer_forward))
+    stack.enter_context(mock.patch.object(SwinTransformerBlock, "forward", _plain_swin_forward))
     stack.enter_context(mock.patch.object(LayerNorm2d, "forward", _plain_ln_forward))
     return stack
 
@@ -738,6 +791,17 @@ def grad_errs(a, b) -> dict:
     return {n: ((a[n] - b[n]).abs().max() / b[n].abs().max().clamp_min(1e-30)).item() for n in b}
 
 
+def over_limit(got: dict, ref: dict, again: dict) -> tuple[dict, float]:
+    """Each gradient's error against ``ref`` over its limit: 1e-3 of the tensor's
+    max|ref|, plus 1e-6 of the step's largest gradient, plus three times the
+    spread of ``again`` (``ref``'s path run once more) from ``ref``; and that
+    largest gradient."""
+    scale = max(g.abs().max().item() for g in ref.values())
+    return {n: (got[n] - g).abs().max().item() / (1e-3 * g.abs().max().item() + 1e-6 * scale
+                                                  + 3 * (again[n] - g).abs().max().item())
+            for n, g in ref.items()}, scale
+
+
 def check_step_gradients(model, label: str = "[7]", batch_size: int = 8, float64_batch: int = 8) -> None:
     """One DCPT step's gradients of net_g and net_dc on the same weights:
 
@@ -769,11 +833,7 @@ def check_step_gradients(model, label: str = "[7]", batch_size: int = 8, float64
         with plain_path():
             plain, _ = step_grads(model, batch)
             again, _ = step_grads(model, batch)
-    scale = max(g.abs().max().item() for g in plain.values())
-    # each gradient's error over its limit
-    ks = {n: (kernel[n] - g).abs().max().item() / (1e-3 * g.abs().max().item() + 1e-6 * scale
-                                                     + 3 * (again[n] - g).abs().max().item())
-          for n, g in plain.items()}
+    ks, scale = over_limit(kernel, plain, again)
     ks_name = max(ks, key=ks.get)
     rel = grad_errs(kernel, plain)
     print(f"{label} switches smoothed, batch {batch_size}, {len(ks)} gradients of net_g and net_dc, kernel path "
@@ -809,40 +869,40 @@ def check_step_gradients(model, label: str = "[7]", batch_size: int = 8, float64
                            f"{k_med:.3e}, limits {worst_limit:.3e} and {median_limit:.3e}")
 
 
-def check_k7_in_step(model, label: str, batch_size: int = 8) -> float:
-    """One DCPT step at ``batch_size`` with every K7 call held against
-    mdta_block_bwd_ref on that call's own inputs: the block's input and
-    weights, K6's residuals and the upstream dz of the real step, at the shapes
-    and in the flavour the train yml gives them (Restormer's ReLU attention
-    too: the plain version reads its mask from the same residuals).  Limit
-    K7_TOL relative to max(1, max|ref|); returns the worst error."""
+def check_bwd_in_step(model, label: str, function, ref, tol: float, calls: int | None = None,
+                      batch_size: int = 8) -> float:
+    """One DCPT step at ``batch_size`` with every backward of the autograd
+    ``function`` (K7's ``MDTABlockFunction``, K9's ``SwinBlockFunction``) held
+    against its plain version ``ref(x, saved, dz, config)`` on that call's own
+    inputs: the block's input and saved tensors, its configuration and the
+    upstream dz of the real step, at the shapes and in the flavour the train yml
+    gives them.  Limit ``tol`` relative to max(1, max|ref|) on each cotangent,
+    and ``calls`` calls when given; returns the worst error."""
     import torch
 
-    from dcpt_tpu_torch.ops import mdta_block as mb
-    from dcpt_tpu_torch.ops.mdta_block_bwd import mdta_block_bwd_ref
-
-    real_backward = mb.MDTABlockFunction.backward
+    real_backward = function.backward
     errs = []
 
     def backward(ctx, dz):
         grads = real_backward(ctx, dz)
         x, *saved = ctx.saved_tensors
-        ref = mdta_block_bwd_ref(x, *saved[:11], *saved[11:15], dz.contiguous(), *ctx.config)
+        want = ref(x, saved, dz.contiguous(), ctx.config)
         got = (grads[0], *grads[5:])
-        errs.append((max((a - r).abs().max().item() / max(1.0, r.abs().max().item()) for a, r in zip(got, ref)),
-                     tuple(x.shape)))
+        errs.append((max((a - r).abs().max().item() / max(1.0, r.abs().max().item()) for a, r in zip(got, want)),
+                     tuple(x.shape), tuple(ctx.config)))
         return grads
 
-    with mock.patch.object(mb.MDTABlockFunction, "backward", staticmethod(backward)):
+    with mock.patch.object(function, "backward", staticmethod(backward)):
         model.feed_data(grad_batch(batch_size))
         model.compute_gradients()
     torch.cuda.synchronize()
-    worst, shape = max(errs)
-    print(f"{label} K7 inside a DCPT step at batch {batch_size}: {len(errs)} calls, each against "
-          f"mdta_block_bwd_ref on its own inputs: worst {worst:.3e} (at {shape}; limit {K7_TOL:.0e} relative to "
-          f"max(1, max|ref|))", flush=True)
-    if not worst <= K7_TOL:
-        raise RuntimeError(f"K7 inside the step: error {worst:.3e} at {shape} above {K7_TOL:.0e}")
+    worst, shape, config = max(errs)
+    print(f"{label} {function.__name__} backward inside a DCPT step at batch {batch_size}: {len(errs)} calls, each "
+          f"against its plain version on its own inputs: worst {worst:.3e} (at {shape}, config {config}; limit "
+          f"{tol:.0e} relative to max(1, max|ref|))", flush=True)
+    if (calls is not None and len(errs) != calls) or not worst <= tol:
+        raise RuntimeError(f"{function.__name__} inside the step: {len(errs)} calls (expected {calls}), worst error "
+                           f"{worst:.3e} at {shape} (limit {tol:.0e})")
     return worst
 
 
@@ -1211,8 +1271,8 @@ def run_transformer_training(force: list[str]) -> dict:
     import torch
 
     from dcpt_tpu_torch.ops.layernorm2d import layer_norm_2d
-    from dcpt_tpu_torch.ops.mdta_block import mdta_block_fused
-    from dcpt_tpu_torch.ops.mdta_block_bwd import mdta_block_bwd
+    from dcpt_tpu_torch.ops.mdta_block import MDTABlockFunction, mdta_block_fused
+    from dcpt_tpu_torch.ops.mdta_block_bwd import mdta_block_bwd, mdta_block_bwd_ref
     from dcpt_tpu_torch.train import train_pipeline
     from dcpt_tpu_torch.utils.options import yaml_load
 
@@ -1259,7 +1319,8 @@ def run_transformer_training(force: list[str]) -> dict:
         print(f"[11] {arch} DCPT step at batch 8, 128 x 128, fp32: kernel path {step_ms:.2f} ms/step (peak "
               f"{peak:.0f} MiB), plain path {plain_step_ms:.2f} ms/step (peak {plain_peak:.0f} MiB)", flush=True)
         torch.cuda.empty_cache()
-        check_k7_in_step(resumed, f"[11] {arch}")
+        check_bwd_in_step(resumed, f"[11] {arch}", MDTABlockFunction,
+                          lambda x, s, dz, config: mdta_block_bwd_ref(x, *s[:11], *s[11:15], dz, *config), K7_TOL)
         torch.cuda.empty_cache()
         check_step_gradients(resumed, f"[11] {arch}", 8, FLOAT64_GRAD_BATCH)
         out[arch] = {"launches": launches, "step_ms": step_ms, "plain_step_ms": plain_step_ms, "profile": profile}
@@ -1520,6 +1581,192 @@ def run_swinir_slice(force: list[str]) -> dict:
     return {"launches": launches, "profile": profile, "rates": rates}
 
 
+def check_k9() -> dict:
+    """K9 against its plain version at the K9_CASES shapes (C 180, 6 heads, 8 x 8
+    windows, hidden 360), fp32, each call twice for equal bits; per SwinIR
+    backward at 128 x 128, B = 2 (18 calls at each shift): device time (``ms``,
+    ``plain_ms``), CUDA events around back-to-back calls (``call_ms``,
+    ``plain_call_ms``) and the bound; one call at B = 8 (``b8_*``)."""
+    import torch
+
+    from dcpt_tpu_torch.ops.swin_block_bwd import swin_block_bwd, swin_block_bwd_ref
+
+    gen = torch.Generator().manual_seed(14)
+    heads, ws, worst, times = SWIN_HEADS, SWIN_WS, 0.0, {}
+    print(f"  {'B':>2} {'H':>4} {'W':>4} {'shift':>5} {'max_abs':>10} {'rel':>10} {'worst of':>8} {'kernel_ms':>10} "
+          f"{'plain_ms':>10} {'call_ms':>10} {'plain_call':>10} {'bound_ms':>10}  (kernel_ms, plain_ms: device time per "
+          f"call, torch.profiler; call_ms: CUDA events around back-to-back calls)")
+    for b, h, w, shift in K9_CASES:
+        x = torch.randn(b, h, w, SWIN_C, generator=gen).cuda()
+        dz = torch.randn(b, h, w, SWIN_C, generator=gen).cuda()
+        p = swin_params(gen, torch.float32, "cuda")
+
+        def kernel():
+            return swin_block_bwd(x, *p, dz, heads, ws, shift)
+
+        def plain():
+            return swin_block_bwd_ref(x, *p, dz, heads, ws, shift)
+
+        got, again, ref = kernel(), kernel(), plain()
+        torch.cuda.synchronize()
+        errs = [(g - r).abs().max().item() / max(1.0, r.abs().max().item()) for g, r in zip(got, ref)]
+        i = max(range(len(errs)), key=errs.__getitem__)
+        if any(g.shape != r.shape or not torch.isfinite(g).all() for g, r in zip(got, ref)):
+            raise RuntimeError(f"K9 {b}x{h}x{w} shift {shift}: bad cotangents")
+        if not all(torch.equal(g, a) for g, a in zip(got, again)):
+            raise RuntimeError(f"K9 {b}x{h}x{w} shift {shift}: two runs on the same inputs differ")
+        if errs[i] > K9_TOL:
+            raise RuntimeError(f"K9 {b}x{h}x{w} shift {shift}: cotangent {i} error {errs[i]:.3e} above {K9_TOL:.0e}")
+        funcs = device_ms_by_function(kernel, 5)[0]
+        if set(funcs) != DEVICE_FUNCTIONS["swin_block_bwd"]:
+            raise RuntimeError(f"K9's profile shows {sorted(funcs)}, expected {DEVICE_FUNCTIONS['swin_block_bwd']}")
+        k_ms, p_ms = sum(funcs.values()), sum(device_ms_by_function(plain, 5)[0].values())
+        k_call, p_call = cuda_ms(kernel, 5), cuda_ms(plain, 5)
+        b_ms = bound([(1, *k9_work(SWIN_C, SWIN_HIDDEN, ws * ws, b * h * w))])[0]
+        err = (got[i] - ref[i]).abs().max().item()
+        print(f"  {b:>2} {h:>4} {w:>4} {shift:>5} {err:>10.3e} {errs[i]:>10.3e} {i:>8} {k_ms:>10.4f} {p_ms:>10.4f} "
+              f"{k_call:>10.4f} {p_call:>10.4f} {b_ms:>10.4f}", flush=True)
+        worst = max(worst, err)
+        times[(b, h, w, shift)] = (k_ms, p_ms, k_call, p_call, b_ms)
+    print("  K9 twice on the same inputs: equal bit for bit at every shape", flush=True)
+
+    def per_backward(i):
+        return SWIN_PER_FORWARD // 2 * (times[(2, 128, 128, 0)][i] + times[(2, 128, 128, 4)][i])
+
+    bound_ms, bound_by = bound([(SWIN_PER_FORWARD, *k9_work(SWIN_C, SWIN_HIDDEN, ws * ws, 2 * 128 * 128))])
+    b8 = times[(8, 128, 128, 4)]
+    return {"max_abs_err": worst, "ms": per_backward(0), "plain_ms": per_backward(1), "call_ms": per_backward(2),
+            "plain_call_ms": per_backward(3), "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "b8_ms": b8[0], "b8_plain_ms": b8[1], "b8_bound_ms": b8[4]}
+
+
+def run_swinir_training(force: list[str]) -> dict:
+    """The shipped SwinIR DCPT yml through train_pipeline at full width on the PNGs
+    of [7]: launches per step, checkpoint retention, resume, the step's profile,
+    the ms per step and peak memory of both paths, every K9 call of a step
+    against its plain version, one step's gradients against the plain path's,
+    and one step on the K10 route against the K8 route."""
+    import gc
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from dcpt_tpu_torch.archs import swinir_arch
+    from dcpt_tpu_torch.ops.layernorm2d import layer_norm_2d
+    from dcpt_tpu_torch.ops.swin_block_bwd import swin_block_bwd, swin_block_bwd_ref
+    from dcpt_tpu_torch.ops.window_attention import SwinBlockFunction, fused_swin_block, fused_window_attention
+    from dcpt_tpu_torch.train import train_pipeline
+
+    work = ROOT / "build" / "chip_smoke_train_SwinIR"
+    shutil.rmtree(work, ignore_errors=True)
+    args = ["-opt", str(SWIN_TRAIN_YML), "--force_yml", *force, "datasets:train:datasets:d3_dehaze:suffix=.png",
+            "logger:use_tb_logger=false", "logger:print_freq=1", "logger:save_checkpoint_freq=2",
+            "logger:keep_checkpoints=1", f"train:scheduler:periods=[{TRAIN_ITERS + RESUME_ITERS}]"]
+    fused_swin_block.launches = swin_block_bwd.launches = layer_norm_2d.launches = layer_norm_2d.bwd_launches = 0
+    t0 = time.perf_counter()
+    model = train_pipeline(str(work), args=args + [f"train:total_iter={TRAIN_ITERS}"])
+    torch.cuda.synchronize()
+    launches = {"fused_swin_block": fused_swin_block.launches, "swin_block_bwd": swin_block_bwd.launches,
+                "layer_norm_2d": layer_norm_2d.launches + layer_norm_2d.bwd_launches}
+    print(f"[15] train_pipeline on {SWIN_TRAIN_YML.name}, {TRAIN_ITERS} iterations at batch 8, gt_size 128: "
+          f"{time.perf_counter() - t0:.1f} s; launches K8 {launches['fused_swin_block']}, K9 "
+          f"{launches['swin_block_bwd']}, K3 {launches['layer_norm_2d']}; losses {dict(model.log_dict)}", flush=True)
+    want = {k: n * TRAIN_ITERS for k, n in SWIN_PER_STEP.items()}
+    if launches != want:
+        raise RuntimeError(f"SwinIR: launches {launches}, expected {want} for {TRAIN_ITERS} steps")
+    if not all(np.isfinite(v) for v in model.log_dict.values()) or set(model.log_dict) != {"l_pix", "l_classify"}:
+        raise RuntimeError(f"SwinIR: bad losses {model.log_dict}")
+    exp = work / "experiments" / "SwinIR_dcpt_5d_pretrain"
+    states = sorted(f.name for f in (exp / "training_states").iterdir())
+    if not (exp / "models" / f"net_g_{TRAIN_ITERS}.pth").exists() or states != [f"{TRAIN_ITERS}.state"]:
+        raise RuntimeError(f"SwinIR: checkpoint at iteration {TRAIN_ITERS} missing, or training states {states}")
+    del model
+
+    resumed = train_pipeline(str(work), args=["--auto_resume", *args, f"train:total_iter={TRAIN_ITERS + RESUME_ITERS}"])
+    steps = resumed.optimizer_g.state_dict()["state"][0]["step"].item()
+    states = sorted(f.name for f in (exp / "training_states").iterdir())
+    print(f"[15] SwinIR resumed from iteration {TRAIN_ITERS} for {RESUME_ITERS} more: optimizer at step {steps:.0f}, "
+          f"training states kept {states} (logger.keep_checkpoints 1), losses {dict(resumed.log_dict)}", flush=True)
+    if (steps != TRAIN_ITERS + RESUME_ITERS or states != [f"{TRAIN_ITERS + RESUME_ITERS}.state"]
+            or not all(np.isfinite(v) for v in resumed.log_dict.values())):
+        raise RuntimeError(f"SwinIR resume: optimizer step {steps}, states {states}, losses {resumed.log_dict}")
+
+    profile = step_profile(resumed, ["fused_swin_block", "swin_block_bwd"], "[15] SwinIR")
+    step_ms, peak = ms_per_step(resumed, 5)
+    print(f"[15] SwinIR DCPT step at batch 8, 128 x 128, fp32: kernel path {step_ms:.2f} ms/step (peak {peak:.0f} "
+          f"MiB)", flush=True)
+    rates = {"8": {"kernel": [step_ms, peak]}}
+    for plain_batch in (8, 4, 2, 1):
+        if plain_batch < 8:
+            resumed.feed_data(grad_batch(plain_batch))
+            rates[str(plain_batch)] = {"kernel": list(ms_per_step(resumed, 5))}
+        try:
+            with plain_path():
+                rates[str(plain_batch)]["plain"] = list(ms_per_step(resumed, 3))
+            break
+        except torch.cuda.OutOfMemoryError as e:
+            print(f"[15] SwinIR plain path at batch {plain_batch}: {str(e).splitlines()[0]}", flush=True)
+        # the failed step's graph stays referenced from the exception's frames until a collection
+        gc.collect()
+        resumed.optimizer_g.zero_grad(set_to_none=True)
+        resumed.optimizer_dc.zero_grad(set_to_none=True)
+        torch.cuda.empty_cache()
+    (k_ms, k_peak), (p_ms, p_peak) = rates[str(plain_batch)]["kernel"], rates[str(plain_batch)]["plain"]
+    print(f"[15] SwinIR DCPT step at batch {plain_batch} (the largest the plain path fits), 128 x 128, fp32: kernel "
+          f"path {k_ms:.2f} ms/step (peak {k_peak:.0f} MiB), plain path {p_ms:.2f} ms/step (peak {p_peak:.0f} MiB)",
+          flush=True)
+    torch.cuda.empty_cache()
+    check_bwd_in_step(resumed, "[15] SwinIR", SwinBlockFunction,
+                      lambda x, s, dz, config: swin_block_bwd_ref(x, *s, dz, *config), K9_TOL,
+                      SWIN_PER_STEP["swin_block_bwd"])
+    torch.cuda.empty_cache()
+    check_step_gradients(resumed, "[15] SwinIR", plain_batch, SWIN_FLOAT64_BATCH)
+    torch.cuda.empty_cache()
+
+    # the DCPT_TPU_SWIN_BLOCK=0 route: the module constant it sets at import
+    batch = grad_batch(plain_batch)
+    with smooth_switches(resumed):
+        k8, _ = step_grads(resumed, batch)
+        again, _ = step_grads(resumed, batch)
+        swinir_arch.SWIN_BLOCK_KERNEL = False
+        try:
+            fused_window_attention.launches = 0
+            k10, _ = step_grads(resumed, batch)
+        finally:
+            swinir_arch.SWIN_BLOCK_KERNEL = True
+    ks, _ = over_limit(k10, k8, again)
+    worst = max(ks, key=ks.get)
+    print(f"[15] SwinIR K10 route, one step at batch {plain_batch}: {fused_window_attention.launches} K10 launches; "
+          f"gradients against the K8 route's: worst {grad_errs(k10, k8)[worst]:.3e} of the tensor's max|ref| "
+          f"({worst}), {ks[worst]:.3f} of its limit", flush=True)
+    if fused_window_attention.launches != SWIN_PER_STEP["fused_swin_block"] or not ks[worst] <= 1:
+        raise RuntimeError(f"SwinIR K10 route: {fused_window_attention.launches} launches, gradient {worst} "
+                           f"{ks[worst]:.3f} of its limit")
+
+    # The same steps with cuDNN's algorithm timing, which the reference's train_pipeline turns on and the
+    # port's leaves off (ROADMAP Q3 #5): without it cuDNN's heuristic picks convolution algorithms
+    # (an FFT path at batch 4) that take far longer.  Not the entry point's numbers, and labelled so.
+    timed = {}
+    torch.backends.cudnn.benchmark = True
+    try:
+        for b in dict.fromkeys((8, plain_batch)):
+            resumed.feed_data(grad_batch(b))
+            timed[str(b)] = {"kernel": list(ms_per_step(resumed, 5))}
+        with plain_path():
+            timed[str(plain_batch)]["plain"] = list(ms_per_step(resumed, 3))
+    finally:
+        torch.backends.cudnn.benchmark = False
+    (k8_ms, k8_peak), (k_ms, k_peak) = timed["8"]["kernel"], timed[str(plain_batch)]["kernel"]
+    p_ms, p_peak = timed[str(plain_batch)]["plain"]
+    print(f"[15] SwinIR DCPT step with torch.backends.cudnn.benchmark on (not the entry point's default), 128 x 128, "
+          f"fp32: kernel path {k8_ms:.2f} ms/step at batch 8 (peak {k8_peak:.0f} MiB); at batch {plain_batch} kernel "
+          f"path {k_ms:.2f} ms/step (peak {k_peak:.0f} MiB), plain path {p_ms:.2f} ms/step (peak {p_peak:.0f} MiB)",
+          flush=True)
+    return {"launches": launches, "step_ms": step_ms, "peak_mib": peak, "plain_batch": plain_batch, "rates": rates,
+            "cudnn_benchmark_rates": timed, "profile": profile}
+
+
 PHASE_RESULT = "CHIP_SMOKE_PHASE_RESULT "
 # set once torch.profiler has recorded no device time in this process
 _profiler_lost = False
@@ -1582,7 +1829,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     build_s = build_kernels()
-    print(f"[2] built K1, K2, K3, K6, K7, K8, K10 in {', '.join(f'{b:.1f}' for b in build_s)} s (nvcc, in parallel), "
+    print(f"[2] built K1, K2, K3, K6, K7, K8, K10, K9 in {', '.join(f'{b:.1f}' for b in build_s)} s (nvcc, in parallel), "
           f"phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     print("[3] K1 naf_block_fused vs naf_block_ref, B=2, TF32 off", flush=True)
@@ -1644,15 +1891,27 @@ def main() -> int:
 
     swin_slice = run_phase(run_swinir_slice, force)
 
+    print(f"[14] K9 swin_block_bwd vs swin_block_bwd_ref, C {SWIN_C}, {SWIN_HEADS} heads, ws {SWIN_WS}, fp32, TF32 off, "
+          f"limit {K9_TOL:.0e} relative to max(1, max|ref|) on each of the 13 cotangents", flush=True)
+    k9 = run_phase(check_k9)
+    print(f"[14] K9 per SwinIR backward (B=2, 128x128, {SWIN_PER_FORWARD} blocks): device {k9['ms']:.3f} ms (plain "
+          f"{k9['plain_ms']:.3f} ms), back-to-back calls {k9['call_ms']:.3f} ms (plain {k9['plain_call_ms']:.3f} ms), "
+          f"bound {k9['bound_ms']:.3f} ms ({k9['bound_by']}); one call at B=8: {k9['b8_ms']:.3f} ms (plain "
+          f"{k9['b8_plain_ms']:.3f} ms, bound {k9['b8_bound_ms']:.3f} ms); library: none (no PyTorch call computes "
+          f"the block's backward)", flush=True)
+
+    swin_train = run_phase(run_swinir_training, train["force"])
+
     launches = dict(train["launches"], mdta_block_fused=k6_launches["Restormer"],
                     mdta_block_bwd=transformer_train["Restormer"]["launches"]["mdta_block_bwd"],
                     fused_swin_block=swin_slice["launches"]["K8"]["fused_swin_block"],
-                    fused_window_attention=swin_slice["launches"]["K10"]["fused_window_attention"])
+                    fused_window_attention=swin_slice["launches"]["K10"]["fused_window_attention"],
+                    swin_block_bwd=swin_train["launches"]["swin_block_bwd"])
     kernels = []
     for name, measured in (("naf_block_fused", k1), ("naf_block_bwd", k2), ("layer_norm_2d", k3),
                            ("mdta_block_fused", k6), ("mdta_block_bwd", k7),
                            ("fused_swin_block", swin["fused_swin_block"]),
-                           ("fused_window_attention", swin["fused_window_attention"])):
+                           ("fused_window_attention", swin["fused_window_attention"]), ("swin_block_bwd", k9)):
         source, replaces = KERNELS[name]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": launches[name], "max_abs_err": measured["max_abs_err"],
@@ -1660,7 +1919,7 @@ def main() -> int:
                         "bound_by": measured["bound_by"], "library_ms": measured["library_ms"]})
     kernels[3].update(launches_promptir=k6_launches["PromptIR"], call_ms=k6["call_ms"],
                       **{k: v for k, v in k6.items() if k.startswith("promptir_") and k != "promptir_bound_by"})
-    for entry in kernels[5:]:
+    for entry in kernels[5:7]:
         entry.update(launches_per_image=SWIN_PER_FORWARD, call_ms=swin[entry["name"]]["call_ms"],
                      plain_call_ms=swin[entry["name"]]["plain_call_ms"])
     # library_ms is K10 without its LayerNorm: beside it, the kernel's and the plain version's ms without it
@@ -1669,6 +1928,9 @@ def main() -> int:
                       launches_promptir=transformer_train["PromptIR"]["launches"]["mdta_block_bwd"],
                       call_ms=k7["call_ms"],
                       **{k: v for k, v in k7.items() if k.startswith("promptir_") and k != "promptir_bound_by"})
+    kernels[7].update(launches_per_step=SWIN_PER_STEP["swin_block_bwd"], call_ms=k9["call_ms"],
+                      plain_call_ms=k9["plain_call_ms"], b8_ms=k9["b8_ms"], b8_plain_ms=k9["b8_plain_ms"],
+                      b8_bound_ms=k9["b8_bound_ms"])
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,13 +2,15 @@
 bookkeeping, and the training half: optimizers, schedules, EMA, loss logging
 and checkpoints.
 
-Optimizers are ``torch.optim``'s, with the update dcpt_tpu's optax chains
-make (``get_optimizer``); the schedules are ``step -> lr`` functions and
+Optimizers make the update dcpt_tpu's optax chains make (``get_optimizer``):
+``torch.optim``'s where it has the same one, and the two small classes below
+where it has not; the schedules are ``step -> lr`` functions and
 ``update_learning_rate`` writes each optimizer's ``param_group["lr"]`` every
 iteration, as dcpt_tpu multiplies its update by the host-scheduled lr.
 Networks are saved as ``{param_key: state_dict}`` ``.pth`` files (the
-reference's format) and training states with ``torch.save``; dcpt_tpu's npz
-and orbax files do not load here.
+reference's format) and training states with ``torch.save``, the newest
+``logger.keep_checkpoints`` of them kept; dcpt_tpu's npz and orbax files do not
+load here.
 """
 
 from __future__ import annotations
@@ -22,6 +24,56 @@ import torch
 
 from ..utils.logger import get_root_logger
 from .lr_scheduler import build_schedule
+
+
+class OptaxRMSprop(torch.optim.Optimizer):
+    """dcpt_tpu's RMSprop, ``optax.scale_by_rms(alpha, eps)`` times -lr:
+    nu = alpha nu + (1 - alpha) g^2, p -= lr g / sqrt(nu + eps).  The eps sits
+    inside the root (``torch.optim.RMSprop`` adds it outside)."""
+
+    def __init__(self, params, lr: float, alpha: float = 0.99, eps: float = 1e-8):
+        super().__init__(params, dict(lr=lr, alpha=alpha, eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            for p in (p for p in group["params"] if p.grad is not None):
+                state = self.state[p]
+                if not state:
+                    state["step"], state["nu"] = torch.tensor(0.0), torch.zeros_like(p)
+                state["step"] += 1
+                nu = state["nu"].mul_(group["alpha"]).addcmul_(p.grad, p.grad, value=1 - group["alpha"])
+                p.addcdiv_(p.grad, (nu + group["eps"]).sqrt(), value=-group["lr"])
+
+
+class OptaxRprop(torch.optim.Optimizer):
+    """dcpt_tpu's Rprop, ``optax.scale_by_rprop(learning_rate=1.0)`` (optax
+    0.2.6) times -lr.  Each element keeps a step size that starts at 1 and has
+    no unit (the lr scales it, so its bounds [1e-6, 50] are not the lr's, as
+    ``torch.optim.Rprop``'s are): x 1.2 where g keeps its sign, x 0.5 where it
+    flips.  As optax computes it, a step applies the previous step's
+    sign(g) * step size, and nothing where the sign flipped: the first step
+    moves nothing."""
+
+    def __init__(self, params, lr: float):
+        super().__init__(params, dict(lr=lr))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            for p in (p for p in group["params"] if p.grad is not None):
+                state = self.state[p]
+                if not state:
+                    state["step"], state["size"], state["prev"] = (torch.tensor(0.0), torch.ones_like(p),
+                                                                   torch.zeros_like(p))
+                state["step"] += 1
+                s = p.grad * state["prev"]
+                size = torch.where(s == 0, state["size"],
+                                   (state["size"] * torch.where(s > 0, 1.2, 0.5)).clamp(1e-6, 50.0))
+                flipped = s < 0
+                update = torch.where(flipped, 0.0, state["prev"])
+                state["size"], state["prev"] = size, torch.where(flipped, 0.0, size * p.grad.sign())
+                p.sub_(update, alpha=group["lr"])
 
 
 class BaseModel:
@@ -43,7 +95,9 @@ class BaseModel:
         (``add_decayed_weights`` before ``scale_by_adam``); ``AdamW`` decays the
         weights apart from the Adam step, 1e-2 when no decay is given
         (``chain(scale_by_adam, add_decayed_weights(wd)) x (-lr)``); ``SGD``'s
-        momentum is optax's ``trace`` (no dampening)."""
+        momentum is optax's ``trace`` (no dampening); ``ASGD`` is plain SGD
+        (``optax.identity``: no momentum, no decay); ``RMSprop`` and ``Rprop``
+        are ``OptaxRMSprop`` and ``OptaxRprop``."""
         betas = tuple(kwargs.pop("betas", (0.9, 0.999)))
         wd = kwargs.pop("weight_decay", 0.0)
         if optim_type == "Adam":
@@ -53,14 +107,16 @@ class BaseModel:
                                      weight_decay=wd if wd else 1e-2)
         if optim_type == "Adamax":
             return torch.optim.Adamax(params, lr=lr, betas=betas, eps=kwargs.get("eps", 1e-8))
-        if optim_type in ("SGD", "ASGD"):
-            if optim_type == "ASGD":
-                get_root_logger().warning("ASGD runs as plain SGD, as in dcpt_tpu.")
+        if optim_type == "SGD":
             return torch.optim.SGD(params, lr=lr, momentum=kwargs.get("momentum", 0.0), weight_decay=wd)
+        if optim_type == "ASGD":
+            get_root_logger().warning("ASGD has no optax equivalent in dcpt_tpu; running plain SGD "
+                                      "(no momentum, no weight decay).")
+            return torch.optim.SGD(params, lr=lr)
         if optim_type == "RMSprop":
-            return torch.optim.RMSprop(params, lr=lr, alpha=kwargs.get("alpha", 0.99), eps=kwargs.get("eps", 1e-8))
+            return OptaxRMSprop(params, lr=lr, alpha=kwargs.get("alpha", 0.99), eps=kwargs.get("eps", 1e-8))
         if optim_type == "Rprop":
-            return torch.optim.Rprop(params, lr=lr)
+            return OptaxRprop(params, lr=lr)
         raise NotImplementedError(f"optimizer {optim_type} is not supported yet.")
 
     def _check_train_options(self) -> None:
@@ -91,11 +147,15 @@ class BaseModel:
     def get_current_learning_rate(self) -> list[float]:
         return list(self._current_lrs)
 
-    def clip_gradients(self, params) -> None:
-        """``train.grad_clip``: clip the global gradient norm (dcpt_tpu's clip_by_global_norm)."""
+    def clip_gradients(self) -> None:
+        """``train.grad_clip``: clip each optimizer's gradients by their own global
+        norm, as dcpt_tpu chains ``clip_by_global_norm`` into each optimizer's
+        transform (``base_model.py:110-112``): net_g's norm never scales net_dc's."""
         grad_clip = self.opt.get("grad_clip", 0) or (self.opt.get("train") or {}).get("grad_clip", 0)
         if grad_clip:
-            torch.nn.utils.clip_grad_norm_(params, float(grad_clip))
+            for optimizer in self.optimizers:
+                torch.nn.utils.clip_grad_norm_([p for g in optimizer.param_groups for p in g["params"]],
+                                               float(grad_clip))
 
     @staticmethod
     @torch.no_grad()
@@ -163,13 +223,20 @@ class BaseModel:
 
     def save_training_state(self, epoch: int, current_iter: int) -> None:
         """Epoch, iteration and every optimizer's state to ``training_states/<iter>.state``
-        (reference: base_model.py:371-411); nothing for ``current_iter`` -1."""
+        (reference: base_model.py:371-411); nothing for ``current_iter`` -1.  With
+        ``logger.keep_checkpoints`` N, only the newest N states stay (dcpt_tpu's
+        ``base_model.py:336-354``); the save has finished before any is removed."""
         if current_iter == -1:
             return
         state = {"epoch": epoch, "iter": current_iter, "optimizers": [o.state_dict() for o in self.optimizers]}
-        path = osp.join(self.opt["path"]["training_states"], f"{current_iter}.state")
-        os.makedirs(osp.dirname(path), exist_ok=True)
-        torch.save(state, path)
+        root = self.opt["path"]["training_states"]
+        os.makedirs(root, exist_ok=True)
+        torch.save(state, osp.join(root, f"{current_iter}.state"))  # written when it returns
+        keep = (self.opt.get("logger") or {}).get("keep_checkpoints")
+        if keep:
+            states = sorted((f for f in os.listdir(root) if f.endswith(".state")), key=lambda f: int(f[:-6]))
+            for old in states[:-int(keep)]:
+                os.remove(osp.join(root, old))
 
     def resume_training(self, resume_state: dict) -> None:
         """Restore the optimizers' states (reference: base_model.py:413-430)."""

@@ -74,7 +74,7 @@ class DCPTModel(DCModel):
 
     def optimize_parameters(self, current_iter: int) -> None:
         losses = self.compute_gradients()
-        self.clip_gradients(list(self.net_g.parameters()) + list(self.net_dc.parameters()))
+        self.clip_gradients()
         for optimizer in self.optimizers:
             optimizer.step()
         self.log_dict = self.reduce_loss_dict({k: v.detach() for k, v in losses.items()})

@@ -20,9 +20,13 @@ Linear weight (in, out), every norm weight and bias (C,).
   same pixels, which is the same function.  ``fused_swin_block.launches``
   and ``fused_window_attention.launches`` (for both K10 functions) count the
   calls that launched a kernel.
-
-The backward kernel K9 is not ported yet: on a CUDA tensor under autograd
-both kernels raise.
+* Under autograd ``fused_swin_block`` runs ``SwinBlockFunction``: on the card
+  K8 forward, keeping only x and the parameters, and the backward kernel K9
+  (``ops/swin_block_bwd.py``), which recomputes the forward; on the CPU the
+  plain forward and K9's plain version.  The K10 functions run
+  ``WindowAttentionFunction``: the forward K10 (or its plain version), the
+  backward the VJP of ``window_attention_map_ref``, as dcpt_tpu's custom VJP
+  differentiates its twin.
 """
 
 from __future__ import annotations
@@ -165,14 +169,6 @@ def _check(name: str, x: torch.Tensor, params: list[torch.Tensor], shapes: list[
             raise TypeError(f"{name}: parameter {i + 1} is {p.dtype} on {p.device}, x is {x.dtype} on {x.device}")
 
 
-def _no_autograd(name: str, x: torch.Tensor, params) -> None:
-    if torch.is_grad_enabled() and (x.requires_grad or any(p.requires_grad for p in params)):
-        raise NotImplementedError(
-            f"{name}: no gradient through the SwinIR kernels on the card yet: the Swin block backward K9 "
-            "(dcpt_tpu/ops/swin_block_bwd.py) comes with slice 6 (SwinIR DCPT training); run under torch.no_grad "
-            "or torch.inference_mode")
-
-
 def _device_ok(name: str, x: torch.Tensor) -> None:
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: no kernel for device {x.device}")
@@ -214,36 +210,108 @@ def _block_shapes(c: int, hidden: int) -> list[tuple]:
     return [(c,), (c,), (c, 3 * c), (3 * c,), (c, c), (c,), (c,), (c,), (c, hidden), (hidden,), (hidden, c), (c,)]
 
 
+def _kernel_block(x, params: list, heads: int, ws: int, shift: int, eps: float) -> torch.Tensor:
+    """Check the inputs, count the launch and run K8 on x's device and current stream."""
+    _check("fused_swin_block", x, params, _block_shapes(x.shape[3], params[8].shape[1]), heads, ws, shift)
+    fused_swin_block.launches += 1
+    with torch.cuda.device(x.device):
+        return _launch_block(_block_lib(), x, params, heads, ws, shift, eps, torch.cuda.current_stream().cuda_stream)
+
+
+def _differentiated(x, params) -> bool:
+    return torch.is_grad_enabled() and (x.requires_grad or any(p.requires_grad for p in params))
+
+
+class SwinBlockFunction(torch.autograd.Function):
+    """The whole Swin block with its analytic backward (dcpt_tpu's ``custom_vjp``, fp32).
+
+    ``apply(x, heads, ws, shift, eps, *params)``; on the card the forward is K8,
+    which keeps nothing but x and the parameters, and the backward K9, which
+    recomputes the forward from x; on the CPU both are the plain versions."""
+
+    @staticmethod
+    def forward(ctx, x, heads, ws, shift, eps, *params):
+        if x.device.type == "cpu":
+            z = swin_block_map_ref(x, *params, heads, ws, shift, eps)
+        else:
+            z = _kernel_block(x, list(params), heads, ws, shift, eps)
+        ctx.config = (heads, ws, shift, eps)
+        ctx.save_for_backward(x, *params)
+        return z
+
+    @staticmethod
+    def backward(ctx, dz):
+        from .swin_block_bwd import swin_block_bwd
+
+        x, *params = ctx.saved_tensors
+        grads = swin_block_bwd(x, *params, dz.contiguous(), *ctx.config)
+        return (grads[0], None, None, None, None, *grads[1:])
+
+
 def fused_swin_block(x, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w, ln2_b, wfc1, bfc1, wfc2, bfc2,
                      num_heads: int, ws: int, shift: int, eps: float = 1e-5):
     """The whole Swin block on a (B, H, W, C) map with windows of ws x ws shifted
-    by ``shift``: kernel K8 on a CUDA tensor, ``swin_block_map_ref`` on a CPU tensor."""
+    by ``shift``: kernel K8 on a CUDA tensor, ``swin_block_map_ref`` on a CPU
+    tensor; under autograd through ``SwinBlockFunction`` (K9 backward)."""
     params = [ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w, ln2_b, wfc1, bfc1, wfc2, bfc2]
     _device_ok("fused_swin_block", x)
+    if _differentiated(x, params):
+        if x.device.type == "cuda" and x.dtype != torch.float32:
+            raise NotImplementedError(
+                f"fused_swin_block: training in {x.dtype} through the Swin block kernels (mixed precision with a "
+                "bf16 K9) is not ported yet (ROADMAP Q1 #2); train in float32")
+        return SwinBlockFunction.apply(x, num_heads, ws, shift, eps, *params)
     if x.device.type == "cpu":
         return swin_block_map_ref(x, *params, num_heads, ws, shift, eps)
-    _no_autograd("fused_swin_block", x, params)
-    _check("fused_swin_block", x, params, _block_shapes(x.shape[3], wfc1.shape[1]), num_heads, ws, shift)
-    fused_swin_block.launches += 1
-    with torch.cuda.device(x.device):
-        return _launch_block(_block_lib(), x, params, num_heads, ws, shift, eps,
-                             torch.cuda.current_stream().cuda_stream)
+    return _kernel_block(x, params, num_heads, ws, shift, eps)
 
 
 fused_swin_block.launches = 0
 
 
-def _attention(name: str, x, params: list, num_heads: int, ws: int, shift: int, ln: tuple | None):
-    _device_ok(name, x)
+class WindowAttentionFunction(torch.autograd.Function):
+    """The attention branch under autograd, as dcpt_tpu's K10 custom VJP: the
+    forward K10 (its plain version on the CPU), the backward the VJP of
+    ``window_attention_map_ref`` on the saved inputs; dcpt_tpu has no backward
+    kernel for it.  ``apply(x, heads, ws, shift, ln_eps, wqkv, bqkv, wproj,
+    bproj[, ln_w, ln_b])``, ``ln_eps`` None without the LayerNorm."""
+
+    @staticmethod
+    def forward(ctx, x, heads, ws, shift, ln_eps, *params):
+        ctx.config = (heads, ws, shift, ln_eps)
+        ctx.save_for_backward(x, *params)
+        return _attention_forward(x, list(params[:4]), heads, ws, shift, (*params[4:], ln_eps) if params[4:] else None)
+
+    @staticmethod
+    def backward(ctx, dout):
+        heads, ws, shift, ln_eps = ctx.config
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        x, wqkv, bqkv, wproj, bproj, *ln = inputs
+        with torch.enable_grad():
+            out = window_attention_map_ref(x, wqkv, bqkv, wproj, bproj, heads, ws, shift,
+                                           (*ln, ln_eps) if ln else None)
+        grads = torch.autograd.grad(out, inputs, dout)
+        return (grads[0], None, None, None, None, *grads[1:])
+
+
+def _attention_forward(x, params: list, num_heads: int, ws: int, shift: int, ln: tuple | None):
     if x.device.type == "cpu":
         return window_attention_map_ref(x, *params, num_heads, ws, shift, ln)
-    _no_autograd(name, x, params + list(ln[:2] if ln else ()))
+    name = "fused_window_attention" + ("_ln" if ln else "")
     c = x.shape[3]
     _check(name, x, params + list(ln[:2] if ln else ()), [(c, 3 * c), (3 * c,), (c, c), (c,), (c,), (c,)],
            num_heads, ws, shift)
     fused_window_attention.launches += 1
     with torch.cuda.device(x.device):
         return _launch_attn(_attn_lib(), x, params, num_heads, ws, shift, ln, torch.cuda.current_stream().cuda_stream)
+
+
+def _attention(name: str, x, params: list, num_heads: int, ws: int, shift: int, ln: tuple | None):
+    _device_ok(name, x)
+    if _differentiated(x, params + list(ln[:2] if ln else ())):
+        return WindowAttentionFunction.apply(x, num_heads, ws, shift, ln[2] if ln else None, *params,
+                                             *(ln[:2] if ln else ()))
+    return _attention_forward(x, params, num_heads, ws, shift, ln)
 
 
 def fused_window_attention(x, wqkv, bqkv, wproj, bproj, num_heads: int, ws: int, shift: int):

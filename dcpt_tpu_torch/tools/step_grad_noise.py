@@ -1,7 +1,8 @@
 """Where a transformer DCPT step's gradients on the network as it is part from
 float64, and why; on one GPU, at the shipped train yml's full width.
 
-    python -m dcpt_tpu_torch.tools.step_grad_noise [--arch Restormer] [--batches 4] [--smoothed]
+    python -m dcpt_tpu_torch.tools.step_grad_noise [--arch Restormer|PromptIR|SwinIR] [--batches 4]
+        [--smoothed | --determinism]
 
 For each of ``--batches`` seeded batches of 2 images at 128 x 128 (the batch of
 ``chip_smoke.py`` [11]'s float64 comparison), with the yml's seeded initial
@@ -23,12 +24,24 @@ on the same batch and weights; per tensor the kernel path against the plain
 path beside each path's own spread from run to run, relative to the tensor's
 max|ref|, and the largest max|ref| of the step.
 
+With ``--determinism`` it names what moves a step's gradients from run to
+run: every switch smoothed, each path run twice on the same batch of 2 and
+weights, first as the step runs, then with PyTorch's deterministic algorithms
+on (``torch.use_deterministic_algorithms(True, warn_only=True)``, cuDNN's
+deterministic convolutions, cuBLAS's fixed workspace): per mode each path's
+spread from run to run, the tensors that moved, and the ops that warned they
+have no deterministic kernel on the card.
+
+SwinIR's float64 batch is ``chip_smoke.SWIN_FLOAT64_BATCH``; it has no
+attention switches (softmax), so the switch counts read 0 of 0.
+
 Prints one line per batch and measurement; writes nothing.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import statistics
 import sys
 from contextlib import ExitStack
@@ -135,13 +148,55 @@ def smoothed(model, batches: int, cs) -> int:
     return 0
 
 
+def determinism(model, batches: int, cs) -> int:
+    """Each path twice on the same batch, switches smoothed, as the step runs and
+    with the deterministic algorithms on: spread, moved tensors, warned ops."""
+    import warnings
+
+    import torch
+
+    for i in range(batches):
+        gen = torch.Generator().manual_seed(300 + i)
+        gt = torch.rand(2, 3, 128, 128, generator=gen)
+        batch = {"gt": gt, "lq": (0.7 * gt + 0.15 + 0.05 * torch.randn(gt.shape, generator=gen)).clamp(0, 1),
+                 "dataset_idx": torch.arange(2) % 5}
+        for mode in ("as the step runs", "deterministic algorithms"):
+            deterministic = mode != "as the step runs"
+            torch.use_deterministic_algorithms(deterministic, warn_only=True)
+            torch.backends.cudnn.deterministic = deterministic
+            torch.backends.cudnn.benchmark = False
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                with cs.smooth_switches(model):
+                    k1, k2 = (cs.step_grads(model, batch)[0] for _ in range(2))
+                    with cs.plain_path():
+                        p1, p2 = (cs.step_grads(model, batch)[0] for _ in range(2))
+            ops = sorted({str(w.message).split(" does not have")[0].strip() for w in caught
+                          if "deterministic" in str(w.message)})
+            parts = []
+            for path, a, b in (("kernel", k1, k2), ("plain", p1, p2)):
+                e = cs.grad_errs(b, a)
+                moved = sorted((n for n, v in e.items() if v > 0), key=e.get, reverse=True)
+                parts.append(f"{path} path worst {max(e.values()):.3e}, {len(moved)} of {len(e)} tensors moved"
+                             + (f" (largest: {', '.join(f'{n} {e[n]:.1e}' for n in moved[:4])})" if moved else ""))
+            print(f"batch {i}, {mode}: " + "; ".join(parts) + f"; ops without a deterministic kernel: {ops or 'none'}",
+                  flush=True)
+            del k1, k2, p1, p2
+            torch.cuda.empty_cache()
+    torch.use_deterministic_algorithms(False)
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--arch", default="Restormer", choices=["Restormer", "PromptIR"])
+    parser.add_argument("--arch", default="Restormer", choices=["Restormer", "PromptIR", "SwinIR"])
     parser.add_argument("--batches", type=int, default=4)
     parser.add_argument("--smoothed", action="store_true", help="measure the smoothed comparison at batch 8")
+    parser.add_argument("--determinism", action="store_true", help="name what moves the gradients from run to run")
     args = parser.parse_args(argv)
     sys.path.insert(0, str(ROOT))
+    if args.determinism:  # cuBLAS reads it when its first handle is made
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     import chip_smoke as cs
@@ -155,17 +210,20 @@ def main(argv: list[str] | None = None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"card: {cs.card_line()}", flush=True)
-    yml = cs.TRANSFORMER_TRAIN_YMLS[args.arch]
+    yml = {**cs.TRANSFORMER_TRAIN_YMLS, "SwinIR": cs.SWIN_TRAIN_YML}[args.arch]
+    float64_batch = cs.SWIN_FLOAT64_BATCH if args.arch == "SwinIR" else cs.FLOAT64_GRAD_BATCH
     opt, _ = parse_options(str(ROOT / "build" / "step_grad_noise"), is_train=True, args=["-opt", str(yml)])
     torch.manual_seed(opt["manual_seed"])
     model = build_model(opt)
     if args.smoothed:
         return smoothed(model, args.batches, cs)
+    if args.determinism:
+        return determinism(model, args.batches, cs)
     for i in range(args.batches):
         gen = torch.Generator().manual_seed(100 + i)
-        gt = torch.rand(cs.FLOAT64_GRAD_BATCH, 3, 128, 128, generator=gen)
+        gt = torch.rand(float64_batch, 3, 128, 128, generator=gen)
         batch = {"gt": gt, "lq": (0.7 * gt + 0.15 + 0.05 * torch.randn(gt.shape, generator=gen)).clamp(0, 1),
-                 "dataset_idx": torch.arange(cs.FLOAT64_GRAD_BATCH) % 5}
+                 "dataset_idx": torch.arange(float64_batch) % 5}
 
         with ExitStack() as probe:
             probe.enter_context(mock.patch.object(torch.nn.functional, "relu", lambda x, inplace=False:

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1, K2, K3, K6, K7, K8, K10) against their plain versions, on the card.
+"""The port's CUDA kernels (K1, K2, K3, K6, K7, K8, K9, K10) against their plain versions, on the card.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU: a CUDA
 kernel has no CPU mode.  The file imports neither JAX nor dcpt_tpu, so it runs
@@ -25,6 +25,7 @@ from dcpt_tpu_torch.ops import mdta_block as tmb
 from dcpt_tpu_torch.ops import mdta_block_bwd as tmbb
 from dcpt_tpu_torch.ops import naf_block as tnb
 from dcpt_tpu_torch.ops import naf_block_bwd as tnbb
+from dcpt_tpu_torch.ops import swin_block_bwd as tsbb
 from dcpt_tpu_torch.ops import window_attention as twa
 
 pytestmark = pytest.mark.cuda
@@ -424,19 +425,71 @@ def test_k10_matches_plain(cuda, shape, dtype, tol, with_ln):
 
 
 def test_swin_kernels_raise_under_autograd(cuda):
-    """Their backward K9 is not ported: under autograd both raise before any launch, naming K9."""
-    x, params = _swin_inputs(1, 8, 8, 12, 2, 24, seed=0, device=cuda, dtype=torch.float32)
+    """Training in bf16 through K8 / K9 is not ported: under autograd a bf16 Swin
+    block raises before any launch, naming ROADMAP Q1 #2; without autograd it runs."""
+    x, params = _swin_inputs(1, 8, 8, 12, 2, 24, seed=0, device=cuda, dtype=torch.bfloat16)
     params[2].requires_grad_()
-    before = (twa.fused_swin_block.launches, twa.fused_window_attention.launches)
-    with pytest.raises(NotImplementedError, match="K9"):
+    before = (twa.fused_swin_block.launches, tsbb.swin_block_bwd.launches)
+    with pytest.raises(NotImplementedError, match="Q1 #2"):
         twa.fused_swin_block(x, *params, 2, 4, 2)
-    with pytest.raises(NotImplementedError, match="K9"):
-        twa.fused_window_attention_ln(x, *params[:6], 2, 4, 2)
-    with pytest.raises(NotImplementedError, match="K9"):
-        twa.fused_window_attention(x.requires_grad_(), *params[2:6], 2, 4, 2)
-    assert (twa.fused_swin_block.launches, twa.fused_window_attention.launches) == before
+    assert (twa.fused_swin_block.launches, tsbb.swin_block_bwd.launches) == before
     with torch.no_grad():
         assert twa.fused_swin_block(x, *params, 2, 4, 2).grad_fn is None
+
+
+# (B, H, W, C, heads, ws, shift): the shipped width across the seam, a ragged
+# 15 x 9 window grid, a tiny width with 4 x 4 windows
+K9_CASES = [(2, 64, 64, 180, 6, 8, 4), (2, 120, 72, 180, 6, 8, 4), (1, 8, 12, 12, 2, 4, 2)]
+
+
+@pytest.mark.parametrize("shape", K9_CASES)
+def test_k9_matches_plain(cuda, shape):
+    """One launch a call; all 13 cotangents within 1e-3 of swin_block_bwd_ref
+    relative to max(1, max|ref|) (K7's limit), the same bits twice."""
+    b, h, w, c, heads, ws, shift = shape
+    x, params = _swin_inputs(b, h, w, c, heads, 2 * c, seed=c + shift + 2, device=cuda, dtype=torch.float32)
+    dz = torch.randn(x.shape, generator=torch.Generator().manual_seed(3)).to(cuda)
+    before = tsbb.swin_block_bwd.launches
+    got = tsbb.swin_block_bwd(x, *params, dz, heads, ws, shift)
+    again = tsbb.swin_block_bwd(x, *params, dz, heads, ws, shift)
+    assert tsbb.swin_block_bwd.launches == before + 2
+    ref = tsbb.swin_block_bwd_ref(x, *params, dz, heads, ws, shift)
+    torch.cuda.synchronize()
+    for g, a, r in zip(got, again, ref):
+        assert g.shape == r.shape and torch.equal(g, a)
+        assert _rel(g, r) <= 1e-3, _rel(g, r)
+
+
+@pytest.mark.parametrize("route", ["K8", "K10"])
+def test_swin_routes_under_autograd(cuda, route):
+    """fp32 under autograd: the K8 route runs one K8 and one K9 launch a block
+    (SwinBlockFunction), the K10 route one K10 launch and the plain VJP
+    (WindowAttentionFunction); the output and every gradient within 1e-4 of
+    autograd through the plain version in float64."""
+    b, h, w, c, heads, ws, shift = 2, 16, 24, 180, 6, 8, 4
+    x, params = _swin_inputs(b, h, w, c, heads, 2 * c, seed=5, device=cuda, dtype=torch.float32)
+    if route == "K10":
+        params = params[:6]
+    leaves = [t.requires_grad_() for t in [x, *params]]
+    counter = twa.fused_swin_block if route == "K8" else twa.fused_window_attention
+    before = (counter.launches, tsbb.swin_block_bwd.launches)
+    if route == "K8":
+        out = twa.fused_swin_block(*leaves, heads, ws, shift)
+    else:
+        out = twa.fused_window_attention_ln(*leaves, heads, ws, shift)
+    dz = torch.randn(out.shape, generator=torch.Generator().manual_seed(6)).to(cuda)
+    got = torch.autograd.grad(out, leaves, dz)
+    assert (counter.launches, tsbb.swin_block_bwd.launches) == (before[0] + 1, before[1] + (route == "K8"))
+    ref_leaves = [t.detach().double().requires_grad_() for t in leaves]
+    if route == "K8":
+        ref = twa.swin_block_map_ref(*ref_leaves, heads, ws, shift)
+    else:
+        ref = twa.window_attention_map_ref(ref_leaves[0], *ref_leaves[3:], heads, ws, shift,
+                                           (ref_leaves[1], ref_leaves[2], 1e-5))
+    want = torch.autograd.grad(ref, ref_leaves, dz.double())
+    assert _rel(out.double(), ref) <= 1e-4
+    for g, r in zip(got, want):
+        assert _rel(g.double(), r) <= 1e-4, _rel(g.double(), r)
 
 
 def _plain_swin_forward(self, x):
