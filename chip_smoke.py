@@ -25,8 +25,10 @@ Phases, each of which raises on failure (exit code 1):
    ``train_pipeline`` at full width, batch 8, gt_size 128, on synthetic
    160 x 160 PNGs: 4 iterations with a checkpoint, the launch counts of K1,
    K2 and K3 per step checked, a resume for 2 more; then one step's gradients
-   through the kernels against the plain path's (``check_step_gradients``),
-   and the ms per step and peak memory of both paths;
+   through the kernels against the plain path's and against the plain path in
+   float64, each tensor held to its rounding sensitivity
+   (``check_step_gradients``, ``dcpt_tpu_torch.tools.grad_check``), and the ms
+   per step and peak memory of both paths;
 8. kernel K6 (``mdta_block_fused``, the whole Restormer / PromptIR
    TransformerBlock) against its plain version at the Restormer stage shapes
    of a 128 x 128 input and PromptIR's three noise-level shapes (B = 1) in
@@ -81,10 +83,33 @@ Phases, each of which raises on failure (exit code 1):
    OOM at batch 8 printed); every K9 call of a batch-8 step against its plain
    version on that call's inputs; one step's gradients through the kernels
    against the plain path's; one step on the ``DCPT_TPU_SWIN_BLOCK=0`` route
-   (K10 launches counted, gradients against the K8 route's); then the ms per
-   step of both paths again with cuDNN's algorithm timing on
-   (``torch.backends.cudnn.benchmark``, which the port's ``train_pipeline``
-   leaves off), printed as such: not the entry point's numbers.
+   (K10 launches counted, gradients against the K8 route's);
+16. kernels K4 (``naf_prefix``) and K5 (``naf_ffn``) against their plain
+   versions at NAFNet-w64's c = 512 stage of a 128 x 128 input (B = 1, 2, 8)
+   and a ragged 15 x 9, fp32 and bf16, each run twice for equal bits; their
+   ms per forward (29 calls) beside the plain versions', the library calls'
+   (F.layer_norm with a 1x1 and a depthwise F.conv2d; F.layer_norm with two
+   F.linear) and the bound;
+17. the eval path of ``test_NAFNet_5d.yml`` through ``test_pipeline`` on the
+   route that ``DCPT_TPU_PALLAS=1 DCPT_TPU_NAF_BLOCK=0`` selects, in a fresh
+   process with both set: 29 K4 and 29 K5 launches per image checked (and K3
+   at the middle block, no K1), a ragged image against the default route
+   within 1e-4, the eval rates of both routes;
+18. kernels K2 and K3 in bf16 against their plain versions: K2 at the stage
+   and ragged shapes of [5], K3 at the row shapes of [6], twice for equal
+   bits; K2's ms per backward and K3's per step beside the plain versions';
+19. the mixed-precision training path: ``train_NAFNet_dcpt_5d.yml`` with
+   ``train:mixed_precision=true`` through ``train_pipeline`` at full width,
+   batch 8, gt_size 128 on the PNGs of [7]: 4 iterations with a checkpoint,
+   the launch counts of K1, K2 and K3 per step checked and no plain version
+   run, a resume for 2 more with fp32 masters and moments; every K2 call of a
+   batch-8 step against its plain version on that call's inputs; the ms per
+   step and peak memory beside the plain bf16 path and the fp32 step; five
+   steps' losses from the same weights on one batch in bf16 and in fp32.
+
+The entry points turn cuDNN's algorithm timing on
+(``torch.backends.cudnn.benchmark``), as the reference's do; every phase from
+[4] on runs with it.
 
 On the H100 machines torch.profiler at times stops recording device time for
 the rest of a process.  A phase whose profile records none then runs once more
@@ -122,6 +147,8 @@ KERNELS = {
     "fused_swin_block": ("dcpt_tpu_torch/csrc/swin_block.cu", "dcpt_tpu/ops/window_attention.py:302"),
     "fused_window_attention": ("dcpt_tpu_torch/csrc/window_attention.cu", "dcpt_tpu/ops/window_attention.py:138"),
     "swin_block_bwd": ("dcpt_tpu_torch/csrc/swin_block_bwd.cu", "dcpt_tpu/ops/swin_block_bwd.py:159"),
+    "naf_prefix": ("dcpt_tpu_torch/csrc/naf_prefix.cu", "dcpt_tpu/ops/naf_prefix.py:147"),
+    "naf_ffn": ("dcpt_tpu_torch/csrc/naf_ffn.cu", "dcpt_tpu/ops/naf_ffn.py:169"),
 }
 # the card's peaks (NVIDIA's H100 SXM data sheet): fp32 outside the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
@@ -155,14 +182,9 @@ DEVICE_FUNCTIONS = {
     "fused_window_attention": {"window_attention_kernel"},
     "swin_block_bwd": {"k9_ln_kernel", "k9_prod_kernel", "k9_attn_fwd_kernel", "k9_attn_bwd_kernel",
                        "ln_bwd_kernel<9>", "wgrad_kernel<9>", "colsum_kernel<9>"},
+    "naf_prefix": {"naf_p1_kernel"},
+    "naf_ffn": {"naf_p2b_kernel", "naf_p2c_kernel"},
 }
-# the DCPT step on the network as it is: each fp32 path's gradients against the
-# plain path in float64, relative to each tensor's max|ref|.  fp32 rounding flips
-# the probe's switches and Restormer's ReLU attention (tools/step_grad_noise.py),
-# so neither fp32 path meets 1e-3 on every tensor.  The kernel path's worst and
-# median error must stay within these limits or within three times the plain fp32
-# path's own, whichever is larger (readings in PERF.md, section 6).
-REAL_GRAD_WORST, REAL_GRAD_MEDIAN = 1e-1, 2e-2
 TRANSFORMER_YMLS = {"Restormer": ROOT / "options" / "all_in_one" / "test" / "test_Restormer_5d.yml",
                     "PromptIR": ROOT / "options" / "all_in_one" / "test" / "test_PromptIR_5d.yml"}
 # K6's flavours: (use_softmax, ln_bias, eps)
@@ -214,6 +236,13 @@ K9_TOL = 1e-3  # relative to max(1, max|ref|), as K7: weight gradients sum over 
 SWIN_PER_STEP = {"fused_swin_block": 72, "swin_block_bwd": 54, "layer_norm_2d": 0}
 # the float64 plain path of the SwinIR step keeps about 0.35 GB a block per image; this batch fits
 SWIN_FLOAT64_BATCH = 1
+# K4 and K5 at NAFNet-w64's c = 512 stage of a 128 x 128 input (16 x 16) at the eval's B = 1, B = 2
+# and the train yml's B = 8, and a ragged 120 x 72 image's 15 x 9; 29 blocks per forward at that stage
+K45_C, K45_CASES, K45_PER_FORWARD = 512, [(1, 16, 16), (2, 16, 16), (8, 16, 16), (1, 15, 9)], 29
+# the DCPT_TPU_PALLAS=1 DCPT_TPU_NAF_BLOCK=0 eval: the module path, K4 and K5 at c = 512, K3 at the middle block
+PALLAS_ENV = {"DCPT_TPU_PALLAS": "1", "DCPT_TPU_NAF_BLOCK": "0"}
+K3_PER_FORWARD_MODULE = 2  # the c = 1024 middle block's two LayerNorm2d
+MIXED_TRAIN_ITERS = 4
 
 
 def card_line() -> str:
@@ -307,6 +336,20 @@ def k3_work(rows: int, c: int) -> tuple[float, float]:
     1/sigma per row written and read; w and b read, gw and gb written.  K3's
     own y residual (rows x C written and read again) is not counted."""
     return 20 * rows * c, 4 * (5 * rows * c + 2 * rows + 5 * c)
+
+
+def k4_work(c: int, pixels: int) -> tuple[float, float]:
+    """(flops, bytes) of one K4 call: per pixel the expand's 2 C^2 and the 3x3
+    stencil's 18 C multiply-adds (the function's own; the halo's recomputed
+    expand is K4's overhead, not counted); x read, g written and the weights
+    read once."""
+    return pixels * (4 * c * c + 36 * c), 4 * (2 * pixels * c + 2 * c * c + 24 * c)
+
+
+def k5_work(c: int, rows: int) -> tuple[float, float]:
+    """(flops, bytes) of one K5 call: per row the C x 2C and C x C products' 3 C^2
+    multiply-adds; y read, z written and the weights read once."""
+    return rows * 6 * c * c, 4 * (2 * rows * c + 3 * c * c + 6 * c)
 
 
 def bound(calls) -> tuple[float, str]:
@@ -767,25 +810,6 @@ def grad_batch(batch_size: int) -> dict:
             "dataset_idx": torch.arange(batch_size) % 5}
 
 
-def step_grads(model, batch, dtype=None):
-    """One DCPT step's gradients of net_g and net_dc (float64, by name) and its
-    losses, both nets and the batch in ``dtype`` (float32 when None)."""
-    import torch
-
-    dtype = dtype or torch.float32
-    nets = {"net_g": model.net_g, "net_dc": model.net_dc}
-    for net in nets.values():
-        net.to(dtype)
-    model.feed_data({k: v.to(dtype) if v.is_floating_point() else v for k, v in batch.items()})
-    losses = {k: v.item() for k, v in model.compute_gradients().items()}
-    # the parameters that no loss reaches (a probe level without a tap) keep no gradient
-    grads = {f"{k}.{n}": p.grad.double() for k, net in nets.items() for n, p in net.named_parameters()
-             if p.grad is not None}
-    for net in nets.values():
-        net.float()
-    return grads, losses
-
-
 def grad_errs(a, b) -> dict:
     """Each gradient's max-abs error relative to the tensor's max|ref|."""
     return {n: ((a[n] - b[n]).abs().max() / b[n].abs().max().clamp_min(1e-30)).item() for n in b}
@@ -802,7 +826,7 @@ def over_limit(got: dict, ref: dict, again: dict) -> tuple[dict, float]:
             for n, g in ref.items()}, scale
 
 
-def check_step_gradients(model, label: str = "[7]", batch_size: int = 8, float64_batch: int = 8) -> None:
+def check_step_gradients(model, label: str = "[7]", batch_size: int = 8, float64_batch: int = 8) -> dict:
     """One DCPT step's gradients of net_g and net_dc on the same weights:
 
     * with the switches smoothed (``smooth_switches``), at ``batch_size``: the
@@ -812,27 +836,30 @@ def check_step_gradients(model, label: str = "[7]", batch_size: int = 8, float64
       temperature's gradient cancels to a thousandth of them), plus three
       times the plain path's own spread from run to run (some of the step's
       PyTorch ops are not deterministic on the card);
-    * the network as it is, at ``float64_batch``: its ReLUs (the probe's, and
-      Restormer's attention) and max-pools flip on fp32 rounding, so neither
-      fp32 path meets 1e-3 of the float64 plain path on every tensor, and which
-      of the two is nearer changes from run to run.  Both paths' errors against
-      float64 are reported; the kernel path's losses must be within 1e-5 of
-      the float64 ones, and its gradients' worst and median error within
-      ``REAL_GRAD_WORST`` and ``REAL_GRAD_MEDIAN`` or three times the plain
-      fp32 path's own, whichever is larger."""
-    import statistics
+    * the network as it is, at ``float64_batch``: the kernel path's fp32
+      gradients against the plain path in float64, each tensor within
+      ``max(1e-3 of its max|ref|, K x its rounding sensitivity)``, the median
+      within 2e-2 and the losses within 1e-5
+      (``dcpt_tpu_torch.tools.grad_check``: the sensitivity is the largest
+      departure from float64 of the plain fp32 step run as it is and on
+      parameters and inputs moved by one ulp, large where sums cancel or ReLU
+      and max-pool switches sit near their edge; the kernel path's error is
+      the median of its runs the same five ways).
 
+    Returns the kernel path's float64 report."""
     import torch
+
+    from dcpt_tpu_torch.tools import grad_check
 
     def over(e):
         return sum(v > 1e-3 for v in e.values())
 
     batch = grad_batch(batch_size)
     with smooth_switches(model):
-        kernel, _ = step_grads(model, batch)
+        kernel, _ = grad_check.step_grads(model, batch)
         with plain_path():
-            plain, _ = step_grads(model, batch)
-            again, _ = step_grads(model, batch)
+            plain, _ = grad_check.step_grads(model, batch)
+            again, _ = grad_check.step_grads(model, batch)
     ks, scale = over_limit(kernel, plain, again)
     ks_name = max(ks, key=ks.get)
     rel = grad_errs(kernel, plain)
@@ -844,40 +871,41 @@ def check_step_gradients(model, label: str = "[7]", batch_size: int = 8, float64
     torch.cuda.empty_cache()
 
     batch = grad_batch(float64_batch)
-    kernel, kernel_losses = step_grads(model, batch)
     with plain_path():
-        plain, _ = step_grads(model, batch)
-        ref, ref_losses = step_grads(model, batch, torch.float64)
+        ref, ref_losses = grad_check.step_grads(model, batch, torch.float64)
+        sens = grad_check.rounding_sensitivity(grad_check.run_errors(model, batch, ref)[0])
+    kernel_errs, kernel_losses = grad_check.run_errors(model, batch, ref)
     model.feed_data(batch)
-    k64, p64 = grad_errs(kernel, ref), grad_errs(plain, ref)
-    k_med, p_med = statistics.median(k64.values()), statistics.median(p64.values())
-    k_name, p_name = max(k64, key=k64.get), max(p64, key=p64.get)
-    k_max, p_max = k64[k_name], p64[p_name]
-    worst_limit, median_limit = max(REAL_GRAD_WORST, 3 * p_max), max(REAL_GRAD_MEDIAN, 3 * p_med)
-    print(f"{label} the network as it is, batch {float64_batch}, {len(k64)} gradients against the plain path in "
-          f"float64: kernel path worst {k_max:.3e} ({k_name}; limit {worst_limit:.3e}), median {k_med:.3e} (limit "
-          f"{median_limit:.3e}), {over(k64)} above 1e-3; plain path in fp32 worst {p_max:.3e} ({p_name}), median "
-          f"{p_med:.3e}, {over(p64)} above 1e-3; losses kernel {kernel_losses}, float64 {ref_losses}", flush=True)
+    report = grad_check.compare(grad_check.path_error(kernel_errs), kernel_losses, ref, ref_losses, sens)
+    as_is = grad_check.compare(kernel_errs[0], kernel_losses, ref, ref_losses, sens)
+    srel = sorted(sens[n] / max(g.abs().max().item(), 1e-30) for n, g in ref.items())
+    runs = len(kernel_errs)
+    print(f"{label} the network as it is, batch {float64_batch}, {len(ref)} gradients against the plain path in "
+          f"float64 (K {grad_check.K}; each tensor's rounding sensitivity the largest error of {runs} plain fp32 runs, "
+          f"as it is and on one-ulp perturbations, median {srel[len(srel) // 2]:.3e} and largest {srel[-1]:.3e} of "
+          f"max|ref|): kernel path, the median of its {runs} runs: {grad_check.describe(report)}; its run as it is "
+          f"alone: worst {as_is['worst_rel']:.3e} ({as_is['worst']}), {as_is['worst_ratio']:.3f} of its limit; losses "
+          f"kernel {kernel_losses}, float64 {ref_losses}", flush=True)
     if not ks[ks_name] <= 1:
         raise RuntimeError(f"gradient {ks_name} through the kernels differs from the plain path by {rel[ks_name]:.3e} "
                            f"of its max|ref|, {ks[ks_name]:.3f} of its limit")
-    loss_err = max(abs(kernel_losses[k] - v) / max(1.0, abs(v)) for k, v in ref_losses.items())
-    if not loss_err <= 1e-5:
-        raise RuntimeError(f"kernel path losses {kernel_losses} against float64 {ref_losses}")
-    if not (k_max <= worst_limit and k_med <= median_limit):
-        raise RuntimeError(f"kernel path gradients against float64: worst {k_max:.3e} ({k_name}), median "
-                           f"{k_med:.3e}, limits {worst_limit:.3e} and {median_limit:.3e}")
+    if not report["ok"]:
+        raise RuntimeError(f"{label} kernel path against float64: {grad_check.describe(report)}")
+    return dict(report, sens_median=srel[len(srel) // 2], sens_max=srel[-1], as_is_ratio=as_is["worst_ratio"])
 
 
 def check_bwd_in_step(model, label: str, function, ref, tol: float, calls: int | None = None,
-                      batch_size: int = 8) -> float:
+                      batch_size: int = 8, tensors=lambda grads: (grads[0], *grads[5:]),
+                      config=lambda ctx: tuple(ctx.config)) -> float:
     """One DCPT step at ``batch_size`` with every backward of the autograd
-    ``function`` (K7's ``MDTABlockFunction``, K9's ``SwinBlockFunction``) held
-    against its plain version ``ref(x, saved, dz, config)`` on that call's own
-    inputs: the block's input and saved tensors, its configuration and the
-    upstream dz of the real step, at the shapes and in the flavour the train yml
-    gives them.  Limit ``tol`` relative to max(1, max|ref|) on each cotangent,
-    and ``calls`` calls when given; returns the worst error."""
+    ``function`` (K7's ``MDTABlockFunction``, K9's ``SwinBlockFunction``, K2's
+    ``NAFBlockFunction``) held against its plain version ``ref(x, saved, dz,
+    config)`` on that call's own inputs: the block's input and saved tensors,
+    its configuration and the upstream dz of the real step, at the shapes, in
+    the flavour and in the dtype the train yml gives them (``tensors`` picks the
+    cotangents from the backward's outputs).  Limit ``tol`` relative to max(1,
+    max|ref|) on each cotangent, and ``calls`` calls when given; returns the
+    worst error."""
     import torch
 
     real_backward = function.backward
@@ -886,19 +914,18 @@ def check_bwd_in_step(model, label: str, function, ref, tol: float, calls: int |
     def backward(ctx, dz):
         grads = real_backward(ctx, dz)
         x, *saved = ctx.saved_tensors
-        want = ref(x, saved, dz.contiguous(), ctx.config)
-        got = (grads[0], *grads[5:])
-        errs.append((max((a - r).abs().max().item() / max(1.0, r.abs().max().item()) for a, r in zip(got, want)),
-                     tuple(x.shape), tuple(ctx.config)))
+        want = ref(x, saved, dz.contiguous(), config(ctx))
+        errs.append((max((a.float() - r.float()).abs().max().item() / max(1.0, r.float().abs().max().item())
+                         for a, r in zip(tensors(grads), want)), tuple(x.shape), config(ctx)))
         return grads
 
     with mock.patch.object(function, "backward", staticmethod(backward)):
         model.feed_data(grad_batch(batch_size))
         model.compute_gradients()
     torch.cuda.synchronize()
-    worst, shape, config = max(errs)
+    worst, shape, cfg = max(errs)
     print(f"{label} {function.__name__} backward inside a DCPT step at batch {batch_size}: {len(errs)} calls, each "
-          f"against its plain version on its own inputs: worst {worst:.3e} (at {shape}, config {config}; limit "
+          f"against its plain version on its own inputs: worst {worst:.3e} (at {shape}, config {cfg}; limit "
           f"{tol:.0e} relative to max(1, max|ref|))", flush=True)
     if (calls is not None and len(errs) != calls) or not worst <= tol:
         raise RuntimeError(f"{function.__name__} inside the step: {len(errs)} calls (expected {calls}), worst error "
@@ -992,14 +1019,15 @@ def run_training() -> dict:
     if steps != TRAIN_ITERS + RESUME_ITERS or not all(np.isfinite(v) for v in resumed.log_dict.values()):
         raise RuntimeError(f"resume: optimizer step {steps}, losses {resumed.log_dict}")
 
-    check_step_gradients(resumed)
+    grad64 = check_step_gradients(resumed)
     step_profile(resumed, ["naf_block_fused", "naf_block_bwd", "layer_norm_2d"])
     step_ms, peak = ms_per_step(resumed, 5)
     with plain_path():
         plain_step_ms, plain_peak = ms_per_step(resumed, 3)
     print(f"[7] DCPT step at batch 8, 128 x 128, fp32: kernel path {step_ms:.2f} ms/step (peak {peak:.0f} MiB), "
           f"plain path {plain_step_ms:.2f} ms/step (peak {plain_peak:.0f} MiB)", flush=True)
-    return {"launches": launches, "step_ms": step_ms, "plain_step_ms": plain_step_ms, "force": force}
+    return {"launches": launches, "step_ms": step_ms, "plain_step_ms": plain_step_ms, "peak_mib": peak,
+            "force": force, "grad64": grad64}
 
 def mdta_params(c: int, heads: int, gen, dtype, device):
     """K6's parameters in the op's layout, F = int(2.66 C): weights of unit gain,
@@ -1322,8 +1350,9 @@ def run_transformer_training(force: list[str]) -> dict:
         check_bwd_in_step(resumed, f"[11] {arch}", MDTABlockFunction,
                           lambda x, s, dz, config: mdta_block_bwd_ref(x, *s[:11], *s[11:15], dz, *config), K7_TOL)
         torch.cuda.empty_cache()
-        check_step_gradients(resumed, f"[11] {arch}", 8, FLOAT64_GRAD_BATCH)
-        out[arch] = {"launches": launches, "step_ms": step_ms, "plain_step_ms": plain_step_ms, "profile": profile}
+        grad64 = check_step_gradients(resumed, f"[11] {arch}", 8, FLOAT64_GRAD_BATCH)
+        out[arch] = {"launches": launches, "step_ms": step_ms, "plain_step_ms": plain_step_ms, "profile": profile,
+                     "grad64": grad64}
         del resumed
         torch.cuda.empty_cache()
     return out
@@ -1656,6 +1685,7 @@ def run_swinir_training(force: list[str]) -> dict:
     from dcpt_tpu_torch.ops.layernorm2d import layer_norm_2d
     from dcpt_tpu_torch.ops.swin_block_bwd import swin_block_bwd, swin_block_bwd_ref
     from dcpt_tpu_torch.ops.window_attention import SwinBlockFunction, fused_swin_block, fused_window_attention
+    from dcpt_tpu_torch.tools import grad_check
     from dcpt_tpu_torch.train import train_pipeline
 
     work = ROOT / "build" / "chip_smoke_train_SwinIR"
@@ -1721,18 +1751,18 @@ def run_swinir_training(force: list[str]) -> dict:
                       lambda x, s, dz, config: swin_block_bwd_ref(x, *s, dz, *config), K9_TOL,
                       SWIN_PER_STEP["swin_block_bwd"])
     torch.cuda.empty_cache()
-    check_step_gradients(resumed, "[15] SwinIR", plain_batch, SWIN_FLOAT64_BATCH)
+    grad64 = check_step_gradients(resumed, "[15] SwinIR", plain_batch, SWIN_FLOAT64_BATCH)
     torch.cuda.empty_cache()
 
     # the DCPT_TPU_SWIN_BLOCK=0 route: the module constant it sets at import
     batch = grad_batch(plain_batch)
     with smooth_switches(resumed):
-        k8, _ = step_grads(resumed, batch)
-        again, _ = step_grads(resumed, batch)
+        k8, _ = grad_check.step_grads(resumed, batch)
+        again, _ = grad_check.step_grads(resumed, batch)
         swinir_arch.SWIN_BLOCK_KERNEL = False
         try:
             fused_window_attention.launches = 0
-            k10, _ = step_grads(resumed, batch)
+            k10, _ = grad_check.step_grads(resumed, batch)
         finally:
             swinir_arch.SWIN_BLOCK_KERNEL = True
     ks, _ = over_limit(k10, k8, again)
@@ -1744,27 +1774,359 @@ def run_swinir_training(force: list[str]) -> dict:
         raise RuntimeError(f"SwinIR K10 route: {fused_window_attention.launches} launches, gradient {worst} "
                            f"{ks[worst]:.3f} of its limit")
 
-    # The same steps with cuDNN's algorithm timing, which the reference's train_pipeline turns on and the
-    # port's leaves off (ROADMAP Q3 #5): without it cuDNN's heuristic picks convolution algorithms
-    # (an FFT path at batch 4) that take far longer.  Not the entry point's numbers, and labelled so.
-    timed = {}
-    torch.backends.cudnn.benchmark = True
-    try:
-        for b in dict.fromkeys((8, plain_batch)):
-            resumed.feed_data(grad_batch(b))
-            timed[str(b)] = {"kernel": list(ms_per_step(resumed, 5))}
-        with plain_path():
-            timed[str(plain_batch)]["plain"] = list(ms_per_step(resumed, 3))
-    finally:
-        torch.backends.cudnn.benchmark = False
-    (k8_ms, k8_peak), (k_ms, k_peak) = timed["8"]["kernel"], timed[str(plain_batch)]["kernel"]
-    p_ms, p_peak = timed[str(plain_batch)]["plain"]
-    print(f"[15] SwinIR DCPT step with torch.backends.cudnn.benchmark on (not the entry point's default), 128 x 128, "
-          f"fp32: kernel path {k8_ms:.2f} ms/step at batch 8 (peak {k8_peak:.0f} MiB); at batch {plain_batch} kernel "
-          f"path {k_ms:.2f} ms/step (peak {k_peak:.0f} MiB), plain path {p_ms:.2f} ms/step (peak {p_peak:.0f} MiB)",
-          flush=True)
     return {"launches": launches, "step_ms": step_ms, "peak_mib": peak, "plain_batch": plain_batch, "rates": rates,
-            "cudnn_benchmark_rates": timed, "profile": profile}
+            "profile": profile, "grad64": grad64}
+
+
+def _k45_library(x, p):
+    """K4's and K5's functions as PyTorch calls on (B, H, W, C) x and the block
+    parameters in the op's layout: F.layer_norm, then a 1x1 and a depthwise
+    F.conv2d and the gate (K4); F.layer_norm, two F.linear, the gate and the
+    residual (K5).  Timed beside the kernels only; the port calls neither."""
+    import torch.nn.functional as F
+
+    c = x.shape[-1]
+    n1w, n1b, w1, b1, wdw, bdw = p[:6]
+    t = F.layer_norm(x, (c,), n1w, n1b, 1e-6).permute(0, 3, 1, 2)
+    t = F.conv2d(t, w1.t()[:, :, None, None], b1)
+    t = F.conv2d(t, wdw.permute(2, 0, 1)[:, None], bdw, padding=1, groups=2 * c)
+    g = (t[:, :c] * t[:, c:]).permute(0, 2, 3, 1)
+    n2w, n2b, w4, b4, w5, b5, gamma = p[11:]
+    h = F.linear(F.layer_norm(x, (c,), n2w, n2b, 1e-6), w4.t(), b4)
+    return g, x + gamma * F.linear(h[..., :c] * h[..., c:], w5.t(), b5)
+
+
+def check_k4_k5() -> dict:
+    """K4 and K5 against their plain versions at the c = 512 stage shapes, fp32 and
+    bf16, each run twice for equal bits; per-forward totals (29 calls at B = 1,
+    CUDA events) beside the plain versions', the library calls' and the bound."""
+    import torch
+
+    from dcpt_tpu_torch.ops.naf_ffn import naf_ffn, naf_ffn_ref
+    from dcpt_tpu_torch.ops.naf_prefix import naf_prefix, naf_prefix_ref
+
+    gen = torch.Generator().manual_seed(16)
+    c = K45_C
+    out = {"naf_prefix": {"max_abs_err": 0.0, "bf16_max_abs_err": 0.0},
+           "naf_ffn": {"max_abs_err": 0.0, "bf16_max_abs_err": 0.0}}
+    print(f"  {'B':>3} {'H':>4} {'W':>4} {'dtype':>9} {'K4 rel':>10} {'K5 rel':>10} {'lib rel':>10} {'K4 ms':>8} "
+          f"{'plain':>8} {'library':>8} {'K5 ms':>8} {'plain':>8} {'library':>8}")
+    for dname in ("float32", "bfloat16"):
+        dtype = getattr(torch, dname)
+        for b, h, w in K45_CASES:
+            x = torch.randn(b, h, w, c, generator=gen).to(device="cuda", dtype=dtype)
+            p = random_block_params(c, gen, dtype, "cuda")
+            xf, pf = x.float(), [t.float() for t in p]
+            with torch.no_grad():
+                g, z = naf_prefix(x, *p[:6]), naf_ffn(x, *p[11:])
+                g2, z2 = naf_prefix(x, *p[:6]), naf_ffn(x, *p[11:])
+                ref_g, ref_z = naf_prefix_ref(xf, *pf[:6]), naf_ffn_ref(xf, *pf[11:])
+                lib_g, lib_z = _k45_library(xf, pf)
+            torch.cuda.synchronize()
+            if not (torch.equal(g, g2) and torch.equal(z, z2)):
+                raise RuntimeError(f"K4 / K5 at ({b}, {h}, {w}, {c}) {dname}: two runs on the same inputs differ")
+            rels = []
+            for name, got, ref in (("naf_prefix", g, ref_g), ("naf_ffn", z, ref_z)):
+                if got.shape != ref.shape or got.dtype != dtype or not torch.isfinite(got).all():
+                    raise RuntimeError(f"{name} ({b}, {h}, {w}, {c}) {dname}: bad output {got.shape} {got.dtype}")
+                err = (got.float() - ref).abs().max().item()
+                rels.append(err / max(1.0, ref.abs().max().item()))
+                key = "max_abs_err" if dname == "float32" else "bf16_max_abs_err"
+                out[name][key] = max(out[name][key], err)
+            lib_rel = max((a - r).abs().max().item() / max(1.0, r.abs().max().item())
+                          for a, r in ((lib_g, ref_g), (lib_z, ref_z)))
+            if max(rels) > TOL[dname] or lib_rel > LIBRARY_TOL:
+                raise RuntimeError(f"K4 / K5 at ({b}, {h}, {w}, {c}) {dname}: errors {rels} (limit {TOL[dname]:.0e}), "
+                                   f"library {lib_rel:.3e}")
+            with torch.no_grad():
+                t = [cuda_ms(lambda: naf_prefix(x, *p[:6])), cuda_ms(lambda: naf_prefix_ref(x, *p[:6])),
+                     cuda_ms(lambda: _k45_library(x, p)[0]), cuda_ms(lambda: naf_ffn(x, *p[11:])),
+                     cuda_ms(lambda: naf_ffn_ref(x, *p[11:])), cuda_ms(lambda: _k45_library(x, p)[1])]
+            print(f"  {b:>3} {h:>4} {w:>4} {dname:>9} {rels[0]:>10.3e} {rels[1]:>10.3e} {lib_rel:>10.3e} "
+                  + " ".join(f"{v:>8.4f}" for v in t), flush=True)
+            if (dname, b, h, w) == ("float32", 1, 16, 16):
+                n = K45_PER_FORWARD
+                for name, (k_ms, p_ms, l_ms), work in (("naf_prefix", t[:3], k4_work(c, h * w)),
+                                                        ("naf_ffn", t[3:], k5_work(c, h * w))):
+                    bound_ms, bound_by = bound([(n, *work)])
+                    out[name].update(ms=n * k_ms, plain_ms=n * p_ms, library_ms=n * l_ms, bound_ms=bound_ms,
+                                     bound_by=bound_by)
+            if (dname, b, h, w) == ("bfloat16", 1, 16, 16):
+                for name, k_ms, p_ms in (("naf_prefix", t[0], t[1]), ("naf_ffn", t[3], t[4])):
+                    out[name].update(bf16_ms=K45_PER_FORWARD * k_ms, bf16_plain_ms=K45_PER_FORWARD * p_ms)
+    return out
+
+
+def run_pallas_eval(force: list[str]) -> dict:
+    """The shipped eval yml through test_pipeline on the route that
+    ``DCPT_TPU_PALLAS=1 DCPT_TPU_NAF_BLOCK=0`` selects (read at import: run in a
+    fresh process with both set): every NAFBlock on dcpt_tpu's module path, K4
+    and K5 at each of the 29 c = 512 blocks of a forward, K3 at the c = 1024
+    middle block; then a ragged image on this route against the default (K1)
+    route, and the eval rates of both routes."""
+    import numpy as np
+    import torch
+
+    from dcpt_tpu_torch import ops
+    from dcpt_tpu_torch.archs import nafnet_arch
+    from dcpt_tpu_torch.data import build_dataloader, build_dataset
+    from dcpt_tpu_torch.models import build_model
+    from dcpt_tpu_torch.ops.layernorm2d import layer_norm_2d
+    from dcpt_tpu_torch.ops.naf_block import naf_block_fused
+    from dcpt_tpu_torch.ops.naf_ffn import naf_ffn
+    from dcpt_tpu_torch.ops.naf_prefix import naf_prefix
+    from dcpt_tpu_torch.test import test_pipeline
+    from dcpt_tpu_torch.utils.options import parse_options
+
+    if ops.kernel_mode() != "all" or nafnet_arch.NAF_BLOCK_KERNEL:
+        raise RuntimeError(f"[17] runs with {PALLAS_ENV} in the environment; kernel mode {ops.kernel_mode()}, "
+                           f"block kernel {nafnet_arch.NAF_BLOCK_KERNEL}")
+    root = WORK / "pallas_route"
+    root.mkdir(parents=True, exist_ok=True)
+    args = ["-opt", str(YML), "--force_yml", *force, f"path:pretrain_network_g={WORK / 'net.pth'}"]
+    n_images = 10
+    naf_prefix.launches = naf_ffn.launches = naf_block_fused.launches = layer_norm_2d.launches = 0
+    t0 = time.perf_counter()
+    results = test_pipeline(str(root), args=args)
+    torch.cuda.synchronize()
+    launches = {"naf_prefix": naf_prefix.launches, "naf_ffn": naf_ffn.launches,
+                "naf_block_fused": naf_block_fused.launches, "layer_norm_2d": layer_norm_2d.launches}
+    print(f"[17] test_pipeline on {YML.name} with {PALLAS_ENV}: {time.perf_counter() - t0:.1f} s, launches "
+          f"{launches} for {n_images} forwards", flush=True)
+    for name, metrics in results.items():
+        print(f"    {name}: " + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items()), flush=True)
+    want = {"naf_prefix": K45_PER_FORWARD * n_images, "naf_ffn": K45_PER_FORWARD * n_images, "naf_block_fused": 0,
+            "layer_norm_2d": K3_PER_FORWARD_MODULE * n_images}
+    if launches != want:
+        raise RuntimeError(f"[17] launches {launches}, expected {want}")
+    if not all(np.isfinite(v) for m in results.values() for v in m.values()):
+        raise RuntimeError(f"[17] non-finite metrics: {results}")
+
+    opt, _ = parse_options(str(root), is_train=False, args=args)
+    model = build_model(opt)
+    rain = next(v for v in opt["datasets"].values() if v["name"] == "Rain100L")
+    sample = next(s for s in build_dataloader(build_dataset(rain), rain) if s["lq"].shape[-2:] == (120, 72))
+    model.feed_data(sample)
+    model.pre_test()
+    model.test()
+    module_out = model.output.clone()
+    lq = torch.rand(1, 3, 128, 128, generator=torch.Generator().manual_seed(3)).cuda()
+    rate = images_per_s(model, lq)
+    nafnet_arch.NAF_BLOCK_KERNEL = True
+    try:
+        model.feed_data(sample)
+        model.pre_test()
+        model.test()
+        k1_out = model.output
+        k1_rate = images_per_s(model, lq)
+    finally:
+        nafnet_arch.NAF_BLOCK_KERNEL = False
+    diff = (module_out - k1_out).abs().max().item()
+    print(f"[17] one image (120x72, padded to 128x80): module route (K4, K5) against the default route (K1) max-abs "
+          f"{diff:.3e} (limit 1e-4, fp32, TF32 off); eval forward at 128x128, batch 1: module route {rate:.2f} "
+          f"images/s, default route {k1_rate:.2f} images/s", flush=True)
+    if module_out.shape != (1, 3, 128, 80) or not torch.isfinite(module_out).all() or not diff <= 1e-4:
+        raise RuntimeError(f"[17] module route output {tuple(module_out.shape)} against K1's: {diff:.3e}")
+    return {"launches": launches, "diff": diff, "rate": rate, "k1_rate": k1_rate}
+
+
+def check_bf16_k2_k3() -> dict:
+    """K2 and K3 in bf16 against their plain versions (fp32 math on the same bf16
+    inputs, each cotangent cast to its primal's dtype): K2 at the five stage
+    shapes (B = 2) and the ragged ones, K3 at the classifier's row shapes of a
+    batch-8 step; each run twice for equal bits.  K2 per backward (CUDA events)
+    and K3 per step (device time) beside the plain versions'."""
+    import torch
+    import torch.nn.functional as F
+
+    from dcpt_tpu_torch.ops import layernorm2d as ln
+    from dcpt_tpu_torch.ops.naf_block import _kernel_forward
+    from dcpt_tpu_torch.ops.naf_block_bwd import naf_block_bwd, naf_block_bwd_ref
+
+    gen = torch.Generator().manual_seed(18)
+    tol = TOL["bfloat16"]
+    k2 = {"max_abs_err": 0.0}
+    per_block = {}
+    print(f"  K2 bf16: {'C':>5} {'H':>4} {'W':>4} {'rel':>10} {'kernel_ms':>10} {'plain_ms':>10}")
+    for c, h, w in [(c, s, s) for c, s, _ in STAGES] + RAGGED:
+        x = torch.randn(2, h, w, c, generator=gen).to("cuda", torch.bfloat16)
+        params = random_block_params(c, gen, torch.bfloat16, "cuda")
+        dz = torch.randn(x.shape, generator=gen).to("cuda", torch.bfloat16)
+        _, res = _kernel_forward(x, params, 1e-6, residuals=True)
+        *maps, pooled, att = res
+        got = naf_block_bwd(x, *params, pooled, att, dz, maps)
+        again = naf_block_bwd(x, *params, pooled, att, dz, maps)
+        ref = naf_block_bwd_ref(x, *params, pooled, att, dz)
+        torch.cuda.synchronize()
+        if not all(a.dtype == torch.bfloat16 and torch.equal(a, b) for a, b in zip(got, again)):
+            raise RuntimeError(f"K2 bf16 C={c} {h}x{w}: not bf16, or two runs differ")
+        rels = [(a.float() - r.float()).abs().max().item() / max(1.0, r.float().abs().max().item())
+                for a, r in zip(got, ref)]
+        if max(rels) > tol or not all(torch.isfinite(a).all() for a in got):
+            raise RuntimeError(f"K2 bf16 C={c} {h}x{w}: cotangent {rels.index(max(rels))} error {max(rels):.3e}")
+        k2["max_abs_err"] = max(k2["max_abs_err"], max((a.float() - r.float()).abs().max().item()
+                                                       for a, r in zip(got, ref)))
+        k_ms = cuda_ms(lambda: naf_block_bwd(x, *params, pooled, att, dz, maps))
+        p_ms = cuda_ms(lambda: naf_block_bwd_ref(x, *params, pooled, att, dz))
+        per_block[(c, h, w)] = (k_ms, p_ms)
+        print(f"           {c:>5} {h:>4} {w:>4} {max(rels):>10.3e} {k_ms:>10.4f} {p_ms:>10.4f}", flush=True)
+    k2.update(ms=sum(n * per_block[(c, s, s)][0] for c, s, n in STAGES),
+              plain_ms=sum(n * per_block[(c, s, s)][1] for c, s, n in STAGES))
+
+    k3 = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    print(f"  K3 bf16: {'rows':>5} {'C':>5} {'calls':>5} {'rel':>10} {'kernel_ms':>10} {'plain_ms':>10} {'library_ms':>10}"
+          f"  (device ms per forward + backward, torch.profiler)")
+    for (rows, c), calls in K3_SHAPES.items():
+        x = (torch.randn(rows, c, generator=gen) * 2 + 0.5).to("cuda", torch.bfloat16)
+        w, b = (torch.randn(c, generator=gen).to("cuda", torch.bfloat16) for _ in range(2))
+        g = torch.randn(rows, c, generator=gen).to("cuda", torch.bfloat16)
+        lib = ln._lib()
+
+        def kernel():
+            out, y, rsig = ln._launch_fwd(lib, x, w, b, 1e-6, ln._stream(), residuals=True)
+            return (out, *ln._launch_bwd(lib, g, y, rsig, w, ln._stream()))
+
+        def plain():
+            out, y, rsig = ln.layer_norm_2d_ref(x, w, b, 1e-6)
+            return (out, *ln.layer_norm_2d_bwd_ref(g, y, rsig, w))
+
+        xl, wl, bl = (t.clone().requires_grad_() for t in (x, w, b))
+
+        def library():
+            out = F.layer_norm(xl, (c,), wl, bl, 1e-6)
+            return (out, *torch.autograd.grad(out, (xl, wl, bl), g))
+
+        got, again, ref = kernel(), kernel(), plain()
+        torch.cuda.synchronize()
+        if not all(a.dtype == torch.bfloat16 and torch.equal(a, r) for a, r in zip(got, again)):
+            raise RuntimeError(f"K3 bf16 ({rows}, {c}): not bf16, or two runs differ")
+        rel = max((a.float() - r.float()).abs().max().item() / max(1.0, r.float().abs().max().item())
+                  for a, r in zip(got, ref))
+        if rel > tol:
+            raise RuntimeError(f"K3 bf16 ({rows}, {c}): error {rel:.3e} against plain")
+        k3["max_abs_err"] = max(k3["max_abs_err"], max((a.float() - r.float()).abs().max().item()
+                                                       for a, r in zip(got, ref)))
+        times = [sum(device_ms_by_function(f, 20)[0].values()) for f in (kernel, plain, library)]
+        for key, v in zip(("ms", "plain_ms", "library_ms"), times):
+            k3[key] += calls * v
+        print(f"           {rows:>5} {c:>5} {calls:>5} {rel:>10.3e} " + " ".join(f"{v:>10.4f}" for v in times),
+              flush=True)
+    return {"naf_block_bwd": k2, "layer_norm_2d": k3}
+
+
+def _snapshot(model):
+    """Both nets' weights and both optimizers' states, copied."""
+    import copy
+
+    return ([{k: v.clone() for k, v in net.state_dict().items()} for net in (model.net_g, model.net_dc)],
+            [copy.deepcopy(o.state_dict()) for o in model.optimizers])
+
+
+def _restore(model, snap):
+    nets, optims = snap
+    for net, sd in zip((model.net_g, model.net_dc), nets):
+        net.load_state_dict(sd)
+    for o, sd in zip(model.optimizers, optims):
+        o.load_state_dict(sd)
+
+
+def run_mixed_training(force: list[str]) -> dict:
+    """The shipped NAFNet DCPT yml with ``train:mixed_precision=true`` through
+    train_pipeline at full width on the PNGs of [7]: launch counts per step (and
+    no plain version run), resume, every K2 call of a batch-8 step against its
+    plain version, the fp32 masters and moments; the ms per step and peak memory
+    beside the fp32 step and the plain bf16 path; a few iterations' losses from
+    the same weights on one batch in bf16 and in fp32."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from dcpt_tpu_torch.ops import layernorm2d as ln
+    from dcpt_tpu_torch.ops import naf_block as nb
+    from dcpt_tpu_torch.ops import naf_block_bwd as nbb
+    from dcpt_tpu_torch.train import train_pipeline
+
+    work = ROOT / "build" / "chip_smoke_train_mixed"
+    shutil.rmtree(work, ignore_errors=True)
+    args = ["-opt", str(TRAIN_YML), "--force_yml", *force, "datasets:train:datasets:d3_dehaze:suffix=.png",
+            "logger:use_tb_logger=false", "logger:print_freq=1", f"logger:save_checkpoint_freq={TRAIN_ITERS}",
+            f"train:scheduler:periods=[{TRAIN_ITERS + RESUME_ITERS}]", "train:mixed_precision=true"]
+    plain_calls = {"naf_block": 0, "naf_block_bwd": 0, "layer_norm_2d": 0}
+
+    def counted(key, fn):
+        def wrapper(*a, **k):
+            plain_calls[key] += 1
+            return fn(*a, **k)
+        return wrapper
+
+    nb.naf_block_fused.launches = nbb.naf_block_bwd.launches = ln.layer_norm_2d.launches = 0
+    ln.layer_norm_2d.bwd_launches = 0
+    t0 = time.perf_counter()
+    with mock.patch.object(nb, "_ref_forward", counted("naf_block", nb._ref_forward)), \
+            mock.patch.object(nbb, "naf_block_bwd_ref", counted("naf_block_bwd", nbb.naf_block_bwd_ref)), \
+            mock.patch.object(ln, "layer_norm_2d_ref", counted("layer_norm_2d", ln.layer_norm_2d_ref)):
+        model = train_pipeline(str(work), args=args + [f"train:total_iter={TRAIN_ITERS}"])
+        torch.cuda.synchronize()
+    launches = {"naf_block_fused": nb.naf_block_fused.launches, "naf_block_bwd": nbb.naf_block_bwd.launches,
+                "layer_norm_2d": ln.layer_norm_2d.launches + ln.layer_norm_2d.bwd_launches}
+    print(f"[19] train_pipeline on {TRAIN_YML.name} with train:mixed_precision=true, {TRAIN_ITERS} iterations at "
+          f"batch 8, gt_size 128: {time.perf_counter() - t0:.1f} s; launches {launches}, plain versions run "
+          f"{plain_calls}; losses {dict(model.log_dict)}", flush=True)
+    want = {"naf_block_fused": K1_PER_STEP * TRAIN_ITERS, "naf_block_bwd": K2_PER_STEP * TRAIN_ITERS,
+            "layer_norm_2d": 2 * K3_PER_STEP * TRAIN_ITERS}
+    if launches != want or any(plain_calls.values()):
+        raise RuntimeError(f"[19] launches {launches} (expected {want}), plain versions run {plain_calls}")
+    if not all(np.isfinite(v) for v in model.log_dict.values()) or set(model.log_dict) != {"l_pix", "l_classify"}:
+        raise RuntimeError(f"[19] bad losses {model.log_dict}")
+    del model
+
+    resumed = train_pipeline(str(work), args=["--auto_resume", *args, f"train:total_iter={TRAIN_ITERS + RESUME_ITERS}"])
+    steps = resumed.optimizer_g.state_dict()["state"][0]["step"].item()
+    dtypes = {p.dtype for net in (resumed.net_g, resumed.net_dc) for p in net.parameters()}
+    dtypes |= {v.dtype for o in resumed.optimizers for st in o.state.values() for k, v in st.items()
+               if k.startswith("exp_avg")}
+    print(f"[19] resumed from iteration {TRAIN_ITERS} for {RESUME_ITERS} more: optimizer at step {steps:.0f}, masters "
+          f"and AdamW moments {sorted(str(d) for d in dtypes)}, losses {dict(resumed.log_dict)}", flush=True)
+    if steps != TRAIN_ITERS + RESUME_ITERS or dtypes != {torch.float32} or not resumed.mixed_precision:
+        raise RuntimeError(f"[19] resume: optimizer step {steps}, dtypes {dtypes}")
+
+    bwd_worst = check_bwd_in_step(resumed, "[19] bf16", nb.NAFBlockFunction,
+                                  lambda x, s, dz, eps: nbb.naf_block_bwd_ref(x, *s[:18], s[18], s[19], dz, eps),
+                                  TOL["bfloat16"], K2_PER_STEP, tensors=lambda g: (g[0], *g[2:]),
+                                  config=lambda ctx: ctx.eps)
+    torch.cuda.empty_cache()
+    resumed.feed_data(grad_batch(8))
+    step_ms, peak = ms_per_step(resumed, 5)
+    with plain_path():
+        plain_ms, plain_peak = ms_per_step(resumed, 3)
+    resumed.mixed_precision = False
+    fp32_ms, fp32_peak = ms_per_step(resumed, 5)
+    resumed.mixed_precision = True
+    print(f"[19] DCPT step at batch 8, 128 x 128: bf16 through K1 / K2 / K3 {step_ms:.2f} ms/step (peak {peak:.0f} "
+          f"MiB), the plain bf16 path {plain_ms:.2f} ms/step (peak {plain_peak:.0f} MiB), fp32 through the kernels "
+          f"{fp32_ms:.2f} ms/step (peak {fp32_peak:.0f} MiB)", flush=True)
+
+    snap = _snapshot(resumed)
+    curves = {}
+    for mode in ("bf16", "fp32"):
+        _restore(resumed, snap)
+        resumed.mixed_precision = mode == "bf16"
+        resumed.feed_data(grad_batch(8))
+        curve = []
+        for _ in range(5):
+            resumed.optimize_parameters(0)
+            curve.append(dict(resumed.log_dict))
+        curves[mode] = curve
+    resumed.mixed_precision = True
+    spread = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(curves["bf16"], curves["fp32"]) for k in b)
+    print(f"[19] five steps on one batch of 8 from the same weights: bf16 {curves['bf16']}; fp32 {curves['fp32']}; "
+          f"largest relative loss difference {spread:.3e}", flush=True)
+    if not all(np.isfinite(v) for c in curves.values() for d in c for v in d.values()):
+        raise RuntimeError(f"[19] non-finite losses {curves}")
+    return {"launches": launches, "step_ms": step_ms, "peak_mib": peak, "plain_step_ms": plain_ms,
+            "plain_peak_mib": plain_peak, "fp32_step_ms": fp32_ms, "fp32_peak_mib": fp32_peak, "curves": curves,
+            "loss_spread": spread, "bwd_worst": bwd_worst}
 
 
 PHASE_RESULT = "CHIP_SMOKE_PHASE_RESULT "
@@ -1772,17 +2134,20 @@ PHASE_RESULT = "CHIP_SMOKE_PHASE_RESULT "
 _profiler_lost = False
 
 
-def run_phase(fn, *args):
+def run_phase(fn, *args, env: dict | None = None):
     """``fn(*args)``, a phase whose arguments and result are JSON.  If a profile
     of the phase records no device time, the phase runs once more in a fresh
     process on the same card, its output passed on, and so does every phase
-    after it; a profile there that records none fails the script."""
+    after it; a profile there that records none fails the script.  With
+    ``env`` the phase runs in a fresh process with those variables set (the
+    port reads its routes' switches at import)."""
     global _profiler_lost
     import gc
+    import os
 
     import torch
 
-    if not _profiler_lost:
+    if not _profiler_lost and env is None:
         try:
             return fn(*args)
         except NoDeviceTime as e:
@@ -1791,7 +2156,7 @@ def run_phase(fn, *args):
         gc.collect()  # the failed attempt's tensors, before the child takes its memory from the same card
     torch.cuda.empty_cache()
     proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--phase", fn.__name__, json.dumps(args)],
-                            stdout=subprocess.PIPE, text=True)
+                            stdout=subprocess.PIPE, text=True, env=None if env is None else {**os.environ, **env})
     result = None
     for line in proc.stdout:
         if line.startswith(PHASE_RESULT):
@@ -1829,7 +2194,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     build_s = build_kernels()
-    print(f"[2] built K1, K2, K3, K6, K7, K8, K10, K9 in {', '.join(f'{b:.1f}' for b in build_s)} s (nvcc, in parallel), "
+    print(f"[2] built K1, K2, K3, K6, K7, K8, K10, K9, K4, K5 in {', '.join(f'{b:.1f}' for b in build_s)} s (nvcc, in parallel), "
           f"phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     print("[3] K1 naf_block_fused vs naf_block_ref, B=2, TF32 off", flush=True)
@@ -1902,16 +2267,40 @@ def main() -> int:
 
     swin_train = run_phase(run_swinir_training, train["force"])
 
+    print(f"[16] K4 naf_prefix vs naf_prefix_ref and K5 naf_ffn vs naf_ffn_ref at C={K45_C}, TF32 off; limits 1e-4 "
+          f"(fp32), 2e-2 (bf16) relative to max(1, max|ref|)", flush=True)
+    k45 = run_phase(check_k4_k5)
+    for name in ("naf_prefix", "naf_ffn"):
+        k = k45[name]
+        print(f"[16] {name} per NAFNet-w64 forward (B=1, 128x128, {K45_PER_FORWARD} blocks at C={K45_C}): kernel "
+              f"{k['ms']:.3f} ms (bf16 {k['bf16_ms']:.3f}), plain {k['plain_ms']:.3f} ms (bf16 "
+              f"{k['bf16_plain_ms']:.3f}), library {k['library_ms']:.3f} ms, bound {k['bound_ms']:.3f} ms "
+              f"({k['bound_by']})", flush=True)
+
+    pallas = run_phase(run_pallas_eval, force, env=PALLAS_ENV)
+
+    print("[18] K2 naf_block_bwd and K3 layer_norm_2d in bf16 vs their plain versions, limit 2e-2 relative to "
+          "max(1, max|ref|)", flush=True)
+    bf16 = run_phase(check_bf16_k2_k3)
+    print(f"[18] K2 bf16 per NAFNet-w64 backward (B=2, 128x128, 36 blocks): kernel {bf16['naf_block_bwd']['ms']:.3f} "
+          f"ms, plain {bf16['naf_block_bwd']['plain_ms']:.3f} ms; K3 bf16 per DCPT step ({K3_PER_STEP} calls each "
+          f"way): kernel {bf16['layer_norm_2d']['ms']:.3f} ms, plain {bf16['layer_norm_2d']['plain_ms']:.3f} ms, "
+          f"F.layer_norm {bf16['layer_norm_2d']['library_ms']:.3f} ms", flush=True)
+
+    mixed = run_phase(run_mixed_training, train["force"])
+
     launches = dict(train["launches"], mdta_block_fused=k6_launches["Restormer"],
                     mdta_block_bwd=transformer_train["Restormer"]["launches"]["mdta_block_bwd"],
                     fused_swin_block=swin_slice["launches"]["K8"]["fused_swin_block"],
                     fused_window_attention=swin_slice["launches"]["K10"]["fused_window_attention"],
-                    swin_block_bwd=swin_train["launches"]["swin_block_bwd"])
+                    swin_block_bwd=swin_train["launches"]["swin_block_bwd"],
+                    naf_prefix=pallas["launches"]["naf_prefix"], naf_ffn=pallas["launches"]["naf_ffn"])
     kernels = []
     for name, measured in (("naf_block_fused", k1), ("naf_block_bwd", k2), ("layer_norm_2d", k3),
                            ("mdta_block_fused", k6), ("mdta_block_bwd", k7),
                            ("fused_swin_block", swin["fused_swin_block"]),
-                           ("fused_window_attention", swin["fused_window_attention"]), ("swin_block_bwd", k9)):
+                           ("fused_window_attention", swin["fused_window_attention"]), ("swin_block_bwd", k9),
+                           ("naf_prefix", k45["naf_prefix"]), ("naf_ffn", k45["naf_ffn"])):
         source, replaces = KERNELS[name]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": launches[name], "max_abs_err": measured["max_abs_err"],
@@ -1931,6 +2320,15 @@ def main() -> int:
     kernels[7].update(launches_per_step=SWIN_PER_STEP["swin_block_bwd"], call_ms=k9["call_ms"],
                       plain_call_ms=k9["plain_call_ms"], b8_ms=k9["b8_ms"], b8_plain_ms=k9["b8_plain_ms"],
                       b8_bound_ms=k9["b8_bound_ms"])
+    for entry, name in ((kernels[1], "naf_block_bwd"), (kernels[2], "layer_norm_2d")):
+        b = bf16[name]
+        entry.update(bf16_ms=b["ms"], bf16_plain_ms=b["plain_ms"], bf16_max_abs_err=b["max_abs_err"],
+                     bf16_launches=mixed["launches"][name])
+    kernels[2]["bf16_library_ms"] = bf16["layer_norm_2d"]["library_ms"]
+    for entry in kernels[8:10]:
+        entry.update(launches_per_image=K45_PER_FORWARD, bf16_ms=k45[entry["name"]]["bf16_ms"],
+                     bf16_plain_ms=k45[entry["name"]]["bf16_plain_ms"],
+                     bf16_max_abs_err=k45[entry["name"]]["bf16_max_abs_err"])
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

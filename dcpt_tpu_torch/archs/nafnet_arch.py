@@ -1,9 +1,18 @@
 """NAFNet (dcpt_tpu/archs/nafnet_arch.py), NCHW, with the reference's module names.
 
 Every NAFBlock runs as one call of ``ops.naf_block.naf_block_fused``: the
-hand-written CUDA kernel on a CUDA tensor (fp32 or bf16), the plain twin on a
-CPU tensor.  The blocks take their input as ``torch.channels_last`` so the
-(B, H, W, C) view the op takes is free.
+hand-written CUDA kernel K1 on a CUDA tensor (fp32 or bf16; under autograd K1
+forward and K2 backward), the plain twin on a CPU tensor.  The blocks take
+their input as ``torch.channels_last`` so the (B, H, W, C) view the op takes
+is free.
+
+``DCPT_TPU_NAF_BLOCK=0`` (read once, at import, as dcpt_tpu reads it; tests
+set ``NAF_BLOCK_KERNEL``) routes every NAFBlock through dcpt_tpu's module path
+instead: ``LayerNorm2d`` (K3 at its gate), the 1x1 and depthwise convs,
+SimpleGate, SCA and the residuals as PyTorch ops.  In the ``all`` kernel mode
+(``DCPT_TPU_PALLAS=1``, ``ops.kernel_mode()``) a c = 512 block on that path
+runs its prefix as K4 (``ops.naf_prefix``) and its FFN half as K5
+(``ops.naf_ffn``), as dcpt_tpu does (its ``nafnet_arch.py:120-186``).
 
 The U-Net keeps the reference's parameter names (``encoders.0.0.conv1.weight``,
 ``...sca.1.weight``, ``beta`` of shape (1, C, 1, 1), ``decoder{i}.{j}``), so a
@@ -15,14 +24,23 @@ whose names have one dot (``encoders.{i}``, ``downs.{i}``, ``middle_blks.{j}``,
 
 from __future__ import annotations
 
+import os
 from typing import Sequence
 
 import torch
 from torch import nn
 
+from .. import ops
 from ..ops.naf_block import naf_block_fused
+from ..ops.naf_ffn import naf_ffn
+from ..ops.naf_prefix import naf_prefix
 from ..utils.registry import ARCH_REGISTRY
 from .arch_util import LayerNorm2d
+
+# False routes every NAFBlock through the module path (dcpt_tpu's DCPT_TPU_NAF_BLOCK=0)
+NAF_BLOCK_KERNEL = os.environ.get("DCPT_TPU_NAF_BLOCK", "auto") != "0"
+# the stage width at which the all mode's fusions run (dcpt_tpu: c == 512)
+FUSED_C = 512
 
 
 class NAFBlock(nn.Module):
@@ -57,8 +75,30 @@ class NAFBlock(nn.Module):
                 self.conv5.weight.view(c, ffn // 2).t(), self.conv5.bias, self.gamma.view(c)]
 
     def forward(self, inp: torch.Tensor) -> torch.Tensor:
+        if not NAF_BLOCK_KERNEL:
+            return self.module_forward(inp)
         x = inp.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
         return naf_block_fused(x, *self.op_args(), self.norm1.eps).permute(0, 3, 1, 2)
+
+    def module_forward(self, inp: torch.Tensor) -> torch.Tensor:
+        """dcpt_tpu's module path (its nafnet_arch.py:120-186); in the ``all``
+        kernel mode at c = 512 the prefix is K4 and the FFN half K5."""
+        inp = inp.contiguous(memory_format=torch.channels_last)
+        fused = ops.kernel_mode() == "all" and self.c == FUSED_C
+        args = self.op_args()
+        eps = self.norm1.eps
+        if fused:
+            x = naf_prefix(inp.permute(0, 2, 3, 1), *args[:6], eps).permute(0, 3, 1, 2)
+        else:
+            x = self.conv2(self.conv1(self.norm1(inp)))
+            x = x[:, : self.dw // 2] * x[:, self.dw // 2:]
+        x = x * self.sca(x)
+        y = inp + self.conv3(x) * self.beta
+        if fused:
+            return naf_ffn(y.permute(0, 2, 3, 1), *args[11:], eps).permute(0, 3, 1, 2)
+        x = self.conv4(self.norm2(y))
+        x = x[:, : self.ffn // 2] * x[:, self.ffn // 2:]
+        return y + self.conv5(x) * self.gamma
 
 
 @ARCH_REGISTRY.register()

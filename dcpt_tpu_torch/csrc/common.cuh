@@ -1,6 +1,7 @@
 // Helpers shared by the port's CUDA sources: loads and stores in the I/O type,
-// a warp sum, a depthwise 3x3 stencil, and a deterministic column sum over rows
-// (no atomics, so a sum over pixels comes out the same bit for bit from run to run).
+// a warp sum, a depthwise 3x3 stencil, a deterministic column sum over rows
+// (no atomics, so a sum over pixels comes out the same bit for bit from run to
+// run), and the cast of fp32 results into the I/O type.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -81,6 +82,41 @@ inline cudaError_t colsum(const float* in, int batches, int R, int Cn, int ld, f
     R = rout;
     ld = Cn;
   }
+}
+
+// Up to kMaxCasts fp32 buffers cast into the I/O type in one launch: the
+// backward kernels sum their weight gradients in fp32 and store each once in
+// its primal's dtype.
+constexpr int kMaxCasts = 20;
+
+template <typename T>
+struct CastList {
+  const float* src[kMaxCasts];
+  T* dst[kMaxCasts];
+  long long n[kMaxCasts];
+  int count = 0;
+  void add(const float* s, T* d, long long len) {
+    src[count] = s;
+    dst[count] = d;
+    n[count++] = len;
+  }
+};
+
+// grid (blocks, list.count): blockIdx.y picks the buffer
+template <typename T>
+__global__ void __launch_bounds__(kThreads) cast_kernel(CastList<T> list) {
+  const int k = blockIdx.y;
+  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < list.n[k]; i += (long long)gridDim.x * kThreads)
+    list.dst[k][i] = st<T>(list.src[k][i]);
+}
+
+template <typename T>
+inline cudaError_t cast_all(const CastList<T>& list, cudaStream_t stream) {
+  long long most = 1;
+  for (int k = 0; k < list.count; ++k) most = list.n[k] > most ? list.n[k] : most;
+  const long long blocks = (most + kThreads - 1) / kThreads;
+  cast_kernel<T><<<dim3((unsigned)(blocks < 1024 ? blocks : 1024), list.count), kThreads, 0, stream>>>(list);
+  return cudaGetLastError();
 }
 
 }  // namespace

@@ -1,4 +1,4 @@
-// Whole-NAFBlock backward on Hopper (sm_90a): fp32 I/O, fp32 math.
+// Whole-NAFBlock backward on Hopper (sm_90a): fp32 or bf16 I/O, fp32 math.
 //
 // Replaces the TPU kernel dcpt_tpu/ops/naf_block_bwd.py::naf_block_bwd
 // (_b1_kernel + host SCA step + _b2_kernel).  Given the upstream cotangent dz
@@ -50,6 +50,13 @@
 // Weights come in PyTorch's layout (every 1x1 as (out, in), the depthwise 3x3 as
 // (2C, 3, 3)); the gradients of the 1x1 weights are written in that layout, the
 // depthwise gradient as (3, 3, 2C) and its bias as (2C,), contiguous.
+//
+// bf16 (mixed-precision training): x, dz, the parameters and g (K1's gated map)
+// are read in bf16, the other residuals (t, u, y, h, o, pooled, att) are K1's
+// fp32 maps, and every intermediate, partial and sum is fp32, as the TPU
+// kernel does its math in fp32.  dx is stored in bf16 by R1; the 18 parameter
+// gradients are summed into fp32 buffers in the workspace and each is cast
+// once, at the end, to its primal's dtype (the TPU kernel's stores).
 
 #include <algorithm>
 
@@ -78,13 +85,13 @@ constexpr int kWBlocks = 2 * 132;        // W: blocks to aim for (two per SM)
   float acc[RM][4], acc2[RM][4];
 
 // F1: dhg = (dz * gamma) . w5 (w5 (C, C) read transposed), dh = [dhg * h2, dhg * h1]
-template <int RM>
+template <typename T, int RM>
 __global__ void __launch_bounds__(kThreads)
-bwd_f1_kernel(const float* __restrict__ dz, const float* __restrict__ gamma, const float* __restrict__ w5,
+bwd_f1_kernel(const T* __restrict__ dz, const T* __restrict__ gamma, const T* __restrict__ w5,
               const float* __restrict__ h, float* __restrict__ dh, int HW, int C) {
   PIX_PROLOGUE
   gemm_block<RM, false, true>(smem, w5, C, C, n0, 0, [&](int p, int k) {
-    return p < np ? dz[(pix0 + p) * C + k] * gamma[k] : 0.f;
+    return p < np ? ld(dz[(pix0 + p) * C + k]) * ld(gamma[k]) : 0.f;
   }, acc, acc2);
 #pragma unroll
   for (int r = 0; r < RM; ++r)
@@ -100,9 +107,9 @@ bwd_f1_kernel(const float* __restrict__ dz, const float* __restrict__ gamma, con
 }
 
 // F2 and L1: out (B*HW, N) = a (B*HW, K) . w, w (K, N) read transposed
-template <int RM>
+template <typename T, int RM>
 __global__ void __launch_bounds__(kThreads)
-bwd_prod_kernel(const float* __restrict__ a, const float* __restrict__ w, float* __restrict__ out, int HW, int K,
+bwd_prod_kernel(const float* __restrict__ a, const T* __restrict__ w, float* __restrict__ out, int HW, int K,
                 int N) {
   PIX_PROLOGUE
   gemm_block<RM, false, true>(smem, w, K, N, n0, 0, [&](int p, int k) {
@@ -119,10 +126,10 @@ bwd_prod_kernel(const float* __restrict__ a, const float* __restrict__ w, float*
 
 // A: da = du . w3 (w3 (C, C) read transposed); dg = da * att; part (B, tiles, C)
 // gets the tile's sum of da * g for datt.
-template <int RM>
+template <typename T, int RM>
 __global__ void __launch_bounds__(kThreads)
-bwd_a_kernel(const float* __restrict__ du, const float* __restrict__ w3, const float* __restrict__ att,
-             const float* __restrict__ g, float* __restrict__ dg, float* __restrict__ part, int HW, int C) {
+bwd_a_kernel(const float* __restrict__ du, const T* __restrict__ w3, const float* __restrict__ att,
+             const T* __restrict__ g, float* __restrict__ dg, float* __restrict__ part, int HW, int C) {
   PIX_PROLOGUE
   gemm_block<RM, false, true>(smem, w3, C, C, n0, 0, [&](int p, int k) {
     return p < np ? du[(pix0 + p) * C + k] : 0.f;
@@ -137,7 +144,7 @@ bwd_a_kernel(const float* __restrict__ du, const float* __restrict__ w3, const f
       if (p < np) {
         const size_t q = (pix0 + p) * C + n;
         dg[q] = acc[r][i] * ab[n];
-        s[i] = fmaf(acc[r][i], g[q], s[i]);
+        s[i] = fmaf(acc[r][i], ld(g[q]), s[i]);
       }
     }
   __syncthreads();  // the product is done with its buffers
@@ -157,34 +164,35 @@ bwd_a_kernel(const float* __restrict__ du, const float* __restrict__ w3, const f
 //   out = res + rs * (dln*w - mean(dln*w) - vh * mean(dln*w*vh)), vh = (v - mu) * rs.
 //   R2 also writes du = out * beta.  stats (pixels, 2) gets mu and rs for the
 //   weight-gradient pass.  part (blocks, 2C or 4C): column sums over the block's
-//   pixels of dln * vh, dln (and for R2, dz * o and out * u).
-template <bool SECOND>
+//   pixels of dln * vh, dln (and for R2, dz * o and out * u).  TV, TR and TO are
+//   the types of v, res and out (fp32 or the I/O type), T the parameters'.
+template <bool SECOND, typename TV, typename TR, typename T, typename TO>
 __global__ void __launch_bounds__(kThreads)
-bwd_ln_kernel(const float* __restrict__ v, const float* __restrict__ dln, const float* __restrict__ res,
-              const float* __restrict__ w, const float* __restrict__ beta, const float* __restrict__ o,
-              const float* __restrict__ u, float* __restrict__ out, float* __restrict__ du,
+bwd_ln_kernel(const TV* __restrict__ v, const float* __restrict__ dln, const TR* __restrict__ res,
+              const T* __restrict__ w, const T* __restrict__ beta, const float* __restrict__ o,
+              const float* __restrict__ u, TO* __restrict__ out, float* __restrict__ du,
               float* __restrict__ stats, float* __restrict__ part, int npix, int C, float eps) {
   extern __shared__ float smem[];  // 4 x kRP: mean, 1/sigma and the two means of the backward
   float *sMu = smem, *sRs = smem + kRP, *sM1 = smem + 2 * kRP, *sM2 = smem + 3 * kRP;
   const int p0 = blockIdx.x * kRP, np = min(kRP, npix - p0);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int p = warp; p < np; p += kThreads / 32) {
-    const float* vr = v + (size_t)(p0 + p) * C;
+    const TV* vr = v + (size_t)(p0 + p) * C;
     const float* dr = dln + (size_t)(p0 + p) * C;
     float s = 0.f;
-    for (int c = lane; c < C; c += 32) s += vr[c];
+    for (int c = lane; c < C; c += 32) s += ld(vr[c]);
     const float mu = warp_sum(s) / C;
     float var = 0.f;
     for (int c = lane; c < C; c += 32) {
-      const float d = vr[c] - mu;
+      const float d = ld(vr[c]) - mu;
       var += d * d;
     }
     const float rs = 1.f / sqrtf(warp_sum(var) / C + eps);
     float m1 = 0.f, m2 = 0.f;
     for (int c = lane; c < C; c += 32) {
-      const float dw = dr[c] * w[c];
+      const float dw = dr[c] * ld(w[c]);
       m1 += dw;
-      m2 += dw * (vr[c] - mu) * rs;
+      m2 += dw * (ld(vr[c]) - mu) * rs;
     }
     m1 = warp_sum(m1) / C;
     m2 = warp_sum(m2) / C;
@@ -201,19 +209,20 @@ bwd_ln_kernel(const float* __restrict__ v, const float* __restrict__ dln, const 
   constexpr int kParts = SECOND ? 4 : 2;
   float* pr = part + (size_t)blockIdx.x * kParts * C;
   for (int c = threadIdx.x; c < C; c += kThreads) {
-    const float wc = w[c], bc = SECOND ? beta[c] : 0.f;
+    const float wc = ld(w[c]), bc = SECOND ? ld(beta[c]) : 0.f;
     float sw = 0.f, sb = 0.f, sg = 0.f, sbeta = 0.f;
     for (int p = 0; p < np; ++p) {
       const size_t q = (size_t)(p0 + p) * C + c;
-      const float vh = (v[q] - sMu[p]) * sRs[p];
+      const float vh = (ld(v[q]) - sMu[p]) * sRs[p];
       const float d = dln[q];
-      const float ov = res[q] + sRs[p] * (d * wc - sM1[p] - vh * sM2[p]);
-      out[q] = ov;
+      const float rv = ld(res[q]);
+      const float ov = rv + sRs[p] * (d * wc - sM1[p] - vh * sM2[p]);
+      out[q] = st<TO>(ov);
       sw = fmaf(d, vh, sw);
       sb += d;
       if (SECOND) {
         du[q] = ov * bc;
-        sg = fmaf(res[q], o[q], sg);
+        sg = fmaf(rv, o[q], sg);
         sbeta = fmaf(ov, u[q], sbeta);
       }
     }
@@ -227,13 +236,14 @@ bwd_ln_kernel(const float* __restrict__ v, const float* __restrict__ dln, const 
 }
 
 // S: dgk[b][i] = sum_o datt[b][o] * wsca[o][i] / (H W); grid (C / kNB, B)
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-bwd_sca_kernel(const float* __restrict__ datt, const float* __restrict__ wsca, float* __restrict__ dgk, int C,
+bwd_sca_kernel(const float* __restrict__ datt, const T* __restrict__ wsca, float* __restrict__ dgk, int C,
                float hw) {
   extern __shared__ float sP[];  // kThreads partial sums
   const int b = blockIdx.y, i = blockIdx.x * kNB + (threadIdx.x & (kNB - 1)), grp = threadIdx.x / kNB;
   float s = 0.f;
-  for (int o = grp; o < C; o += kThreads / kNB) s = fmaf(datt[(size_t)b * C + o], wsca[(size_t)o * C + i], s);
+  for (int o = grp; o < C; o += kThreads / kNB) s = fmaf(datt[(size_t)b * C + o], ld(wsca[(size_t)o * C + i]), s);
   sP[threadIdx.x] = s;
   __syncthreads();
   if (threadIdx.x < kNB) {
@@ -262,9 +272,10 @@ bwd_sca_w_kernel(const float* __restrict__ datt, const float* __restrict__ poole
 
 // D: depthwise backward.  grid (tiles of kDT x kDT, C / kCC, B); part
 // (B * tiles, 10, 2C) gets the tile's dWdw (9 taps) and dbdw sums.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 bwd_d_kernel(const float* __restrict__ t, const float* __restrict__ dg, const float* __restrict__ dgk,
-             const float* __restrict__ wdw, const float* __restrict__ bdw, float* __restrict__ dt,
+             const T* __restrict__ wdw, const T* __restrict__ bdw, float* __restrict__ dt,
              float* __restrict__ part, int H, int W, int C, int ntx) {
   extern __shared__ float smem[];
   constexpr int ldt = kDP2 + 1, ldd = kDP1 + 1;
@@ -289,10 +300,10 @@ bwd_d_kernel(const float* __restrict__ t, const float* __restrict__ dg, const fl
   float wa[9], wb[9];
 #pragma unroll
   for (int k = 0; k < 9; ++k) {
-    wa[k] = wdw[(size_t)(c0 + j) * 9 + k];
-    wb[k] = wdw[(size_t)(C + c0 + j) * 9 + k];
+    wa[k] = ld(wdw[(size_t)(c0 + j) * 9 + k]);
+    wb[k] = ld(wdw[(size_t)(C + c0 + j) * 9 + k]);
   }
-  const float ba = bdw[c0 + j], bb = bdw[C + c0 + j];
+  const float ba = ld(bdw[c0 + j]), bb = ld(bdw[C + c0 + j]);
   const float gk = dgk[(size_t)b * C + c0 + j];
   const float* ta = sT + j * ldt;
   const float* tb = sT + (kCC + j) * ldt;
@@ -375,10 +386,11 @@ bwd_d_kernel(const float* __restrict__ t, const float* __restrict__ dg, const fl
 //   MODE 4: A = dh (M = 2C),         B = LN2(y) * n2w + n2b      -> dW4, db4
 //   MODE 3: A = du (M = C),          B = g * att                 -> dW3, db3
 //   MODE 1: A = dt (M = 2C),         B = LN1(x) * n1w + n1b      -> dW1, db1
-template <int MODE>
+// TA, TB and TV are the types of a, bm and v0 / v1 (fp32 or the I/O type).
+template <int MODE, typename TA, typename TB, typename TV>
 __global__ void __launch_bounds__(kThreads)
-bwd_w_kernel(const float* __restrict__ a, const float* __restrict__ bm, const float* __restrict__ stats,
-             const float* __restrict__ v0, const float* __restrict__ v1, float* __restrict__ part,
+bwd_w_kernel(const TA* __restrict__ a, const TB* __restrict__ bm, const float* __restrict__ stats,
+             const TV* __restrict__ v0, const TV* __restrict__ v1, float* __restrict__ part,
              float* __restrict__ part_bias, int npix, int HW, int C, int M, int N, int L) {
   extern __shared__ float smem[];
   float* sA = smem;
@@ -387,14 +399,14 @@ bwd_w_kernel(const float* __restrict__ a, const float* __restrict__ bm, const fl
   const int pbeg = chunk * L, pend = min(npix, pbeg + L);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   auto load_a = [&](int p, int m) {
-    if (MODE == 5) return a[(size_t)p * C + m] * v0[m];
-    if (MODE == 3) return a[(size_t)p * C + m];
-    return a[(size_t)p * 2 * C + m];
+    if (MODE == 5) return ld(a[(size_t)p * C + m]) * ld(v0[m]);
+    if (MODE == 3) return ld(a[(size_t)p * C + m]);
+    return ld(a[(size_t)p * 2 * C + m]);
   };
   auto load_b = [&](int p, int n) {
-    if (MODE == 5) return bm[(size_t)p * 2 * C + n] * bm[(size_t)p * 2 * C + C + n];
-    if (MODE == 3) return bm[(size_t)p * C + n] * v0[(size_t)(p / HW) * C + n];
-    return (bm[(size_t)p * C + n] - stats[2 * (size_t)p]) * stats[2 * (size_t)p + 1] * v0[n] + v1[n];
+    if (MODE == 5) return ld(bm[(size_t)p * 2 * C + n]) * ld(bm[(size_t)p * 2 * C + C + n]);
+    if (MODE == 3) return ld(bm[(size_t)p * C + n]) * ld(v0[(size_t)(p / HW) * C + n]);
+    return (ld(bm[(size_t)p * C + n]) - stats[2 * (size_t)p]) * stats[2 * (size_t)p + 1] * ld(v0[n]) + ld(v1[n]);
   };
   float acc[4][4], acc2[4][4];
 #pragma unroll
@@ -439,12 +451,16 @@ int w_chunks(int M, int N, int npix, int* len) {
 }
 
 // The workspace: every intermediate map, the partial sums and colsum's scratch.
+// The 18 parameter gradients' floats: 7 C^2 + 33 C.
+inline size_t param_floats(int C) { return 7 * (size_t)C * C + 33 * (size_t)C; }
+
 struct Plan {
   int B, H, W, C, HW, npix, rm, ntp, ntx, ntd, nrb;
-  size_t dh, dln, dy, du, dg, dt, st2, st1, pdatt, datt, dgk, prow, pd, pw, pwb, sum, total;
+  size_t dh, dln, dy, du, dg, dt, st2, st1, pdatt, datt, dgk, prow, pd, pw, pwb, sum, stage, total;
 };
 
-Plan make_plan(int B, int H, int W, int C) {
+// stage: room for the parameter gradients in fp32 (a bf16 call casts them at the end)
+Plan make_plan(int B, int H, int W, int C, bool stage) {
   Plan pl;
   pl.B = B; pl.H = H; pl.W = W; pl.C = C;
   pl.HW = H * W;
@@ -488,47 +504,47 @@ Plan make_plan(int B, int H, int W, int C) {
   sum = std::max(sum, colsum_scratch(1, pl.nrb, C));
   sum = std::max(sum, colsum_scratch(1, B * pl.ntd, 18 * C));
   pl.sum = take(sum);
+  pl.stage = take(stage ? param_floats(C) : 0);
   pl.total = off;
   return pl;
 }
 
-template <int RM>
-cudaError_t launch_pixel_passes_1(const Plan& pl, float* ws, const float* dz, const float* gamma, const float* w5,
-                                  const float* h, const float* w4, cudaStream_t stream) {
+template <typename T, int RM>
+cudaError_t launch_pixel_passes_1(const Plan& pl, float* ws, const T* dz, const T* gamma, const T* w5,
+                                  const float* h, const T* w4, cudaStream_t stream) {
   const int C = pl.C, smem = gemm_smem_floats(RM) * (int)sizeof(float);
   const dim3 grid(pl.ntp, C / kNB, pl.B);
-  bwd_f1_kernel<RM><<<grid, kThreads, smem, stream>>>(dz, gamma, w5, h, ws + pl.dh, pl.HW, C);
+  bwd_f1_kernel<T, RM><<<grid, kThreads, smem, stream>>>(dz, gamma, w5, h, ws + pl.dh, pl.HW, C);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  bwd_prod_kernel<RM><<<grid, kThreads, smem, stream>>>(ws + pl.dh, w4, ws + pl.dln, pl.HW, 2 * C, C);
+  bwd_prod_kernel<T, RM><<<grid, kThreads, smem, stream>>>(ws + pl.dh, w4, ws + pl.dln, pl.HW, 2 * C, C);
   return cudaGetLastError();
 }
 
-template <int RM>
-cudaError_t launch_a(const Plan& pl, float* ws, const float* w3, const float* att, const float* g,
-                     cudaStream_t stream) {
+template <typename T, int RM>
+cudaError_t launch_a(const Plan& pl, float* ws, const T* w3, const float* att, const T* g, cudaStream_t stream) {
   const int smem = gemm_smem_floats(RM) * (int)sizeof(float);
-  bwd_a_kernel<RM><<<dim3(pl.ntp, pl.C / kNB, pl.B), kThreads, smem, stream>>>(
+  bwd_a_kernel<T, RM><<<dim3(pl.ntp, pl.C / kNB, pl.B), kThreads, smem, stream>>>(
       ws + pl.du, w3, att, g, ws + pl.dg, ws + pl.pdatt, pl.HW, pl.C);
   return cudaGetLastError();
 }
 
-template <int RM>
-cudaError_t launch_l1(const Plan& pl, float* ws, const float* w1, cudaStream_t stream) {
+template <typename T, int RM>
+cudaError_t launch_l1(const Plan& pl, float* ws, const T* w1, cudaStream_t stream) {
   const int smem = gemm_smem_floats(RM) * (int)sizeof(float);
-  bwd_prod_kernel<RM><<<dim3(pl.ntp, pl.C / kNB, pl.B), kThreads, smem, stream>>>(
+  bwd_prod_kernel<T, RM><<<dim3(pl.ntp, pl.C / kNB, pl.B), kThreads, smem, stream>>>(
       ws + pl.dt, w1, ws + pl.dln, pl.HW, 2 * pl.C, pl.C);
   return cudaGetLastError();
 }
 
-template <int MODE>
-cudaError_t launch_w(const Plan& pl, float* ws, const float* a, const float* bm, const float* stats,
-                     const float* v0, const float* v1, float* dw, float* dbias, cudaStream_t stream) {
+template <int MODE, typename TA, typename TB, typename TV>
+cudaError_t launch_w(const Plan& pl, float* ws, const TA* a, const TB* bm, const float* stats,
+                     const TV* v0, const TV* v1, float* dw, float* dbias, cudaStream_t stream) {
   const int C = pl.C, M = (MODE == 4 || MODE == 1) ? 2 * C : C, N = C;
   int len;
   const int nch = w_chunks(M, N, pl.npix, &len);
   const int smem = 2 * kKC * kWS * (int)sizeof(float);
-  bwd_w_kernel<MODE><<<dim3(N / kNB, M / kNB, nch), kThreads, smem, stream>>>(
+  bwd_w_kernel<MODE, TA, TB, TV><<<dim3(N / kNB, M / kNB, nch), kThreads, smem, stream>>>(
       a, bm, stats, v0, v1, ws + pl.pw, ws + pl.pwb, pl.npix, pl.HW, C, M, N, len);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -536,18 +552,28 @@ cudaError_t launch_w(const Plan& pl, float* ws, const float* a, const float* bm,
   return colsum<2>(ws + pl.pwb, 1, nch, M, M, dbias, ws + pl.sum, stream);
 }
 
+// The 18 parameter gradients in fp32: the caller's buffers in an fp32 call, the
+// workspace's stage in a bf16 call (cast into the caller's at the end).
+constexpr int kParams = 18;
 struct Grads {
-  float *dx, *dn1w, *dn1b, *dw1, *db1, *dwdw, *dbdw, *dwsca, *dbsca, *dw3, *db3, *dbeta, *dn2w, *dn2b, *dw4, *db4,
+  float *dn1w, *dn1b, *dw1, *db1, *dwdw, *dbdw, *dwsca, *dbsca, *dw3, *db3, *dbeta, *dn2w, *dn2b, *dw4, *db4,
       *dw5, *db5, *dgamma;
 };
 
-int naf_block_bwd(const float* x, const float* dz, const float* n1w, const float* n1b, const float* w1,
-                  const float* wdw, const float* bdw, const float* wsca, const float* w3, const float* beta,
-                  const float* n2w, const float* n2b, const float* w4, const float* w5, const float* gamma,
-                  const float* g, const float* t, const float* u, const float* y, const float* h, const float* o,
-                  const float* pooled, const float* att, const Grads& gr, float* ws, int B, int H, int W, int C,
-                  float eps, cudaStream_t stream) {
-  const Plan pl = make_plan(B, H, W, C);
+// Their lengths, in the order of Grads (param_floats(C) in all).
+inline void param_lengths(int C, long long* n) {
+  const long long c = C, c2 = c * c;
+  const long long len[kParams] = {c, c, 2 * c2, 2 * c, 18 * c, 2 * c, c2, c, c2, c, c, c, c, 2 * c2, 2 * c, c2, c, c};
+  for (int k = 0; k < kParams; ++k) n[k] = len[k];
+}
+
+template <typename T>
+int naf_block_bwd(const T* x, const T* dz, const T* n1w, const T* n1b, const T* w1, const T* wdw, const T* bdw,
+                  const T* wsca, const T* w3, const T* beta, const T* n2w, const T* n2b, const T* w4, const T* w5,
+                  const T* gamma, const T* g, const float* t, const float* u, const float* y, const float* h,
+                  const float* o, const float* pooled, const float* att, T* dx, const Grads& gr, float* ws,
+                  const Plan& pl, float eps, cudaStream_t stream) {
+  const int B = pl.B, H = pl.H, W = pl.W, C = pl.C;
   float* sum = ws + pl.sum;
   const int smem_ln = 4 * kRP * (int)sizeof(float);
   cudaError_t err;
@@ -557,74 +583,107 @@ int naf_block_bwd(const float* x, const float* dz, const float* n1w, const float
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   // F1, F2: dh, dln2
-  CHECK(pl.rm == 2 ? launch_pixel_passes_1<2>(pl, ws, dz, gamma, w5, h, w4, stream)
-                   : launch_pixel_passes_1<1>(pl, ws, dz, gamma, w5, h, w4, stream));
+  CHECK((pl.rm == 2 ? launch_pixel_passes_1<T, 2>(pl, ws, dz, gamma, w5, h, w4, stream)
+                    : launch_pixel_passes_1<T, 1>(pl, ws, dz, gamma, w5, h, w4, stream)));
   // R2: dy, du, and dn2w, dn2b, dgamma, dbeta
-  bwd_ln_kernel<true><<<pl.nrb, kThreads, smem_ln, stream>>>(y, ws + pl.dln, dz, n2w, beta, o, u, ws + pl.dy, ws + pl.du,
-                                                      ws + pl.st2, ws + pl.prow, pl.npix, C, eps);
+  bwd_ln_kernel<true, float, T, T, float><<<pl.nrb, kThreads, smem_ln, stream>>>(
+      y, ws + pl.dln, dz, n2w, beta, o, u, ws + pl.dy, ws + pl.du, ws + pl.st2, ws + pl.prow, pl.npix, C, eps);
   CHECK_LAUNCH();
   float* row_out[4] = {gr.dn2w, gr.dn2b, gr.dgamma, gr.dbeta};
   for (int k = 0; k < 4; ++k) CHECK(colsum<2>(ws + pl.prow + (size_t)k * C, 1, pl.nrb, C, 4 * C, row_out[k], sum, stream));
   // W: dW5, dW4
-  CHECK(launch_w<5>(pl, ws, dz, h, nullptr, gamma, nullptr, gr.dw5, gr.db5, stream));
-  CHECK(launch_w<4>(pl, ws, ws + pl.dh, y, ws + pl.st2, n2w, n2b, gr.dw4, gr.db4, stream));
+  CHECK((launch_w<5, T, float, T>(pl, ws, dz, h, nullptr, gamma, nullptr, gr.dw5, gr.db5, stream)));
+  CHECK((launch_w<4, float, float, T>(pl, ws, ws + pl.dh, y, ws + pl.st2, n2w, n2b, gr.dw4, gr.db4, stream)));
   // A: dg (local part), datt
-  CHECK(pl.rm == 2 ? launch_a<2>(pl, ws, w3, att, g, stream) : launch_a<1>(pl, ws, w3, att, g, stream));
+  CHECK((pl.rm == 2 ? launch_a<T, 2>(pl, ws, w3, att, g, stream) : launch_a<T, 1>(pl, ws, w3, att, g, stream)));
   CHECK(colsum<2>(ws + pl.pdatt, B, pl.ntp, C, C, ws + pl.datt, sum, stream));
-  CHECK(launch_w<3>(pl, ws, ws + pl.du, g, nullptr, att, nullptr, gr.dw3, gr.db3, stream));
+  CHECK((launch_w<3, float, T, float>(pl, ws, ws + pl.du, g, nullptr, att, nullptr, gr.dw3, gr.db3, stream)));
   // S: dgk, dWsca, dbsca
-  bwd_sca_kernel<<<dim3(C / kNB, B), kThreads, kThreads * sizeof(float), stream>>>(ws + pl.datt, wsca, ws + pl.dgk, C, (float)H * (float)W);
+  bwd_sca_kernel<T><<<dim3(C / kNB, B), kThreads, kThreads * sizeof(float), stream>>>(ws + pl.datt, wsca, ws + pl.dgk, C, (float)H * (float)W);
   CHECK_LAUNCH();
   bwd_sca_w_kernel<<<(unsigned)(((size_t)C * C + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
       ws + pl.datt, pooled, gr.dwsca, gr.dbsca, B, C);
   CHECK_LAUNCH();
   // D: dt, dWdw, dbdw
   const int smem_d = 2 * kCC * (kDP2 + 1 + kDP1 + 1) * (int)sizeof(float);
-  CHECK(cudaFuncSetAttribute(bwd_d_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_d));
-  bwd_d_kernel<<<dim3(pl.ntd, C / kCC, B), kThreads, smem_d, stream>>>(t, ws + pl.dg, ws + pl.dgk, wdw, bdw,
-                                                                        ws + pl.dt, ws + pl.pd, H, W, C, pl.ntx);
+  CHECK(cudaFuncSetAttribute(bwd_d_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_d));
+  bwd_d_kernel<T><<<dim3(pl.ntd, C / kCC, B), kThreads, smem_d, stream>>>(t, ws + pl.dg, ws + pl.dgk, wdw, bdw,
+                                                                          ws + pl.dt, ws + pl.pd, H, W, C, pl.ntx);
   CHECK_LAUNCH();
   CHECK(colsum<2>(ws + pl.pd, 1, B * pl.ntd, 18 * C, 20 * C, gr.dwdw, sum, stream));
   CHECK(colsum<2>(ws + pl.pd + 18 * (size_t)C, 1, B * pl.ntd, 2 * C, 20 * C, gr.dbdw, sum, stream));
   // L1, R1: dln1, dx, and dn1w, dn1b
-  CHECK(pl.rm == 2 ? launch_l1<2>(pl, ws, w1, stream) : launch_l1<1>(pl, ws, w1, stream));
-  bwd_ln_kernel<false><<<pl.nrb, kThreads, smem_ln, stream>>>(x, ws + pl.dln, ws + pl.dy, n1w, nullptr, nullptr, nullptr,
-                                                       gr.dx, nullptr, ws + pl.st1, ws + pl.prow, pl.npix, C, eps);
+  CHECK((pl.rm == 2 ? launch_l1<T, 2>(pl, ws, w1, stream) : launch_l1<T, 1>(pl, ws, w1, stream)));
+  bwd_ln_kernel<false, T, float, T, T><<<pl.nrb, kThreads, smem_ln, stream>>>(
+      x, ws + pl.dln, ws + pl.dy, n1w, nullptr, nullptr, nullptr, dx, nullptr, ws + pl.st1, ws + pl.prow, pl.npix, C,
+      eps);
   CHECK_LAUNCH();
   CHECK(colsum<2>(ws + pl.prow, 1, pl.nrb, C, 2 * C, gr.dn1w, sum, stream));
   CHECK(colsum<2>(ws + pl.prow + C, 1, pl.nrb, C, 2 * C, gr.dn1b, sum, stream));
   // W: dW1
-  CHECK(launch_w<1>(pl, ws, ws + pl.dt, x, ws + pl.st1, n1w, n1b, gr.dw1, gr.db1, stream));
+  CHECK((launch_w<1, float, T, T>(pl, ws, ws + pl.dt, x, ws + pl.st1, n1w, n1b, gr.dw1, gr.db1, stream)));
 #undef CHECK
 #undef CHECK_LAUNCH
   return cudaSuccess;
 }
 
-}  // namespace
+#define NAF_BWD_ARGS                                                                                             \
+  const void *x, const void *dz, const void *n1w, const void *n1b, const void *w1, const void *wdw,             \
+      const void *bdw, const void *wsca, const void *w3, const void *beta, const void *n2w, const void *n2b,     \
+      const void *w4, const void *w5, const void *gamma, const void *g, const void *t, const void *u,            \
+      const void *y, const void *h, const void *o, const void *pooled, const void *att, void *dx, void *dn1w,    \
+      void *dn1b, void *dw1, void *db1, void *dwdw, void *dbdw, void *dwsca, void *dbsca, void *dw3, void *db3,  \
+      void *dbeta, void *dn2w, void *dn2b, void *dw4, void *db4, void *dw5, void *db5, void *dgamma, void *ws,   \
+      int B, int H, int W, int C, float eps, void *stream
 
-// Plain C entry point (loaded with ctypes).  Every pointer is a device pointer
-// to fp32.  Inputs: x and dz (B, H, W, C); the 14 parameters the backward reads
-// in PyTorch's layout; the forward's residuals g, t, u, y, h, o, pooled, att
-// (see naf_block.cu).  Outputs: dx (B, H, W, C) and the 18 parameter
-// gradients.  ws holds naf_block_bwd_workspace_floats(B, H, W, C) floats.
-// Returns the first CUDA error, or 0.
-extern "C" int naf_block_bwd_f32(
-    const void* x, const void* dz, const void* n1w, const void* n1b, const void* w1, const void* wdw,
-    const void* bdw, const void* wsca, const void* w3, const void* beta, const void* n2w, const void* n2b,
-    const void* w4, const void* w5, const void* gamma, const void* g, const void* t, const void* u, const void* y,
-    const void* h, const void* o, const void* pooled, const void* att, void* dx, void* dn1w, void* dn1b, void* dw1,
-    void* db1, void* dwdw, void* dbdw, void* dwsca, void* dbsca, void* dw3, void* db3, void* dbeta, void* dn2w,
-    void* dn2b, void* dw4, void* db4, void* dw5, void* db5, void* dgamma, void* ws, int B, int H, int W, int C,
-    float eps, void* stream) {
+template <typename T>
+int naf_block_bwd_entry(NAF_BWD_ARGS) {
+  auto p = [](const void* v) { return static_cast<const T*>(v); };
   auto f = [](const void* v) { return static_cast<const float*>(v); };
-  auto m = [](void* v) { return static_cast<float*>(v); };
-  const Grads gr{m(dx), m(dn1w), m(dn1b), m(dw1), m(db1), m(dwdw), m(dbdw), m(dwsca), m(dbsca), m(dw3),
-                 m(db3), m(dbeta), m(dn2w), m(dn2b), m(dw4), m(db4), m(dw5), m(db5), m(dgamma)};
-  return naf_block_bwd(f(x), f(dz), f(n1w), f(n1b), f(w1), f(wdw), f(bdw), f(wsca), f(w3), f(beta), f(n2w), f(n2b),
-                       f(w4), f(w5), f(gamma), f(g), f(t), f(u), f(y), f(h), f(o), f(pooled), f(att), gr, m(ws), B,
-                       H, W, C, eps, static_cast<cudaStream_t>(stream));
+  constexpr bool f32 = sizeof(T) == sizeof(float);
+  const Plan pl = make_plan(B, H, W, C, !f32);
+  float* wsf = static_cast<float*>(ws);
+  void* outs[kParams] = {dn1w, dn1b, dw1, db1, dwdw, dbdw, dwsca, dbsca, dw3, db3, dbeta, dn2w, dn2b, dw4, db4,
+                         dw5, db5, dgamma};
+  long long len[kParams];
+  param_lengths(C, len);
+  float* g32[kParams];
+  for (int k = 0, off = 0; k < kParams; off += (int)len[k++])
+    g32[k] = f32 ? static_cast<float*>(outs[k]) : wsf + pl.stage + off;
+  const Grads gr{g32[0], g32[1], g32[2], g32[3], g32[4], g32[5], g32[6], g32[7], g32[8],
+                 g32[9], g32[10], g32[11], g32[12], g32[13], g32[14], g32[15], g32[16], g32[17]};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int err = naf_block_bwd<T>(p(x), p(dz), p(n1w), p(n1b), p(w1), p(wdw), p(bdw), p(wsca), p(w3), p(beta),
+                                   p(n2w), p(n2b), p(w4), p(w5), p(gamma), p(g), f(t), f(u), f(y), f(h), f(o),
+                                   f(pooled), f(att), static_cast<T*>(dx), gr, wsf, pl, eps, s);
+  if (err != cudaSuccess || f32) return err;
+  CastList<T> casts;
+  for (int k = 0; k < kParams; ++k) casts.add(g32[k], static_cast<T*>(outs[k]), len[k]);
+  return cast_all(casts, s);
 }
 
-extern "C" long long naf_block_bwd_workspace_floats(int B, int H, int W, int C) {
-  return (long long)make_plan(B, H, W, C).total;
+}  // namespace
+
+// Plain C entry points (loaded with ctypes).  Every pointer is a device pointer.
+// Inputs: x and dz (B, H, W, C), the 14 parameters the backward reads in
+// PyTorch's layout, and g, all in the I/O type (f32: float, bf16: bfloat16);
+// the forward's fp32 residuals t, u, y, h, o, pooled, att (see naf_block.cu).
+// Outputs in the I/O type: dx (B, H, W, C) and the 18 parameter gradients.
+// ws holds naf_block_bwd_workspace_floats(B, H, W, C, bf16) floats.  Returns
+// the first CUDA error, or 0.
+extern "C" int naf_block_bwd_f32(NAF_BWD_ARGS) {
+  return naf_block_bwd_entry<float>(x, dz, n1w, n1b, w1, wdw, bdw, wsca, w3, beta, n2w, n2b, w4, w5, gamma, g, t, u,
+                                    y, h, o, pooled, att, dx, dn1w, dn1b, dw1, db1, dwdw, dbdw, dwsca, dbsca, dw3, db3,
+                                    dbeta, dn2w, dn2b, dw4, db4, dw5, db5, dgamma, ws, B, H, W, C, eps, stream);
+}
+
+extern "C" int naf_block_bwd_bf16(NAF_BWD_ARGS) {
+  return naf_block_bwd_entry<__nv_bfloat16>(x, dz, n1w, n1b, w1, wdw, bdw, wsca, w3, beta, n2w, n2b, w4, w5, gamma, g,
+                                            t, u, y, h, o, pooled, att, dx, dn1w, dn1b, dw1, db1, dwdw, dbdw, dwsca,
+                                            dbsca, dw3, db3, dbeta, dn2w, dn2b, dw4, db4, dw5, db5, dgamma, ws, B, H, W,
+                                            C, eps, stream);
+}
+
+extern "C" long long naf_block_bwd_workspace_floats(int B, int H, int W, int C, int bf16) {
+  return (long long)make_plan(B, H, W, C, bf16 != 0).total;
 }

@@ -120,9 +120,10 @@ class BaseModel:
         raise NotImplementedError(f"optimizer {optim_type} is not supported yet.")
 
     def _check_train_options(self) -> None:
-        """Options of dcpt_tpu's training that the port does not have yet raise."""
+        """Options of dcpt_tpu's training that the port does not have yet raise
+        (``mixed_precision`` is the model's own to check: ``DCPTModel``)."""
         train_opt = self.opt.get("train") or {}
-        for key in ("mixed_precision", "batched_trunk", "zero_sharding"):
+        for key in ("batched_trunk", "zero_sharding"):
             if train_opt.get(key):
                 raise NotImplementedError(f"train.{key} is not ported to dcpt_tpu_torch yet (ROADMAP Q1)")
         if int(train_opt.get("accumulate_steps", 1) or 1) > 1:

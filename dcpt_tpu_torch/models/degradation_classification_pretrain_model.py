@@ -15,12 +15,26 @@ On the card every NAFBlock's forward is kernel K1 and its backward K2, every
 Restormer / PromptIR TransformerBlock's forward K6 and its backward K7, and the
 classifier's LayerNorms of 512 channels and more are K3.  A probe level that
 no tap reaches (Restormer's yml gives its four levels three taps) gets no
-gradient, and AdamW leaves it as it is.  dcpt_tpu's
-``mixed_precision``, ``batched_trunk``, ``accumulate_steps`` and
-``zero_sharding`` are not ported yet and raise.
+gradient, and AdamW leaves it as it is.
+
+``train.mixed_precision`` is dcpt_tpu's recipe (its
+``degradation_classification_pretrain_model.py:89-92``), not autocast: both
+nets run on bf16 copies of their fp32 parameters (``p.to(torch.bfloat16)``
+through ``torch.func.functional_call``, so the gradients flow back through the
+cast into the fp32 masters), on bf16 ``lq`` and ``gt``; the pixel loss is taken
+on ``output.float()`` against the fp32 ``gt`` and the cross-entropy on
+``logits.float()``; the clip, the optimizers, the schedules and the checkpoints
+stay on the fp32 masters.  On the card the NAFBlocks run K1 and K2 in bf16 and
+the classifier's wide LayerNorms K3 in bf16.  Only NAFNet has the bf16 kernels
+it needs; Restormer, PromptIR and SwinIR raise (ROADMAP Q1 #2: bf16 K7, K9).
+dcpt_tpu's ``batched_trunk``, ``accumulate_steps`` and ``zero_sharding`` are
+not ported yet and raise.
 """
 
 from __future__ import annotations
+
+import torch
+from torch.func import functional_call
 
 from ..losses import build_loss
 from ..utils.registry import MODEL_REGISTRY
@@ -33,9 +47,18 @@ class DCPTModel(DCModel):
     # what the pixel-loss forward consumes: the clean gt for DCPT (...pretrain:140)
     _pixel_input = "gt"
 
+    # the restoration nets whose blocks have bf16 kernels for the backward
+    MIXED_PRECISION_ARCHS = ("NAFNetBaseline",)
+
     def init_training_settings(self) -> None:
         self._check_train_options()
         train_opt = self.opt["train"]
+        self.mixed_precision = bool(train_opt.get("mixed_precision", False))
+        arch = self.opt["network_g"]["type"]
+        if self.mixed_precision and arch not in self.MIXED_PRECISION_ARCHS:
+            raise NotImplementedError(
+                f"train.mixed_precision with {arch} is not ported to dcpt_tpu_torch yet: its blocks' backward "
+                "kernels take float32 only (ROADMAP Q1 #2: bf16 K7 for Restormer and PromptIR, bf16 K9 for SwinIR)")
         self.net_g.train()
         self.net_dc.train()
         self.cri_pixel = build_loss(train_opt["pixel_opt"]) if train_opt.get("pixel_opt") else None
@@ -60,17 +83,32 @@ class DCPTModel(DCModel):
         parameter's ``.grad``; returns the losses."""
         for optimizer in self.optimizers:
             optimizer.zero_grad(set_to_none=True)
+        net_g, net_dc, lq, gt = self._step_nets()
         losses = {}
         total = 0.0
         if self.cri_pixel is not None:
-            output, _ = self.net_g(self.gt if self._pixel_input == "gt" else self.lq)
+            output, _ = net_g(gt if self._pixel_input == "gt" else lq)
             losses["l_pix"] = self.cri_pixel(output.float(), self.gt)
             total = total + losses["l_pix"]
-        _, taps = self.net_g(self.lq, skip_tail=True)
-        logits = self.net_dc(self.lq, select_taps(taps, self.hook_names)[::-1])
+        _, taps = net_g(lq, skip_tail=True)
+        logits = net_dc(lq, select_taps(taps, self.hook_names)[::-1])
         losses["l_classify"] = self.cri_classify(logits.float(), self.dataset_idx)
         (total + losses["l_classify"]).backward()
         return losses
+
+    def _step_nets(self):
+        """(net_g, net_dc, lq, gt) as the step calls them: the modules and the
+        batch as they are, or under mixed precision the modules on bf16 copies
+        of their fp32 parameters and the batch in bf16."""
+        if not self.mixed_precision:
+            return self.net_g, self.net_dc, self.lq, self.gt
+
+        def bf16_call(net):
+            params = {name: p.to(torch.bfloat16) for name, p in net.named_parameters()}
+            return lambda *args, **kwargs: functional_call(net, params, args, kwargs)
+
+        gt = self.gt.to(torch.bfloat16) if self.gt is not None else None
+        return bf16_call(self.net_g), bf16_call(self.net_dc), self.lq.to(torch.bfloat16), gt
 
     def optimize_parameters(self, current_iter: int) -> None:
         losses = self.compute_gradients()

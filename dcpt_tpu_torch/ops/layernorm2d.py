@@ -8,7 +8,9 @@ biased variance, with the analytic backward
 
 * ``layer_norm_2d_ref`` / ``layer_norm_2d_bwd_ref``: plain PyTorch.
 * ``layer_norm_2d``: on a CUDA tensor the kernels of ``csrc/layernorm2d.cu``
-  (fp32), or it raises; on a CPU tensor the plain versions.  Under autograd it
+  (fp32 or bf16 I/O, fp32 statistics), or it raises; on a CPU tensor the plain
+  versions.  In bf16 the residuals y and 1/sigma stay fp32 and the weight
+  gradients are summed in fp32, each cast once to its primal's dtype.  Under autograd it
   runs as ``LayerNorm2dFunction``, whose forward saves y and 1/sigma; without
   a gradient the forward writes only the output, as dcpt_tpu's primal call.
   ``layer_norm_2d.launches`` and ``layer_norm_2d.bwd_launches`` count the
@@ -25,21 +27,33 @@ import torch
 from .cuda_build import load_library
 
 
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """t in fp32, or as it is when already fp32 or wider."""
+    return t if t.dtype in (torch.float32, torch.float64) else t.float()
+
+
 def layer_norm_2d_ref(x: torch.Tensor, weight, bias, eps: float = 1e-6):
-    """(out, y, rsigma) of the LayerNorm over the last axis, plain PyTorch."""
-    mu = x.mean(-1, keepdim=True)
-    var = ((x - mu) ** 2).mean(-1, keepdim=True)
+    """(out, y, rsigma) of the LayerNorm over the last axis, plain PyTorch: the
+    math in fp32 (or wider), out in x's dtype, y and rsigma in fp32 (or wider)."""
+    xf = _wide(x)
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
     rsig = torch.rsqrt(var + eps)
-    y = (x - mu) * rsig
-    return y * weight + bias, y, rsig
+    y = (xf - mu) * rsig
+    return (y * _wide(weight) + _wide(bias)).to(x.dtype), y, rsig
 
 
 def layer_norm_2d_bwd_ref(g: torch.Tensor, y, rsig, weight):
-    """(gx, gw, gb) from the forward's y and rsigma, plain PyTorch."""
-    gw_ = g * weight
+    """(gx, gw, gb) from the forward's y and rsigma, plain PyTorch: the math in
+    fp32 (or wider), gx in g's dtype, gw and gb in weight's."""
+    gf = _wide(g)
+    gw_ = gf * _wide(weight)
     gx = rsig * (gw_ - y * (gw_ * y).mean(-1, keepdim=True) - gw_.mean(-1, keepdim=True))
     dims = tuple(range(g.dim() - 1))
-    return gx, (g * y).sum(dims), g.sum(dims)
+    return gx.to(g.dtype), (gf * y).sum(dims).to(weight.dtype), gf.sum(dims).to(weight.dtype)
+
+
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 @functools.cache
@@ -49,12 +63,13 @@ def _lib() -> ctypes.CDLL:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C entry points of a build of ``csrc/layernorm2d.cu``."""
-    lib.ln_fwd_f32.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p]
-    lib.ln_bwd_f32.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    for suffix in _SUFFIX.values():
+        fwd, bwd = getattr(lib, "ln_fwd_" + suffix), getattr(lib, "ln_bwd_" + suffix)
+        fwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p]
+        bwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        fwd.restype = bwd.restype = ctypes.c_int
     lib.ln_bwd_workspace_floats.argtypes = [ctypes.c_int] * 2
     lib.ln_bwd_workspace_floats.restype = ctypes.c_longlong
-    for fn in (lib.ln_fwd_f32, lib.ln_bwd_f32):
-        fn.restype = ctypes.c_int
     return lib
 
 
@@ -62,9 +77,11 @@ def _check(x, weight, bias) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"layer_norm_2d: no kernel for device {x.device}")
     c = x.shape[-1]
-    for name, t in (("x", x), ("weight", weight), ("bias", bias)):
-        if t.dtype != torch.float32 or t.device != x.device:
-            raise TypeError(f"layer_norm_2d: the kernel takes float32 on one device, {name} is {t.dtype} on {t.device}")
+    if x.dtype not in _SUFFIX:
+        raise TypeError(f"layer_norm_2d: the kernel takes float32 or bfloat16, got {x.dtype}")
+    for name, t in (("weight", weight), ("bias", bias)):
+        if t.dtype != x.dtype or t.device != x.device:
+            raise TypeError(f"layer_norm_2d: {name} is {t.dtype} on {t.device}, x is {x.dtype} on {x.device}")
     if tuple(weight.shape) != (c,) or tuple(bias.shape) != (c,):
         raise ValueError(f"layer_norm_2d: weight and bias must be ({c},), got {tuple(weight.shape)}, {tuple(bias.shape)}")
 
@@ -78,11 +95,11 @@ def _launch_fwd(lib, x, weight, bias, eps: float, stream: int, residuals: bool):
     c = x.shape[-1]
     x2 = x.contiguous().view(-1, c)
     out = torch.empty_like(x2)
-    y = torch.empty_like(x2) if residuals else None
+    y = torch.empty(x2.shape, dtype=torch.float32, device=x.device) if residuals else None
     rsig = torch.empty(x2.shape[0], dtype=torch.float32, device=x.device) if residuals else None
-    err = lib.ln_fwd_f32(x2.data_ptr(), weight.contiguous().data_ptr(), bias.contiguous().data_ptr(), out.data_ptr(),
-                         y.data_ptr() if residuals else None, rsig.data_ptr() if residuals else None,
-                         x2.shape[0], c, eps, stream)
+    fwd = getattr(lib, "ln_fwd_" + _SUFFIX[x.dtype])
+    err = fwd(x2.data_ptr(), weight.contiguous().data_ptr(), bias.contiguous().data_ptr(), out.data_ptr(),
+              y.data_ptr() if residuals else None, rsig.data_ptr() if residuals else None, x2.shape[0], c, eps, stream)
     if err != 0:
         raise RuntimeError(f"layer_norm_2d forward kernel launch failed with CUDA error {err}")
     out = out.view(x.shape)
@@ -90,16 +107,17 @@ def _launch_fwd(lib, x, weight, bias, eps: float, stream: int, residuals: bool):
 
 
 def _launch_bwd(lib, g, y, rsig, weight, stream: int):
-    """(gx, gw, gb); g (..., C), y (rows, C), rsig (rows,)."""
+    """(gx, gw, gb) in weight's dtype; g (..., C), y (rows, C) and rsig (rows,) fp32."""
     c = g.shape[-1]
-    g2 = g.contiguous().view(-1, c)
+    g2 = g.to(weight.dtype).contiguous().view(-1, c)
     rows = g2.shape[0]
     gx = torch.empty_like(g2)
-    gw = torch.empty(c, dtype=torch.float32, device=g.device)
+    gw = torch.empty(c, dtype=weight.dtype, device=g.device)
     gb = torch.empty_like(gw)
     ws = torch.empty(lib.ln_bwd_workspace_floats(rows, c), dtype=torch.float32, device=g.device)
-    err = lib.ln_bwd_f32(g2.data_ptr(), y.data_ptr(), rsig.data_ptr(), weight.contiguous().data_ptr(), gx.data_ptr(),
-                         gw.data_ptr(), gb.data_ptr(), ws.data_ptr(), rows, c, stream)
+    bwd = getattr(lib, "ln_bwd_" + _SUFFIX[weight.dtype])
+    err = bwd(g2.data_ptr(), y.data_ptr(), rsig.data_ptr(), weight.contiguous().data_ptr(), gx.data_ptr(),
+              gw.data_ptr(), gb.data_ptr(), ws.data_ptr(), rows, c, stream)
     if err != 0:
         raise RuntimeError(f"layer_norm_2d backward kernel launch failed with CUDA error {err}")
     return gx.view(g.shape), gw, gb

@@ -18,8 +18,10 @@ block runs as ``NAFBlockFunction``, the counterpart of dcpt_tpu's
 ``pooled`` / ``att`` (and on the card the maps the backward reads, see
 ``csrc/naf_block_bwd.cu``), its backward returns the 19 cotangents from
 kernel K2 (``ops/naf_block_bwd.py``).  On a CPU tensor the same Function runs
-the plain forward and K2's plain version.  Training in bf16 through the
-kernels is not ported yet and raises.
+the plain forward and K2's plain version.  In bf16 (mixed-precision training)
+the Function is K1 in bf16 forward and K2 in bf16 backward, as dcpt_tpu under
+``DCPT_TPU_NAF_BLOCK=1 DCPT_TPU_NAF_BWD=1``: K1 keeps g in bf16 and its other
+residuals in fp32, and K2 does its math in fp32.
 """
 
 from __future__ import annotations
@@ -73,7 +75,11 @@ _ENTRY = {torch.float32: "naf_block_fwd_f32", torch.bfloat16: "naf_block_fwd_bf1
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = load_library("naf_block", ["naf_block.cu"])
+    return _bind(load_library("naf_block", ["naf_block.cu"]))
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points of a build of ``csrc/naf_block.cu``."""
     for name in _ENTRY.values():
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * 30 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
@@ -116,7 +122,8 @@ def _launch(lib, x, params, eps: float, stream: int, residuals: bool = False):
     """Allocate the output and scratch and run the kernel's C entry on ``stream``.
 
     Returns z, or with ``residuals`` (z, res): res = (g, t, u, y, h, o,
-    pooled, att), the fp32 maps the backward kernel reads."""
+    pooled, att), the maps the backward kernel reads (g in x's dtype, the
+    others fp32)."""
     b, h, w, c = x.shape
     weights = torch_layout(params)
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -152,7 +159,7 @@ def _kernel_forward(x, params, eps: float, residuals: bool = False):
 
 
 class NAFBlockFunction(torch.autograd.Function):
-    """The NAFBlock with its analytic backward (dcpt_tpu's ``custom_vjp``, fp32).
+    """The NAFBlock with its analytic backward (dcpt_tpu's ``custom_vjp``), fp32 or bf16.
 
     ``apply(x, eps, *params)``; on the card the forward is K1 writing its
     residuals and the backward K2, on the CPU both are the plain versions."""
@@ -192,10 +199,6 @@ def naf_block_fused(x, n1w, n1b, w1, b1, wdw, bdw, wsca, bsca, w3, b3, beta,
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"naf_block_fused: no kernel for device {x.device}")
     if _needs_grad(x, params):
-        if x.device.type == "cuda" and x.dtype != torch.float32:
-            raise NotImplementedError(
-                f"naf_block_fused: training in {x.dtype} through the NAFBlock kernels (mixed precision with "
-                "bf16 K1/K2) is not ported yet (ROADMAP Q1, deferred from slice 2); train in float32")
         return NAFBlockFunction.apply(x, eps, *params)
     if x.device.type == "cpu":
         return naf_block_ref(x, *params, eps)

@@ -8,8 +8,9 @@ cotangents of ``naf_block_ref`` given the upstream ``dz``, in the op's layouts
   the kernels use (dcpt_tpu's B1 stage-2 backward, host SCA step, B2 prefix
   backward), not as autograd of the twin.
 * ``naf_block_bwd``: on a CUDA tensor it launches ``csrc/naf_block_bwd.cu``
-  (fp32) with the forward's residuals ``res`` = (g, t, u, y, h, o) that K1
-  wrote, or raises; on a CPU tensor it returns ``naf_block_bwd_ref`` (which
+  (fp32 or bf16 I/O, fp32 math) with the forward's residuals ``res`` =
+  (g, t, u, y, h, o) that K1 wrote (g in the I/O type, the others fp32), or
+  raises; on a CPU tensor it returns ``naf_block_bwd_ref`` (which
   needs no residuals beyond pooled and att).  ``naf_block_bwd.launches``
   counts the calls that launched the kernel.
 """
@@ -46,7 +47,17 @@ def _wsum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def naf_block_bwd_ref(x, n1w, n1b, w1, b1, wdw, bdw, wsca, bsca, w3, b3, beta,
                       n2w, n2b, w4, b4, w5, b5, gamma, pooled, att, dz, eps: float = 1e-6):
-    """All 19 cotangents of naf_block_ref in fp32 (dcpt_tpu's naf_block_bwd, plain)."""
+    """All 19 cotangents of naf_block_ref (dcpt_tpu's naf_block_bwd, plain): the
+    math in fp32 (float64 stays float64), each cotangent in its primal's dtype."""
+    primals = (x, n1w, n1b, w1, b1, wdw, bdw, wsca, bsca, w3, b3, beta, n2w, n2b, w4, b4, w5, b5, gamma)
+    if x.dtype != torch.float64:
+        grads = _bwd_math(*(t.float() for t in (*primals, pooled, att, dz)), eps)
+        return tuple(gr.to(p.dtype) for gr, p in zip(grads, primals))
+    return _bwd_math(*primals, pooled, att, dz, eps)
+
+
+def _bwd_math(x, n1w, n1b, w1, b1, wdw, bdw, wsca, bsca, w3, b3, beta,
+              n2w, n2b, w4, b4, w5, b5, gamma, pooled, att, dz, eps: float):
     _, h, w, c = x.shape
     sums = (0, 1, 2)
     # B1: recompute the prefix and stage 2, then the stage-2 backward
@@ -103,26 +114,36 @@ def naf_block_bwd_ref(x, n1w, n1b, w1, b1, wdw, bdw, wsca, bsca, w3, b3, beta,
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = load_library("naf_block_bwd", ["naf_block_bwd.cu"])
-    lib.naf_block_bwd_f32.argtypes = [ctypes.c_void_p] * 43 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
-    lib.naf_block_bwd_f32.restype = ctypes.c_int
-    lib.naf_block_bwd_workspace_floats.argtypes = [ctypes.c_int] * 4
+    return _bind(load_library("naf_block_bwd", ["naf_block_bwd.cu"]))
+
+
+_ENTRY = {torch.float32: "naf_block_bwd_f32", torch.bfloat16: "naf_block_bwd_bf16"}
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points of a build of ``csrc/naf_block_bwd.cu``."""
+    for name in _ENTRY.values():
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 43 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.naf_block_bwd_workspace_floats.argtypes = [ctypes.c_int] * 5
     lib.naf_block_bwd_workspace_floats.restype = ctypes.c_longlong
     return lib
 
 
 def _check(x, params, maps) -> None:
     check_forward(x, params)
-    if x.dtype != torch.float32:
-        raise TypeError(f"naf_block_bwd: the kernel takes float32, got {x.dtype}")
     b, h, w, c = x.shape
     shapes = [(b, h, w, c)] * 2 + [(b, h, w, c), (b, h, w, 2 * c), (b, h, w, c), (b, h, w, c), (b, h, w, 2 * c),
                                    (b, h, w, c), (b, c), (b, c)]
     names = ["x", "dz", "g", "t", "u", "y", "h", "o", "pooled", "att"]
     for name, m, shape in zip(names, maps, shapes):
-        if tuple(m.shape) != shape or m.dtype != torch.float32 or m.device != x.device:
-            raise ValueError(f"naf_block_bwd: {name} is {tuple(m.shape)} {m.dtype} on {m.device}, "
-                             f"the kernel takes {shape} float32 on {x.device}")
+        dtype = x.dtype if name in ("x", "dz", "g") else torch.float32
+        if tuple(m.shape) != shape:
+            raise ValueError(f"naf_block_bwd: {name} is {tuple(m.shape)}, the kernel takes {shape}")
+        if m.dtype != dtype or m.device != x.device:
+            raise TypeError(f"naf_block_bwd: {name} is {m.dtype} on {m.device}, the kernel takes {dtype} on "
+                            f"{x.device} (x, dz and g in x's dtype, the other residuals fp32)")
 
 
 def _launch(lib, x, params, pooled, att, dz, res, eps: float, stream: int):
@@ -131,20 +152,21 @@ def _launch(lib, x, params, pooled, att, dz, res, eps: float, stream: int):
     b, h, w, c = x.shape
     (n1w, n1b, w1, _, wdw, bdw, wsca, _, w3, _, beta, n2w, n2b, w4, _, w5, _, gamma) = torch_layout(params)
     maps = [t.contiguous() for t in (x, dz, *res, pooled, att)]
-    f32 = dict(dtype=torch.float32, device=x.device)
-    # PyTorch's layouts: 1x1 weights (out, in), the depthwise weight (3, 3, 2C)
-    grads = [torch.empty((b, h, w, c), **f32), torch.empty(c, **f32), torch.empty(c, **f32),
-             torch.empty((2 * c, c), **f32), torch.empty(2 * c, **f32), torch.empty((3, 3, 2 * c), **f32),
-             torch.empty(2 * c, **f32), torch.empty((c, c), **f32), torch.empty(c, **f32), torch.empty((c, c), **f32),
-             torch.empty(c, **f32), torch.empty(c, **f32), torch.empty(c, **f32), torch.empty(c, **f32),
-             torch.empty((2 * c, c), **f32), torch.empty(2 * c, **f32), torch.empty((c, c), **f32),
-             torch.empty(c, **f32), torch.empty(c, **f32)]
-    ws = torch.empty(lib.naf_block_bwd_workspace_floats(b, h, w, c), **f32)
+    io = dict(dtype=x.dtype, device=x.device)
+    # in the I/O type, PyTorch's layouts: 1x1 weights (out, in), the depthwise weight (3, 3, 2C)
+    grads = [torch.empty((b, h, w, c), **io), torch.empty(c, **io), torch.empty(c, **io),
+             torch.empty((2 * c, c), **io), torch.empty(2 * c, **io), torch.empty((3, 3, 2 * c), **io),
+             torch.empty(2 * c, **io), torch.empty((c, c), **io), torch.empty(c, **io), torch.empty((c, c), **io),
+             torch.empty(c, **io), torch.empty(c, **io), torch.empty(c, **io), torch.empty(c, **io),
+             torch.empty((2 * c, c), **io), torch.empty(2 * c, **io), torch.empty((c, c), **io),
+             torch.empty(c, **io), torch.empty(c, **io)]
+    ws = torch.empty(lib.naf_block_bwd_workspace_floats(b, h, w, c, int(x.dtype == torch.bfloat16)),
+                     dtype=torch.float32, device=x.device)
     weights = [n1w, n1b, w1, wdw, bdw, wsca, w3, beta, n2w, n2b, w4, w5, gamma]
     x_, dz_, *maps_rest = maps
-    err = lib.naf_block_bwd_f32(x_.data_ptr(), dz_.data_ptr(), *(t.data_ptr() for t in weights),
-                                *(t.data_ptr() for t in maps_rest), *(t.data_ptr() for t in grads), ws.data_ptr(),
-                                b, h, w, c, eps, stream)
+    err = getattr(lib, _ENTRY[x.dtype])(x_.data_ptr(), dz_.data_ptr(), *(t.data_ptr() for t in weights),
+                                        *(t.data_ptr() for t in maps_rest), *(t.data_ptr() for t in grads),
+                                        ws.data_ptr(), b, h, w, c, eps, stream)
     if err != 0:
         raise RuntimeError(f"naf_block_bwd kernel launch failed with CUDA error {err}")
     # back to the op's layouts: every 1x1 weight gradient (in, out)

@@ -11,6 +11,8 @@ import logging
 import os
 import os.path as osp
 
+import torch
+
 from dcpt_tpu_torch.data import build_dataloader, build_dataset
 from dcpt_tpu_torch.models import build_model
 from dcpt_tpu_torch.utils.logger import get_env_info, get_root_logger
@@ -20,6 +22,8 @@ from dcpt_tpu_torch.utils.options import dict2str, parse_options
 
 def test_pipeline(root_path: str, args=None) -> dict:
     """Evaluate every dataset of the yml; returns ``{dataset name: {metric: value}}``."""
+    # cuDNN times its convolution algorithms for each new shape, as the reference does (basicsr/test.py:21)
+    torch.backends.cudnn.benchmark = True
     opt, _ = parse_options(root_path, is_train=False, args=args)
 
     make_exp_dirs(opt)

@@ -96,6 +96,8 @@ def load_resume_state(opt: dict):
 
 def train_pipeline(root_path: str, args=None):
     """Train as the yml says; returns the model."""
+    # cuDNN times its convolution algorithms for each new shape, as the reference's entry points do
+    torch.backends.cudnn.benchmark = True
     opt, parsed_args = parse_options(root_path, is_train=True, args=args)
     opt["root_path"] = root_path
     use_tb = opt["logger"].get("use_tb_logger")

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1, K2, K3, K6, K7, K8, K9, K10) against their plain versions, on the card.
+"""The port's CUDA kernels (K1-K10) against their plain versions, on the card.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU: a CUDA
 kernel has no CPU mode.  The file imports neither JAX nor dcpt_tpu, so it runs
@@ -25,6 +25,8 @@ from dcpt_tpu_torch.ops import mdta_block as tmb
 from dcpt_tpu_torch.ops import mdta_block_bwd as tmbb
 from dcpt_tpu_torch.ops import naf_block as tnb
 from dcpt_tpu_torch.ops import naf_block_bwd as tnbb
+from dcpt_tpu_torch.ops import naf_ffn as tnff
+from dcpt_tpu_torch.ops import naf_prefix as tnpf
 from dcpt_tpu_torch.ops import swin_block_bwd as tsbb
 from dcpt_tpu_torch.ops import window_attention as twa
 
@@ -167,21 +169,25 @@ def test_k2_is_deterministic(cuda):
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
-@pytest.mark.parametrize("rows,c", [(8192, 512), (2048, 1024), (512, 512), (37, 640)])
-def test_k3_matches_plain(cuda, rows, c):
-    """K3 forward and backward against the plain versions, fp32, within 1e-4
-    relative to max(1, max|ref|)."""
+@pytest.mark.parametrize("rows,c,dtype,tol", [(8192, 512, torch.float32, 1e-4), (2048, 1024, torch.float32, 1e-4),
+                                              (512, 512, torch.float32, 1e-4), (37, 640, torch.float32, 1e-4),
+                                              (8192, 512, torch.bfloat16, 2e-2), (37, 640, torch.bfloat16, 2e-2)])
+def test_k3_matches_plain(cuda, rows, c, dtype, tol):
+    """K3 forward and backward against the plain versions within ``tol`` relative
+    to max(1, max|ref|); in bf16 the outputs and gradients are bf16, y and
+    1/sigma fp32."""
     gen = torch.Generator().manual_seed(rows + c)
-    x = (torch.randn(rows, c, generator=gen) * 3 + 1).to(cuda)
-    w, b = torch.randn(c, generator=gen).to(cuda), torch.randn(c, generator=gen).to(cuda)
-    g = torch.randn(rows, c, generator=gen).to(cuda)
+    x = (torch.randn(rows, c, generator=gen) * 3 + 1).to(cuda, dtype)
+    w, b = torch.randn(c, generator=gen).to(cuda, dtype), torch.randn(c, generator=gen).to(cuda, dtype)
+    g = torch.randn(rows, c, generator=gen).to(cuda, dtype)
     out, y, rsig = tln._launch_fwd(tln._lib(), x, w, b, 1e-6, tln._stream(), residuals=True)
     gx, gw, gb = tln._launch_bwd(tln._lib(), g, y, rsig, w, tln._stream())
     ref_out, ref_y, ref_rsig = tln.layer_norm_2d_ref(x, w, b, 1e-6)
     ref_gx, ref_gw, ref_gb = tln.layer_norm_2d_bwd_ref(g, ref_y, ref_rsig, w)
     torch.cuda.synchronize()
+    assert {t.dtype for t in (out, gx, gw, gb)} == {dtype} and y.dtype == torch.float32
     for a, r in [(out, ref_out), (y, ref_y), (gx, ref_gx), (gw, ref_gw), (gb, ref_gb)]:
-        assert _rel(a, r) <= 1e-4, _rel(a, r)
+        assert _rel(a.float(), r.float()) <= tol, _rel(a.float(), r.float())
 
 
 def test_k3_function_counts_launches(cuda):
@@ -216,11 +222,59 @@ def test_network_gradients_match_plain_path(cuda):
         assert err <= 1e-3, (n, err)
 
 
-def test_bf16_training_raises(cuda):
-    x, params = _block_inputs(1, 8, 8, 64, seed=0, device=cuda, dtype=torch.bfloat16)
-    x.requires_grad_()
-    with pytest.raises(NotImplementedError, match="mixed precision"):
-        tnb.naf_block_fused(x, *params)
+@pytest.mark.parametrize("shape", [(2, 16, 16, 64), (2, 5, 11, 512), (1, 1, 1, 1024)])
+def test_bf16_block_trains_through_k1_and_k2(cuda, shape):
+    """A bf16 NAFBlock under autograd is NAFBlockFunction: K1 in bf16 forward, K2 in
+    bf16 backward; every cotangent bf16 and within 2e-2 of max(1, max|ref|) of the
+    plain backward (fp32 math on the same bf16 inputs); K2 twice gives equal bits."""
+    x, params = _block_inputs(*shape, seed=9, device=cuda, dtype=torch.bfloat16)
+    leaves = [t.clone().requires_grad_() for t in (x, *params)]
+    dz = torch.randn(shape, generator=torch.Generator().manual_seed(10)).to(cuda, torch.bfloat16)
+    before = (tnb.naf_block_fused.launches, tnbb.naf_block_bwd.launches)
+    z = tnb.naf_block_fused(*leaves)
+    z.backward(dz)
+    assert (tnb.naf_block_fused.launches, tnbb.naf_block_bwd.launches) == (before[0] + 1, before[1] + 1)
+    _, (*maps, pooled, att) = tnb._kernel_forward(x, params, 1e-6, residuals=True)
+    ref = tnbb.naf_block_bwd_ref(x, *params, pooled, att, dz)
+    again = tnbb.naf_block_bwd(x, *params, pooled, att, dz, maps)
+    torch.cuda.synchronize()
+    for i, (leaf, r, a) in enumerate(zip(leaves, ref, again)):
+        assert leaf.grad.dtype == torch.bfloat16 and torch.equal(leaf.grad, a), i
+        assert _rel(leaf.grad.float(), r.float()) <= 2e-2, (i, _rel(leaf.grad.float(), r.float()))
+
+
+# (B, H, W) at the c = 512 stage: a 128 x 128 input's 16 x 16 at the eval's B = 1 and the train
+# yml's B = 8, and a ragged 120 x 72 image's 15 x 9
+@pytest.mark.parametrize("b,h,w", [(1, 16, 16), (8, 16, 16), (1, 15, 9)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_k4_k5_match_plain(cuda, b, h, w, dtype, tol):
+    """K4 (naf_prefix) and K5 (naf_ffn) against their plain versions in fp32 on the
+    same rounded inputs, within ``tol`` relative to max(1, max|ref|); each launch
+    counted, and each twice with equal bits."""
+    x, p = _block_inputs(b, h, w, 512, seed=h + w, device=cuda, dtype=dtype)
+    xf, pf = x.float(), [t.float() for t in p]
+    before = (tnpf.naf_prefix.launches, tnff.naf_ffn.launches)
+    g, z = tnpf.naf_prefix(x, *p[:6]), tnff.naf_ffn(x, *p[11:])
+    assert (tnpf.naf_prefix.launches, tnff.naf_ffn.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(g, tnpf.naf_prefix(x, *p[:6])) and torch.equal(z, tnff.naf_ffn(x, *p[11:]))
+    ref_g, ref_z = tnpf.naf_prefix_ref(xf, *pf[:6]), tnff.naf_ffn_ref(xf, *pf[11:])
+    torch.cuda.synchronize()
+    assert g.dtype == z.dtype == dtype and g.shape == ref_g.shape and z.shape == ref_z.shape
+    assert _rel(g.float(), ref_g) <= tol and _rel(z.float(), ref_z) <= tol
+
+
+def test_k4_k5_functions_train(cuda):
+    """Under autograd K4 and K5 run forward and the plain VJP backward."""
+    x, p = _block_inputs(2, 16, 16, 512, seed=1, device=cuda, dtype=torch.float32)
+    leaves = [t.clone().requires_grad_() for t in (x, *p)]
+    before = (tnpf.naf_prefix.launches, tnff.naf_ffn.launches)
+    (tnpf.naf_prefix(leaves[0], *leaves[1:7]).square().sum() + tnff.naf_ffn(leaves[0], *leaves[12:]).sum()).backward()
+    assert (tnpf.naf_prefix.launches, tnff.naf_ffn.launches) == (before[0] + 1, before[1] + 1)
+    refs = [t.clone().requires_grad_() for t in (x, *p)]
+    (tnpf.naf_prefix_ref(refs[0], *refs[1:7]).square().sum() + tnff.naf_ffn_ref(refs[0], *refs[12:]).sum()).backward()
+    for a, r in zip(leaves, refs):
+        if r.grad is not None:
+            assert _rel(a.grad, r.grad) <= 1e-4
 
 
 def _mdta_inputs(b, h, w, c, heads, seed, device, dtype):

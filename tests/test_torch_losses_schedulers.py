@@ -100,8 +100,7 @@ def test_adam_and_sgd_match_the_optax_chains():
 
 
 def test_unported_training_options_raise():
-    for key, value in (("mixed_precision", True), ("batched_trunk", True), ("zero_sharding", True),
-                       ("accumulate_steps", 4)):
+    for key, value in (("batched_trunk", True), ("zero_sharding", True), ("accumulate_steps", 4)):
         with pytest.raises(NotImplementedError, match=key):
             BaseModel({"num_gpu": 0, "train": {key: value}})._check_train_options()
 

@@ -87,7 +87,9 @@ def test_function_gradients_match_autograd_of_the_twin():
 
 
 def test_kernel_wrapper_checks_its_inputs():
-    """What the CUDA path refuses, checked before any launch: bf16, and residuals of the wrong shape."""
+    """What the CUDA path refuses, checked before any launch: residuals of the wrong
+    shape, and a dtype mix it does not take (bf16 x with fp32 dz and g); bf16 x,
+    dz, g and parameters with fp32 residuals are what a bf16 K1 writes, and pass."""
     x, params = block_inputs(1, 4, 6, 64)
     xt, pt = torch.from_numpy(x), [torch.from_numpy(p) for p in params]
     b, h, w, c = x.shape
@@ -98,3 +100,5 @@ def test_kernel_wrapper_checks_its_inputs():
         tnbb._check(xt, pt, good[:3] + [torch.zeros(b, h, w, c)] + good[4:])
     with pytest.raises(TypeError):
         tnbb._check(xt.bfloat16(), [p.bfloat16() for p in pt], good)
+    tnbb._check(xt.bfloat16(), [p.bfloat16() for p in pt], [xt.bfloat16(), xt.bfloat16(), maps[0].bfloat16(),
+                                                            *good[3:]])
