@@ -105,16 +105,35 @@ Phases, each of which raises on failure (exit code 1):
    run, a resume for 2 more with fp32 masters and moments; every K2 call of a
    batch-8 step against its plain version on that call's inputs; the ms per
    step and peak memory beside the plain bf16 path and the fp32 step; five
-   steps' losses from the same weights on one batch in bf16 and in fp32.
+   steps' losses from the same weights on one batch in bf16 and in fp32;
+20. kernels K7 and K9 in bf16 against their plain versions: K7 from bf16 K6's
+   fp32 residuals (held equal, bit for bit, to those of K6's fp32 entry on the
+   same values) at the shapes of [10] (B = 2 in both flavours, the noise
+   levels, B = 8 at the 128 x 128 stages) and a ragged map, K9 at the shapes
+   of [14]; twice for equal bits; ms per backward of the bf16 kernel beside
+   the fp32 kernel, the plain bf16 version and the bf16 bound, and bf16 K6 and
+   K8 per forward;
+21. the mixed-precision training paths of the Restormer, PromptIR and SwinIR
+   DCPT ymls with ``train:mixed_precision=true`` through ``train_pipeline`` at
+   full width, batch 8, gt_size 128 on the PNGs of [7]: per net 4 iterations
+   with a checkpoint, the launch counts of K6 / K7 / K3 (K8 / K9 / K3) per step
+   checked and no plain version run, a resume for 2 more with fp32 masters
+   and moments; every K7 (K9) call of a batch-8 step against its plain
+   version; the ms per step and peak memory beside the fp32 step and the
+   plain bf16 path; five steps' losses from the same weights on one batch in
+   bf16 and in fp32.
 
 The entry points turn cuDNN's algorithm timing on
 (``torch.backends.cudnn.benchmark``), as the reference's do; every phase from
-[4] on runs with it.
+[4] on runs with it.  [7] loads its batches with the yml's four loader
+workers; the training phases after it load in the process
+(``num_worker_per_gpu`` 0), which spares each ``train_pipeline`` run the
+workers' start.
 
 On the H100 machines torch.profiler at times stops recording device time for
 the rest of a process.  A phase whose profile records none then runs once more
-in a fresh process on the same card, as do the phases after it
-(``run_phase``); a profile there that records none fails the script.
+in a fresh process on the same card, as do the later phases that take a
+profile (``run_phase``); a profile there that records none fails the script.
 
 The line before the last is a JSON object with each kernel's launches, error,
 times and bound; the last line is ``{"ok": true, "device": {...}}``.  Without a
@@ -150,8 +169,10 @@ KERNELS = {
     "naf_prefix": ("dcpt_tpu_torch/csrc/naf_prefix.cu", "dcpt_tpu/ops/naf_prefix.py:147"),
     "naf_ffn": ("dcpt_tpu_torch/csrc/naf_ffn.cu", "dcpt_tpu/ops/naf_ffn.py:169"),
 }
-# the card's peaks (NVIDIA's H100 SXM data sheet): fp32 outside the tensor cores, HBM3
+# the card's peaks (NVIDIA's H100 SXM data sheet): fp32 outside the tensor cores, bf16 on
+# the tensor cores (dense), HBM3
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 # NAFNet-w64 (enc [1,1,1,28], middle 1, dec [1,1,1,1]) on a 128 x 128 input:
 # (C, H = W, NAFBlocks at that stage)
@@ -242,7 +263,6 @@ K45_C, K45_CASES, K45_PER_FORWARD = 512, [(1, 16, 16), (2, 16, 16), (8, 16, 16),
 # the DCPT_TPU_PALLAS=1 DCPT_TPU_NAF_BLOCK=0 eval: the module path, K4 and K5 at c = 512, K3 at the middle block
 PALLAS_ENV = {"DCPT_TPU_PALLAS": "1", "DCPT_TPU_NAF_BLOCK": "0"}
 K3_PER_FORWARD_MODULE = 2  # the c = 1024 middle block's two LayerNorm2d
-MIXED_TRAIN_ITERS = 4
 
 
 def card_line() -> str:
@@ -291,17 +311,19 @@ def k6_work(c: int, f: int, ch: int, pixels: int) -> tuple[float, float]:
     return pixels * (2 * (4 * c * c + 3 * f * c + 2 * c * ch) + 18 * (3 * c + 2 * f)), 4 * (2 * pixels * c + weights)
 
 
-def k7_work(c: int, f: int, ch: int, pixels: int, batch: int) -> tuple[float, float]:
+def k7_work(c: int, f: int, ch: int, pixels: int, batch: int, io: int = 4) -> tuple[float, float]:
     """(flops, bytes) of one K7 call: per pixel the products into pixel space and
     the weight gradients (6FC + 8C^2 multiply-adds), dattn's head blocks and the
     products with dgram and attn (4 C ch), and the depthwise backward's stencil
-    and tap sums on 3C + 2F channels; x, dz and the forward's maps (t, qkv, o, y,
-    u, g: 8C + 3F) read and dx written once a pixel; per image the Gram's head
-    blocks, attn and the norms read; the weights read and their gradients written once."""
+    and tap sums on 3C + 2F channels; x and dz read and dx written once a pixel
+    (``io`` bytes an element: 4 in fp32, 2 in bf16), the forward's fp32 maps (t,
+    qkv, o, y, u, g: 8C + 3F) read once a pixel; per image the Gram's head
+    blocks, attn and the norms read; the weights read and their gradients
+    written once (``io`` bytes an element)."""
     weights = 4 * c * c + 3 * f * c + 9 * (3 * c + 2 * f) + 4 * c + c // ch
     per_image = c * ch + c * c + 2 * c
     return (pixels * (2 * (6 * f * c + 8 * c * c + 4 * c * ch) + 36 * (3 * c + 2 * f)),
-            4 * (pixels * (11 * c + 3 * f) + batch * per_image + 2 * weights))
+            io * (3 * pixels * c + 2 * weights) + 4 * (pixels * (8 * c + 3 * f) + batch * per_image))
 
 
 def k8_work(c: int, hidden: int, tokens: int, pixels: int) -> tuple[float, float]:
@@ -319,15 +341,16 @@ def k10_work(c: int, tokens: int, pixels: int) -> tuple[float, float]:
     return pixels * 2 * (4 * c * c + 2 * tokens * c), 4 * (2 * pixels * c + 4 * c * c + 6 * c)
 
 
-def k9_work(c: int, hidden: int, tokens: int, pixels: int) -> tuple[float, float]:
+def k9_work(c: int, hidden: int, tokens: int, pixels: int, io: int = 4) -> tuple[float, float]:
     """(flops, bytes) of one K9 call: per pixel the recomputed forward up to fc1
     (4C^2 + C hidden + 2 N C multiply-adds: qkv, proj, fc1 and the attention; no
     fc2, whose output the backward does not read) and the backward: the products
     into token space (4C^2 + 2 C hidden), the weight gradients (the same) and
     the attention's dattn, dv, dq and dk (4 N C); x and dz read, dx written, the
-    weights read and their gradients written once."""
+    weights read and their gradients written once, ``io`` bytes an element (4 in
+    fp32, 2 in bf16)."""
     weights = 4 * c * c + 2 * c * hidden + 9 * c + hidden
-    return pixels * 2 * (12 * c * c + 5 * c * hidden + 6 * tokens * c), 4 * (3 * pixels * c + 2 * weights)
+    return pixels * 2 * (12 * c * c + 5 * c * hidden + 6 * tokens * c), io * (3 * pixels * c + 2 * weights)
 
 
 def k3_work(rows: int, c: int) -> tuple[float, float]:
@@ -352,11 +375,12 @@ def k5_work(c: int, rows: int) -> tuple[float, float]:
     return rows * 6 * c * c, 4 * (2 * rows * c + 3 * c * c + 6 * c)
 
 
-def bound(calls) -> tuple[float, str]:
+def bound(calls, peak_flops: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
     """The least time for calls = [(count, flops, bytes)], each call bound by the
-    larger of its operations over the fp32 peak and its bytes over the memory
-    rate; and which of the two bounds most of that time."""
-    ops = [n * f / PEAK_FP32_FLOPS * 1e3 for n, f, _ in calls]
+    larger of its operations over the peak of their type (fp32; ``PEAK_BF16_FLOPS``
+    for a bf16 function, whose products the tensor cores could take) and its
+    bytes over the memory rate; and which of the two bounds most of that time."""
+    ops = [n * f / peak_flops * 1e3 for n, f, _ in calls]
     mem = [n * b / PEAK_BYTES_PER_S * 1e3 for n, _, b in calls]
     total = sum(max(o, m) for o, m in zip(ops, mem))
     by_ops = sum(o for o, m in zip(ops, mem) if o >= m)
@@ -2030,103 +2054,288 @@ def _restore(model, snap):
         o.load_state_dict(sd)
 
 
-def run_mixed_training(force: list[str]) -> dict:
-    """The shipped NAFNet DCPT yml with ``train:mixed_precision=true`` through
-    train_pipeline at full width on the PNGs of [7]: launch counts per step (and
-    no plain version run), resume, every K2 call of a batch-8 step against its
-    plain version, the fp32 masters and moments; the ms per step and peak memory
-    beside the fp32 step and the plain bf16 path; a few iterations' losses from
-    the same weights on one batch in bf16 and in fp32."""
+MIXED_STEP_ITERS = 3  # timed steps of each path in the mixed-precision phases
+
+
+def _mixed_net(arch: str) -> dict:
+    """What a mixed-precision phase needs of a net: its train yml, the kernels a
+    step launches (fwd, bwd) and how often (the fp32 step's counts; K3 forward
+    and backward together), the plain versions that must not run, and its
+    blocks' autograd Function with the plain backward for ``check_bwd_in_step``."""
+    from dcpt_tpu_torch.ops import mdta_block as mb
+    from dcpt_tpu_torch.ops import mdta_block_bwd as mbb
+    from dcpt_tpu_torch.ops import naf_block as nb
+    from dcpt_tpu_torch.ops import naf_block_bwd as nbb
+    from dcpt_tpu_torch.ops import swin_block_bwd as sbb
+    from dcpt_tpu_torch.ops import window_attention as wa
+
+    if arch == "NAFNet":
+        return dict(yml=TRAIN_YML, kernels=(nb.naf_block_fused, nbb.naf_block_bwd),
+                    per_step={"naf_block_fused": K1_PER_STEP, "naf_block_bwd": K2_PER_STEP,
+                              "layer_norm_2d": 2 * K3_PER_STEP},
+                    plain=((nb, "_ref_forward"), (nbb, "naf_block_bwd_ref")), function=nb.NAFBlockFunction,
+                    ref=lambda x, s, dz, eps: nbb.naf_block_bwd_ref(x, *s[:18], s[18], s[19], dz, eps),
+                    check=dict(tensors=lambda g: (g[0], *g[2:]), config=lambda ctx: ctx.eps))
+    if arch == "SwinIR":
+        return dict(yml=SWIN_TRAIN_YML, kernels=(wa.fused_swin_block, sbb.swin_block_bwd), per_step=SWIN_PER_STEP,
+                    plain=((wa, "swin_block_map_ref"), (sbb, "swin_block_bwd_ref")), function=wa.SwinBlockFunction,
+                    ref=lambda x, s, dz, config: sbb.swin_block_bwd_ref(x, *s, dz, *config), check={})
+    return dict(yml=TRANSFORMER_TRAIN_YMLS[arch], kernels=(mb.mdta_block_fused, mbb.mdta_block_bwd),
+                per_step=TRANSFORMER_PER_STEP[arch], plain=((mb, "_ref_forward"), (mbb, "mdta_block_bwd_ref")),
+                function=mb.MDTABlockFunction,
+                ref=lambda x, s, dz, config: mbb.mdta_block_bwd_ref(x, *s[:11], *s[11:15], dz, *config), check={})
+
+
+def run_mixed_training(force: list[str], archs: list[str], label: str) -> dict:
+    """Each net's DCPT yml with ``train:mixed_precision=true`` through train_pipeline
+    at full width, batch 8, on the PNGs of [7]: 4 iterations with a checkpoint,
+    the launch counts per step checked and no plain version run, a resume for 2
+    more with fp32 masters and moments; every backward of its blocks in a
+    batch-8 mixed step against its plain version on that call's inputs; the ms
+    per step and peak memory beside the fp32 step and the plain bf16 path (at
+    the largest batch that path fits); five steps' losses from the same weights
+    on one batch in bf16 and in fp32."""
+    import gc
     import shutil
 
     import numpy as np
     import torch
 
     from dcpt_tpu_torch.ops import layernorm2d as ln
-    from dcpt_tpu_torch.ops import naf_block as nb
-    from dcpt_tpu_torch.ops import naf_block_bwd as nbb
     from dcpt_tpu_torch.train import train_pipeline
+    from dcpt_tpu_torch.utils.options import yaml_load
 
-    work = ROOT / "build" / "chip_smoke_train_mixed"
-    shutil.rmtree(work, ignore_errors=True)
-    args = ["-opt", str(TRAIN_YML), "--force_yml", *force, "datasets:train:datasets:d3_dehaze:suffix=.png",
-            "logger:use_tb_logger=false", "logger:print_freq=1", f"logger:save_checkpoint_freq={TRAIN_ITERS}",
-            f"train:scheduler:periods=[{TRAIN_ITERS + RESUME_ITERS}]", "train:mixed_precision=true"]
-    plain_calls = {"naf_block": 0, "naf_block_bwd": 0, "layer_norm_2d": 0}
+    out = {}
+    for arch in archs:
+        net = _mixed_net(arch)
+        yml, (fwd, bwd) = net["yml"], net["kernels"]
+        work = ROOT / "build" / f"chip_smoke_train_mixed_{arch}"
+        shutil.rmtree(work, ignore_errors=True)
+        args = ["-opt", str(yml), "--force_yml", *force, "datasets:train:datasets:d3_dehaze:suffix=.png",
+                "logger:use_tb_logger=false", "logger:print_freq=1", f"logger:save_checkpoint_freq={TRAIN_ITERS}",
+                f"train:scheduler:periods=[{TRAIN_ITERS + RESUME_ITERS}]", "train:mixed_precision=true"]
+        plain_calls = {"block": 0, "block_bwd": 0, "layer_norm_2d": 0}
 
-    def counted(key, fn):
-        def wrapper(*a, **k):
-            plain_calls[key] += 1
-            return fn(*a, **k)
-        return wrapper
+        def counted(key, fn):
+            def wrapper(*a, **k):
+                plain_calls[key] += 1
+                return fn(*a, **k)
+            return wrapper
 
-    nb.naf_block_fused.launches = nbb.naf_block_bwd.launches = ln.layer_norm_2d.launches = 0
-    ln.layer_norm_2d.bwd_launches = 0
-    t0 = time.perf_counter()
-    with mock.patch.object(nb, "_ref_forward", counted("naf_block", nb._ref_forward)), \
-            mock.patch.object(nbb, "naf_block_bwd_ref", counted("naf_block_bwd", nbb.naf_block_bwd_ref)), \
-            mock.patch.object(ln, "layer_norm_2d_ref", counted("layer_norm_2d", ln.layer_norm_2d_ref)):
-        model = train_pipeline(str(work), args=args + [f"train:total_iter={TRAIN_ITERS}"])
-        torch.cuda.synchronize()
-    launches = {"naf_block_fused": nb.naf_block_fused.launches, "naf_block_bwd": nbb.naf_block_bwd.launches,
-                "layer_norm_2d": ln.layer_norm_2d.launches + ln.layer_norm_2d.bwd_launches}
-    print(f"[19] train_pipeline on {TRAIN_YML.name} with train:mixed_precision=true, {TRAIN_ITERS} iterations at "
-          f"batch 8, gt_size 128: {time.perf_counter() - t0:.1f} s; launches {launches}, plain versions run "
-          f"{plain_calls}; losses {dict(model.log_dict)}", flush=True)
-    want = {"naf_block_fused": K1_PER_STEP * TRAIN_ITERS, "naf_block_bwd": K2_PER_STEP * TRAIN_ITERS,
-            "layer_norm_2d": 2 * K3_PER_STEP * TRAIN_ITERS}
-    if launches != want or any(plain_calls.values()):
-        raise RuntimeError(f"[19] launches {launches} (expected {want}), plain versions run {plain_calls}")
-    if not all(np.isfinite(v) for v in model.log_dict.values()) or set(model.log_dict) != {"l_pix", "l_classify"}:
-        raise RuntimeError(f"[19] bad losses {model.log_dict}")
-    del model
+        fwd.launches = bwd.launches = ln.layer_norm_2d.launches = ln.layer_norm_2d.bwd_launches = 0
+        t0 = time.perf_counter()
+        (fmod, fname), (bmod, bname) = net["plain"]
+        with mock.patch.object(fmod, fname, counted("block", getattr(fmod, fname))), \
+                mock.patch.object(bmod, bname, counted("block_bwd", getattr(bmod, bname))), \
+                mock.patch.object(ln, "layer_norm_2d_ref", counted("layer_norm_2d", ln.layer_norm_2d_ref)):
+            model = train_pipeline(str(work), args=args + [f"train:total_iter={TRAIN_ITERS}"])
+            torch.cuda.synchronize()
+        launches = {fwd.__name__: fwd.launches, bwd.__name__: bwd.launches,
+                    "layer_norm_2d": ln.layer_norm_2d.launches + ln.layer_norm_2d.bwd_launches}
+        print(f"{label} train_pipeline on {yml.name} with train:mixed_precision=true, {TRAIN_ITERS} iterations at batch "
+              f"8, gt_size 128: {time.perf_counter() - t0:.1f} s; launches {launches}, plain versions run "
+              f"{plain_calls}; losses {dict(model.log_dict)}", flush=True)
+        want = {k: n * TRAIN_ITERS for k, n in net["per_step"].items()}
+        if launches != want or any(plain_calls.values()):
+            raise RuntimeError(f"{label} {arch}: launches {launches} (expected {want}), plain versions run "
+                               f"{plain_calls}")
+        if not all(np.isfinite(v) for v in model.log_dict.values()) or set(model.log_dict) != {"l_pix", "l_classify"}:
+            raise RuntimeError(f"{label} {arch}: bad losses {model.log_dict}")
+        models_dir = work / "experiments" / yaml_load(str(yml))["name"] / "models"
+        if not (models_dir / f"net_g_{TRAIN_ITERS}.pth").exists():
+            raise RuntimeError(f"{label} {arch}: no checkpoint at iteration {TRAIN_ITERS} in {models_dir}")
+        del model
 
-    resumed = train_pipeline(str(work), args=["--auto_resume", *args, f"train:total_iter={TRAIN_ITERS + RESUME_ITERS}"])
-    steps = resumed.optimizer_g.state_dict()["state"][0]["step"].item()
-    dtypes = {p.dtype for net in (resumed.net_g, resumed.net_dc) for p in net.parameters()}
-    dtypes |= {v.dtype for o in resumed.optimizers for st in o.state.values() for k, v in st.items()
-               if k.startswith("exp_avg")}
-    print(f"[19] resumed from iteration {TRAIN_ITERS} for {RESUME_ITERS} more: optimizer at step {steps:.0f}, masters "
-          f"and AdamW moments {sorted(str(d) for d in dtypes)}, losses {dict(resumed.log_dict)}", flush=True)
-    if steps != TRAIN_ITERS + RESUME_ITERS or dtypes != {torch.float32} or not resumed.mixed_precision:
-        raise RuntimeError(f"[19] resume: optimizer step {steps}, dtypes {dtypes}")
+        resumed = train_pipeline(str(work), args=["--auto_resume", *args,
+                                                  f"train:total_iter={TRAIN_ITERS + RESUME_ITERS}"])
+        steps = resumed.optimizer_g.state_dict()["state"][0]["step"].item()
+        dtypes = {p.dtype for n in (resumed.net_g, resumed.net_dc) for p in n.parameters()}
+        dtypes |= {v.dtype for o in resumed.optimizers for st in o.state.values() for k, v in st.items()
+                   if k.startswith("exp_avg")}
+        print(f"{label} {arch} resumed from iteration {TRAIN_ITERS} for {RESUME_ITERS} more: optimizer at step "
+              f"{steps:.0f}, masters and AdamW moments {sorted(str(d) for d in dtypes)}, losses "
+              f"{dict(resumed.log_dict)}", flush=True)
+        if steps != TRAIN_ITERS + RESUME_ITERS or dtypes != {torch.float32} or not resumed.mixed_precision:
+            raise RuntimeError(f"{label} {arch} resume: optimizer step {steps}, dtypes {dtypes}")
 
-    bwd_worst = check_bwd_in_step(resumed, "[19] bf16", nb.NAFBlockFunction,
-                                  lambda x, s, dz, eps: nbb.naf_block_bwd_ref(x, *s[:18], s[18], s[19], dz, eps),
-                                  TOL["bfloat16"], K2_PER_STEP, tensors=lambda g: (g[0], *g[2:]),
-                                  config=lambda ctx: ctx.eps)
-    torch.cuda.empty_cache()
-    resumed.feed_data(grad_batch(8))
-    step_ms, peak = ms_per_step(resumed, 5)
-    with plain_path():
-        plain_ms, plain_peak = ms_per_step(resumed, 3)
-    resumed.mixed_precision = False
-    fp32_ms, fp32_peak = ms_per_step(resumed, 5)
-    resumed.mixed_precision = True
-    print(f"[19] DCPT step at batch 8, 128 x 128: bf16 through K1 / K2 / K3 {step_ms:.2f} ms/step (peak {peak:.0f} "
-          f"MiB), the plain bf16 path {plain_ms:.2f} ms/step (peak {plain_peak:.0f} MiB), fp32 through the kernels "
-          f"{fp32_ms:.2f} ms/step (peak {fp32_peak:.0f} MiB)", flush=True)
-
-    snap = _snapshot(resumed)
-    curves = {}
-    for mode in ("bf16", "fp32"):
-        _restore(resumed, snap)
-        resumed.mixed_precision = mode == "bf16"
+        torch.cuda.empty_cache()
+        bwd_worst = check_bwd_in_step(resumed, f"{label} {arch} bf16", net["function"], net["ref"], TOL["bfloat16"],
+                                      net["per_step"][bwd.__name__], **net["check"])
+        torch.cuda.empty_cache()
         resumed.feed_data(grad_batch(8))
-        curve = []
-        for _ in range(5):
-            resumed.optimize_parameters(0)
-            curve.append(dict(resumed.log_dict))
-        curves[mode] = curve
-    resumed.mixed_precision = True
-    spread = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(curves["bf16"], curves["fp32"]) for k in b)
-    print(f"[19] five steps on one batch of 8 from the same weights: bf16 {curves['bf16']}; fp32 {curves['fp32']}; "
-          f"largest relative loss difference {spread:.3e}", flush=True)
-    if not all(np.isfinite(v) for c in curves.values() for d in c for v in d.values()):
-        raise RuntimeError(f"[19] non-finite losses {curves}")
-    return {"launches": launches, "step_ms": step_ms, "peak_mib": peak, "plain_step_ms": plain_ms,
-            "plain_peak_mib": plain_peak, "fp32_step_ms": fp32_ms, "fp32_peak_mib": fp32_peak, "curves": curves,
-            "loss_spread": spread, "bwd_worst": bwd_worst}
+        step_ms, peak = ms_per_step(resumed, MIXED_STEP_ITERS)
+        resumed.mixed_precision = False
+        fp32_ms, fp32_peak = ms_per_step(resumed, MIXED_STEP_ITERS)
+        resumed.mixed_precision = True
+        torch.cuda.empty_cache()
+        rates = {}
+        for plain_batch in (8, 4, 2):
+            resumed.feed_data(grad_batch(plain_batch))
+            try:
+                if plain_batch < 8:
+                    rates["kernel"] = list(ms_per_step(resumed, MIXED_STEP_ITERS))
+                with plain_path():
+                    rates["plain"] = list(ms_per_step(resumed, 2))
+                break
+            except torch.cuda.OutOfMemoryError as e:
+                print(f"{label} {arch} plain bf16 path at batch {plain_batch}: {str(e).splitlines()[0]}", flush=True)
+            # the failed step's graph stays referenced from the exception's frames until a collection
+            gc.collect()
+            resumed.optimizer_g.zero_grad(set_to_none=True)
+            resumed.optimizer_dc.zero_grad(set_to_none=True)
+            torch.cuda.empty_cache()
+        print(f"{label} {arch} DCPT step at batch 8, 128 x 128: bf16 through the kernels {step_ms:.2f} ms/step (peak "
+              f"{peak:.0f} MiB), fp32 through the kernels {fp32_ms:.2f} ms/step (peak {fp32_peak:.0f} MiB); at batch "
+              f"{plain_batch}: " + (f"bf16 kernels {rates['kernel'][0]:.2f} ms/step (peak {rates['kernel'][1]:.0f} "
+                                    f"MiB), " if "kernel" in rates else "")
+              + f"the plain bf16 path {rates['plain'][0]:.2f} ms/step (peak {rates['plain'][1]:.0f} MiB)", flush=True)
+
+        torch.cuda.empty_cache()
+        snap = _snapshot(resumed)
+        curves = {}
+        for mode in ("bf16", "fp32"):
+            _restore(resumed, snap)
+            resumed.mixed_precision = mode == "bf16"
+            resumed.feed_data(grad_batch(8))
+            curve = []
+            for _ in range(5):
+                resumed.optimize_parameters(0)
+                curve.append(dict(resumed.log_dict))
+            curves[mode] = curve
+        resumed.mixed_precision = True
+        spread = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(curves["bf16"], curves["fp32"]) for k in b)
+        print(f"{label} {arch} five steps on one batch of 8 from the same weights: bf16 {curves['bf16']}; fp32 "
+              f"{curves['fp32']}; largest relative loss difference {spread:.3e}", flush=True)
+        if not all(np.isfinite(v) for c in curves.values() for d in c for v in d.values()):
+            raise RuntimeError(f"{label} {arch}: non-finite losses {curves}")
+        out[arch] = {"launches": launches, "step_ms": step_ms, "peak_mib": peak, "fp32_step_ms": fp32_ms,
+                     "fp32_peak_mib": fp32_peak, "plain_batch": plain_batch, "rates": rates, "curves": curves,
+                     "loss_spread": spread, "bwd_worst": bwd_worst}
+        del resumed, snap
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _rel_errs(got, ref) -> list[float]:
+    """Each tensor's max-abs error relative to max(1, max|ref|), in fp32."""
+    return [(a.float() - r.float()).abs().max().item() / max(1.0, r.float().abs().max().item()) for a, r in zip(got, ref)]
+
+
+def check_bf16_k7_k9() -> dict:
+    """K7 and K9 in bf16 against their plain versions (fp32 math on the same bf16
+    inputs, each cotangent cast to its primal's dtype), each call twice for
+    equal bits: K7 from bf16 K6's fp32 residuals (checked equal, bit for bit, to
+    those K6's fp32 entry writes for the same values) at the stage shapes of [10]
+    (B = 2, both flavours; PromptIR's noise levels; B = 8 at the 128 x 128
+    stages) and a ragged map, K9 at the shapes of [14] (its ragged 120 x 72
+    grid among them).  CUDA-event ms per Restormer / PromptIR / SwinIR backward
+    at B = 2 of the bf16 kernel, the fp32 kernel and the plain bf16 version;
+    the bf16 bound (bytes at 2 an element, products at the bf16 tensor-core
+    peak); and K6 (with its residuals) and K8 per forward at B = 2 in bf16 and
+    fp32, the forwards a training step differentiates."""
+    import torch
+
+    from dcpt_tpu_torch.ops import mdta_block as mb
+    from dcpt_tpu_torch.ops import swin_block_bwd as sbb
+    from dcpt_tpu_torch.ops import window_attention as wa
+    from dcpt_tpu_torch.ops.mdta_block_bwd import mdta_block_bwd, mdta_block_bwd_ref
+
+    gen = torch.Generator().manual_seed(20)
+    tol, bf16 = TOL["bfloat16"], torch.bfloat16
+    names = {RESTORMER_FLAVOUR: "relu", PROMPTIR_FLAVOUR: "softmax"}
+    cases = [(2, s, s, c, heads, fl) for fl in names for c, s, heads in K6_BODY]
+    cases += [(2, s, s, c, heads, PROMPTIR_FLAVOUR) for c, s, heads in K6_NOISE]
+    cases += [(8, s, s, c, heads, fl) for c, s, heads in K7_BATCH8 for fl in names]
+    cases += [(2, *K7_RAGGED[0][:2], *K7_RAGGED[0][2:], RESTORMER_FLAVOUR)]
+    k7 = {"max_abs_err": 0.0}
+    times = {}
+    print(f"  K7 bf16: {'B':>2} {'C':>4} {'H':>4} {'W':>4} {'act':>7} {'rel':>10} {'bf16_ms':>10} {'fp32_ms':>10} "
+          f"{'plain_ms':>10} {'k6_bf16':>10} {'k6_fp32':>10}  (CUDA events, ms per call; k6: K6 with its residuals)")
+    for batch, h, w, c, heads, flavour in cases:
+        x = torch.randn(batch, h, w, c, generator=gen).to("cuda", bf16)
+        params = mdta_params(c, heads, gen, bf16, "cuda")
+        dz = torch.randn(x.shape, generator=gen).to("cuda", bf16)
+        xf, pf = x.float(), [t.float() for t in params]
+        _, res = mb._kernel_forward(x, params, heads, *flavour, residuals=True)
+        _, res32 = mb._kernel_forward(xf, pf, heads, *flavour, residuals=True)
+        got = mdta_block_bwd(x, *params, dz, res, heads, *flavour)
+        again = mdta_block_bwd(x, *params, dz, res, heads, *flavour)
+        ref = mdta_block_bwd_ref(x, *params, *res[:4], dz, heads, *flavour)
+        torch.cuda.synchronize()
+        key = f"K7 bf16 B={batch} C={c} {h}x{w} {names[flavour]}"
+        if not all(r.dtype == torch.float32 and torch.equal(r, r32) for r, r32 in zip(res, res32)):
+            raise RuntimeError(f"{key}: bf16 K6's residuals differ from its fp32 entry's on the same values")
+        if not all(a.dtype == bf16 and torch.isfinite(a).all() and torch.equal(a, b) for a, b in zip(got, again)):
+            raise RuntimeError(f"{key}: not bf16, not finite, or two runs differ")
+        rels = _rel_errs(got, ref)
+        if max(rels) > tol:
+            raise RuntimeError(f"{key}: cotangent {rels.index(max(rels))} error {max(rels):.3e} above {tol:.0e}")
+        k7["max_abs_err"] = max(k7["max_abs_err"], max((a.float() - r.float()).abs().max().item()
+                                                       for a, r in zip(got, ref)))
+        dzf = dz.float()
+        ms = [cuda_ms(lambda: mdta_block_bwd(x, *params, dz, res, heads, *flavour), 5),
+              cuda_ms(lambda: mdta_block_bwd(xf, *pf, dzf, res32, heads, *flavour), 5),
+              cuda_ms(lambda: mdta_block_bwd_ref(x, *params, *res[:4], dz, heads, *flavour), 3),
+              cuda_ms(lambda: mb._kernel_forward(x, params, heads, *flavour, residuals=True), 5),
+              cuda_ms(lambda: mb._kernel_forward(xf, pf, heads, *flavour, residuals=True), 5)]
+        del got, again, ref, res32
+        print(f"           {batch:>2} {c:>4} {h:>4} {w:>4} {names[flavour]:>7} {max(rels):>10.3e} "
+              + " ".join(f"{v:>10.4f}" for v in ms), flush=True)
+        if batch == 2 and h == w:
+            times[(c, h, heads, flavour)] = ms
+    print("  K6 bf16 residuals equal to fp32 K6's; K7 bf16 twice on the same inputs: equal bit for bit at every "
+          "shape", flush=True)
+    per_net = {"Restormer": [(n, key, RESTORMER_FLAVOUR) for key, n in K6_BODY.items()],
+               "PromptIR": [(n, key, PROMPTIR_FLAVOUR) for key, n in [*K6_BODY.items(), *K6_NOISE.items()]]}
+    for net, blocks in per_net.items():
+        prefix = "" if net == "Restormer" else "promptir_"
+        for i, name in enumerate(("ms", "fp32_ms", "plain_ms", "k6_ms", "k6_fp32_ms")):
+            k7[prefix + name] = sum(n * times[(*key, fl)][i] for n, key, fl in blocks)
+        k7[prefix + "bound_ms"], k7[prefix + "bound_by"] = bound(
+            [(n, *k7_work(c, int(2.66 * c), c // heads, 2 * s * s, 2, io=2)) for n, (c, s, heads), _ in blocks],
+            PEAK_BF16_FLOPS)
+
+    k9 = {"max_abs_err": 0.0}
+    times = {}
+    heads, ws = SWIN_HEADS, SWIN_WS
+    print(f"  K9 bf16: {'B':>2} {'H':>4} {'W':>4} {'shift':>5} {'rel':>10} {'bf16_ms':>10} {'fp32_ms':>10} "
+          f"{'plain_ms':>10} {'k8_bf16':>10} {'k8_fp32':>10}  (CUDA events, ms per call)")
+    for b, h, w, shift in K9_CASES:
+        x = torch.randn(b, h, w, SWIN_C, generator=gen).to("cuda", bf16)
+        dz = torch.randn(b, h, w, SWIN_C, generator=gen).to("cuda", bf16)
+        p = swin_params(gen, bf16, "cuda")
+        xf, dzf, pf = x.float(), dz.float(), [t.float() for t in p]
+        got = sbb.swin_block_bwd(x, *p, dz, heads, ws, shift)
+        again = sbb.swin_block_bwd(x, *p, dz, heads, ws, shift)
+        ref = sbb.swin_block_bwd_ref(x, *p, dz, heads, ws, shift)
+        torch.cuda.synchronize()
+        key = f"K9 bf16 {b}x{h}x{w} shift {shift}"
+        if not all(a.dtype == bf16 and torch.isfinite(a).all() and torch.equal(a, g) for a, g in zip(got, again)):
+            raise RuntimeError(f"{key}: not bf16, not finite, or two runs differ")
+        rels = _rel_errs(got, ref)
+        if max(rels) > tol:
+            raise RuntimeError(f"{key}: cotangent {rels.index(max(rels))} error {max(rels):.3e} above {tol:.0e}")
+        k9["max_abs_err"] = max(k9["max_abs_err"], max((a.float() - r.float()).abs().max().item()
+                                                       for a, r in zip(got, ref)))
+        del got, again, ref
+        ms = [cuda_ms(lambda: sbb.swin_block_bwd(x, *p, dz, heads, ws, shift), 3),
+              cuda_ms(lambda: sbb.swin_block_bwd(xf, *pf, dzf, heads, ws, shift), 3),
+              cuda_ms(lambda: sbb.swin_block_bwd_ref(x, *p, dz, heads, ws, shift), 3),
+              cuda_ms(lambda: wa._kernel_block(x, p, heads, ws, shift, 1e-5), 5),
+              cuda_ms(lambda: wa._kernel_block(xf, pf, heads, ws, shift, 1e-5), 5)]
+        print(f"           {b:>2} {h:>4} {w:>4} {shift:>5} {max(rels):>10.3e} " + " ".join(f"{v:>10.4f}" for v in ms),
+              flush=True)
+        times[(b, h, w, shift)] = ms
+        torch.cuda.empty_cache()
+    print("  K9 bf16 twice on the same inputs: equal bit for bit at every shape", flush=True)
+    for i, name in enumerate(("ms", "fp32_ms", "plain_ms", "k8_ms", "k8_fp32_ms")):
+        k9[name] = SWIN_PER_FORWARD // 2 * (times[(2, 128, 128, 0)][i] + times[(2, 128, 128, 4)][i])
+    k9["bound_ms"], k9["bound_by"] = bound(
+        [(SWIN_PER_FORWARD, *k9_work(SWIN_C, SWIN_HIDDEN, ws * ws, 2 * 128 * 128, io=2))], PEAK_BF16_FLOPS)
+    b8 = times[(8, 128, 128, 4)]
+    k9.update(b8_ms=b8[0], b8_fp32_ms=b8[1], b8_plain_ms=b8[2])
+    return {"mdta_block_bwd": k7, "swin_block_bwd": k9}
 
 
 PHASE_RESULT = "CHIP_SMOKE_PHASE_RESULT "
@@ -2134,22 +2343,26 @@ PHASE_RESULT = "CHIP_SMOKE_PHASE_RESULT "
 _profiler_lost = False
 
 
-def run_phase(fn, *args, env: dict | None = None):
+def run_phase(fn, *args, env: dict | None = None, profiles: bool = True):
     """``fn(*args)``, a phase whose arguments and result are JSON.  If a profile
     of the phase records no device time, the phase runs once more in a fresh
     process on the same card, its output passed on, and so does every phase
-    after it; a profile there that records none fails the script.  With
-    ``env`` the phase runs in a fresh process with those variables set (the
-    port reads its routes' switches at import)."""
+    after it that ``profiles`` (one that takes no torch.profiler trace runs
+    here all the same); a profile there that records none fails the script.
+    With ``env`` the phase runs in a fresh process with those variables set
+    (the port reads its routes' switches at import)."""
     global _profiler_lost
     import gc
     import os
 
     import torch
 
-    if not _profiler_lost and env is None:
+    t0 = time.perf_counter()
+    if (not _profiler_lost or not profiles) and env is None:
         try:
-            return fn(*args)
+            result = fn(*args)
+            print(f"  ({fn.__name__}: {time.perf_counter() - t0:.1f} s)", flush=True)
+            return result
         except NoDeviceTime as e:
             print(f"  {e}: {fn.__name__} again in a fresh process", flush=True)
             _profiler_lost = True
@@ -2165,6 +2378,7 @@ def run_phase(fn, *args, env: dict | None = None):
             print(line, end="", flush=True)
     if proc.wait() != 0 or result is None:
         raise RuntimeError(f"{fn.__name__} failed in a fresh process (exit code {proc.returncode})")
+    print(f"  ({fn.__name__}, fresh process: {time.perf_counter() - t0:.1f} s)", flush=True)
     return result
 
 
@@ -2216,6 +2430,9 @@ def main() -> int:
           f"({k3['bound_by']})", flush=True)
 
     train = run_phase(run_training)
+    # [7] drives the yml's loader with its four spawned workers; the later training phases load
+    # in the process (each loader's workers take about 7 s to start, some 100 s over the script)
+    in_process = [*train["force"], "datasets:train:num_worker_per_gpu=0"]
 
     print("[8] K6 mdta_block_fused vs mdta_block_ref, B=1, TF32 off; limits 1e-4 (fp32), 2e-2 (bf16) relative to "
           "max(1, max|ref|)", flush=True)
@@ -2238,7 +2455,7 @@ def main() -> int:
               f"{k7[pre + 'plain_call_ms']:.3f} ms), bound {k7[pre + 'bound_ms']:.3f} ms ({k7[pre + 'bound_by']})",
               flush=True)
 
-    transformer_train = run_phase(run_transformer_training, train["force"])
+    transformer_train = run_phase(run_transformer_training, in_process)
 
     print(f"[12] K8 fused_swin_block vs swin_block_map_ref, K10 fused_window_attention(_ln) vs "
           f"window_attention_map_ref, C {SWIN_C}, {SWIN_HEADS} heads, ws {SWIN_WS}, TF32 off; limits 1e-4 (fp32), 2e-2 "
@@ -2265,11 +2482,11 @@ def main() -> int:
           f"{k9['b8_plain_ms']:.3f} ms, bound {k9['b8_bound_ms']:.3f} ms); library: none (no PyTorch call computes "
           f"the block's backward)", flush=True)
 
-    swin_train = run_phase(run_swinir_training, train["force"])
+    swin_train = run_phase(run_swinir_training, in_process)
 
     print(f"[16] K4 naf_prefix vs naf_prefix_ref and K5 naf_ffn vs naf_ffn_ref at C={K45_C}, TF32 off; limits 1e-4 "
           f"(fp32), 2e-2 (bf16) relative to max(1, max|ref|)", flush=True)
-    k45 = run_phase(check_k4_k5)
+    k45 = run_phase(check_k4_k5, profiles=False)
     for name in ("naf_prefix", "naf_ffn"):
         k = k45[name]
         print(f"[16] {name} per NAFNet-w64 forward (B=1, 128x128, {K45_PER_FORWARD} blocks at C={K45_C}): kernel "
@@ -2287,7 +2504,25 @@ def main() -> int:
           f"way): kernel {bf16['layer_norm_2d']['ms']:.3f} ms, plain {bf16['layer_norm_2d']['plain_ms']:.3f} ms, "
           f"F.layer_norm {bf16['layer_norm_2d']['library_ms']:.3f} ms", flush=True)
 
-    mixed = run_phase(run_mixed_training, train["force"])
+    mixed = run_phase(run_mixed_training, in_process, ["NAFNet"], "[19]", profiles=False)["NAFNet"]
+
+    print("[20] K7 mdta_block_bwd and K9 swin_block_bwd in bf16 vs their plain versions, limit 2e-2 relative to "
+          "max(1, max|ref|)", flush=True)
+    bwd16 = run_phase(check_bf16_k7_k9, profiles=False)
+    k7b, k9b = bwd16["mdta_block_bwd"], bwd16["swin_block_bwd"]
+    for net, pre, blocks in (("Restormer", "", 44), ("PromptIR", "promptir_", 47)):
+        print(f"[20] K7 bf16 per {net} backward (B=2, 128x128, {blocks} blocks): {k7b[pre + 'ms']:.3f} ms (fp32 K7 "
+              f"{k7b[pre + 'fp32_ms']:.3f} ms, plain bf16 {k7b[pre + 'plain_ms']:.3f} ms), bf16 bound "
+              f"{k7b[pre + 'bound_ms']:.3f} ms ({k7b[pre + 'bound_by']}); K6 with its residuals per forward: bf16 "
+              f"{k7b[pre + 'k6_ms']:.3f} ms, fp32 {k7b[pre + 'k6_fp32_ms']:.3f} ms", flush=True)
+    print(f"[20] K9 bf16 per SwinIR backward (B=2, 128x128, {SWIN_PER_FORWARD} blocks): {k9b['ms']:.3f} ms (fp32 K9 "
+          f"{k9b['fp32_ms']:.3f} ms, plain bf16 {k9b['plain_ms']:.3f} ms), bf16 bound {k9b['bound_ms']:.3f} ms "
+          f"({k9b['bound_by']}); one call at B=8: {k9b['b8_ms']:.3f} ms (fp32 {k9b['b8_fp32_ms']:.3f}, plain bf16 "
+          f"{k9b['b8_plain_ms']:.3f}); K8 per forward (B=2): bf16 {k9b['k8_ms']:.3f} ms, fp32 {k9b['k8_fp32_ms']:.3f} "
+          f"ms", flush=True)
+
+    mixed_tf = run_phase(run_mixed_training, in_process, ["Restormer", "PromptIR", "SwinIR"], "[21]",
+                         profiles=False)
 
     launches = dict(train["launches"], mdta_block_fused=k6_launches["Restormer"],
                     mdta_block_bwd=transformer_train["Restormer"]["launches"]["mdta_block_bwd"],
@@ -2325,6 +2560,14 @@ def main() -> int:
         entry.update(bf16_ms=b["ms"], bf16_plain_ms=b["plain_ms"], bf16_max_abs_err=b["max_abs_err"],
                      bf16_launches=mixed["launches"][name])
     kernels[2]["bf16_library_ms"] = bf16["layer_norm_2d"]["library_ms"]
+    for entry, name, arch in ((kernels[4], "mdta_block_bwd", "Restormer"), (kernels[7], "swin_block_bwd", "SwinIR")):
+        b = bwd16[name]
+        entry.update(bf16_ms=b["ms"], bf16_plain_ms=b["plain_ms"], bf16_max_abs_err=b["max_abs_err"],
+                     bf16_launches=mixed_tf[arch]["launches"][name], bf16_bound_ms=b["bound_ms"],
+                     bf16_bound_by=b["bound_by"], bf16_fp32_ms=b["fp32_ms"])
+    kernels[4].update(bf16_launches_promptir=mixed_tf["PromptIR"]["launches"]["mdta_block_bwd"],
+                      **{"bf16_" + k: v for k, v in bwd16["mdta_block_bwd"].items()
+                         if k.startswith("promptir_") and k != "promptir_bound_by"})
     for entry in kernels[8:10]:
         entry.update(launches_per_image=K45_PER_FORWARD, bf16_ms=k45[entry["name"]]["bf16_ms"],
                      bf16_plain_ms=k45[entry["name"]]["bf16_plain_ms"],

@@ -3,7 +3,7 @@
 Every TransformerBlock whose convs are bias-free (both shipped configs) runs as
 one call of ``ops.mdta_block.mdta_block_fused``: the hand-written CUDA kernel
 K6 on a CUDA tensor (fp32 or bf16), its plain version on a CPU tensor; under
-autograd its backward is kernel K7 (fp32).  A
+autograd its backward is kernel K7 (fp32 or bf16).  A
 config with ``bias: true`` runs the plain modules (``MDTA``, ``GDFN``), as
 dcpt_tpu does (its gate, ``restormer_arch.py:264-265``); the config decides,
 never a failure.  The blocks take their input as ``torch.channels_last``, so

@@ -46,18 +46,18 @@ __device__ __forceinline__ float dw3x3(const float* __restrict__ in, const T* __
 }
 
 // out[b][r'][c] = sum over r in [r' * kSumRows, (r' + 1) * kSumRows) of in[b][r][c],
-// in row order; a row of in is ld floats apart, a row of out Cn.  Owner is the
-// number of the kernel that calls it (K2, K3, K6, K7), so a profile tells their sums apart.
-template <int Owner>
+// in row order; a row of in is lda elements apart, a row of out Cn.  Owner is the
+// number of the kernel that calls it (K2, K3, K6, K7, K9), so a profile tells their sums apart.
+template <int Owner, typename TI = float>
 __global__ void __launch_bounds__(kThreads)
-colsum_kernel(const float* __restrict__ in, int R, int Cn, int ld, float* __restrict__ out) {
+colsum_kernel(const TI* __restrict__ in, int R, int Cn, int lda, float* __restrict__ out) {
   const int c = blockIdx.x * kThreads + threadIdx.x;
   if (c >= Cn) return;
   const int r0 = blockIdx.y * kSumRows, n = min(kSumRows, R - r0);
-  const float* src = in + ((size_t)blockIdx.z * R + r0) * ld + c;
+  const TI* src = in + ((size_t)blockIdx.z * R + r0) * lda + c;
   float s = 0.f;
 #pragma unroll 8
-  for (int r = 0; r < n; ++r) s += src[(size_t)r * ld];
+  for (int r = 0; r < n; ++r) s += ld(src[(size_t)r * lda]);
   out[((size_t)blockIdx.z * gridDim.y + blockIdx.y) * Cn + c] = s;
 }
 
@@ -66,21 +66,25 @@ inline size_t colsum_scratch(int batches, int R, int Cn) {
   return R <= kSumRows ? 0 : 2 * (size_t)batches * ((R + kSumRows - 1) / kSumRows) * Cn;
 }
 
-// out (batches, Cn) = sum over R of in (batches, R, ld), in passes of kSumRows-row
-// sums in a fixed order; scratch holds colsum_scratch(batches, R, Cn) floats.
-template <int Owner>
-inline cudaError_t colsum(const float* in, int batches, int R, int Cn, int ld, float* out, float* scratch,
+// out (batches, Cn) = sum over R of in (batches, R, lda), in passes of kSumRows-row
+// sums in a fixed order; scratch holds colsum_scratch(batches, R, Cn) floats.  in
+// is fp32 or the I/O type (its first pass reads it through ld()); the passes after
+// it read fp32 partials.
+template <int Owner, typename TI>
+inline cudaError_t colsum(const TI* in, int batches, int R, int Cn, int lda, float* out, float* scratch,
                           cudaStream_t stream) {
   float* bufs[2] = {scratch, scratch + (size_t)batches * ((R + kSumRows - 1) / kSumRows) * Cn};
-  for (int which = 0;; which ^= 1) {
-    const int rout = (R + kSumRows - 1) / kSumRows;
-    float* dst = rout == 1 ? out : bufs[which];
-    colsum_kernel<Owner><<<dim3((Cn + kThreads - 1) / kThreads, rout, batches), kThreads, 0, stream>>>(in, R, Cn, ld, dst);
+  int rout = (R + kSumRows - 1) / kSumRows;
+  float* dst = rout == 1 ? out : bufs[0];
+  colsum_kernel<Owner, TI><<<dim3((Cn + kThreads - 1) / kThreads, rout, batches), kThreads, 0, stream>>>(in, R, Cn, lda, dst);
+  for (int which = 1;; which ^= 1) {
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess || rout == 1) return err;
-    in = dst;
+    const float* next = dst;
     R = rout;
-    ld = Cn;
+    rout = (R + kSumRows - 1) / kSumRows;
+    dst = rout == 1 ? out : bufs[which];
+    colsum_kernel<Owner><<<dim3((Cn + kThreads - 1) / kThreads, rout, batches), kThreads, 0, stream>>>(next, R, Cn, Cn, dst);
   }
 }
 
@@ -118,5 +122,31 @@ inline cudaError_t cast_all(const CastList<T>& list, cudaStream_t stream) {
   cast_kernel<T><<<dim3((unsigned)(blocks < 1024 ? blocks : 1024), list.count), kThreads, 0, stream>>>(list);
   return cudaGetLastError();
 }
+
+// A backward kernel's N parameter gradients, of len[k] elements each, summed in
+// fp32 at g32[k]: the caller's outputs in an fp32 call; in a bf16 call
+// consecutive stretches of the fp32 staging at stage (the sum of the lengths, in
+// floats), which cast() stores into the caller's outputs in one launch.
+template <typename T, int N>
+struct StagedGrads {
+  static_assert(N <= kMaxCasts, "one CastList takes at most kMaxCasts buffers");
+  static constexpr bool f32 = sizeof(T) == sizeof(float);
+  float* g32[N];
+  void* out[N];
+  long long len[N];
+  StagedGrads(void* const (&outs)[N], const long long (&lens)[N], float* stage) {
+    for (int k = 0; k < N; stage += lens[k++]) {
+      out[k] = outs[k];
+      len[k] = lens[k];
+      g32[k] = f32 ? static_cast<float*>(outs[k]) : stage;
+    }
+  }
+  cudaError_t cast(cudaStream_t stream) const {
+    if (f32) return cudaSuccess;
+    CastList<T> casts;
+    for (int k = 0; k < N; ++k) casts.add(g32[k], static_cast<T*>(out[k]), len[k]);
+    return cast_all(casts, stream);
+  }
+};
 
 }  // namespace

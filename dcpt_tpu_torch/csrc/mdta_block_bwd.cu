@@ -1,5 +1,5 @@
 // Whole Restormer / PromptIR TransformerBlock backward on Hopper (sm_90a):
-// fp32 I/O, fp32 math.
+// fp32 or bf16 I/O, fp32 math.
 //
 // Replaces the TPU kernel dcpt_tpu/ops/mdta_block_bwd.py::mdta_block_bwd
 // (_b1_kernel, the host C-space step, _b2_kernel).  Given the upstream
@@ -52,6 +52,14 @@
 // Weights come in PyTorch's layout (every 1x1 as (out, in), the depthwise 3x3
 // as (D, 3, 3), temperature as (heads,)); the 1x1 gradients are written in
 // that layout, the depthwise gradients as (3, 3, D), contiguous.
+//
+// bf16 (mixed-precision training): x, dz and the 11 parameters are read in
+// bf16 through ld(); K6's maps (t, qkv, o, y, u, g) and statistics (the Gram's
+// head blocks, the norms, attn) stay fp32 as K6 wrote them, the values that
+// dcpt_tpu's kernel recomputes in fp32 from its bf16 x.  Every pass computes
+// and sums in fp32; dx is stored in bf16 by the LN1 backward, and the 11
+// parameter gradients are summed into fp32 staging in the workspace and cast
+// once, in one launch, to bf16 (CastList).
 
 #include <algorithm>
 
@@ -81,24 +89,24 @@ __device__ __forceinline__ void gate_bwd(float dg, const float* u, const TW* wdw
 }
 
 // G: dg = dz . Wout (Wout (C, F) read transposed), then the gate backward into dd (B, HW, 2F)
-template <int RM>
+template <typename T, int RM>
 __global__ void __launch_bounds__(kThreads)
-k7_gate_kernel(const float* __restrict__ dz, const float* __restrict__ wout, const float* __restrict__ u,
-               const float* __restrict__ wdwf, float* __restrict__ dd, int H, int W, int C, int F) {
+k7_gate_kernel(const T* __restrict__ dz, const T* __restrict__ wout, const float* __restrict__ u,
+               const T* __restrict__ wdwf, float* __restrict__ dd, int H, int W, int C, int F) {
   const int HW = H * W;
   GEMM_PROLOGUE
   (void)kGemmFloats;
-  const float* dzb = dz + ((size_t)b * HW + p0) * C;
+  const T* dzb = dz + ((size_t)b * HW + p0) * C;
   gemm_masked<RM, true>(smem, wout, F, F, n0, 0, C, [&](int p, int k) {
-    return p < np ? dzb[(size_t)p * C + k] : 0.f;
+    return p < np ? ld(dzb[(size_t)p * C + k]) : 0.f;
   }, acc);
   GEMM_EPILOGUE(F, gate_bwd(a, u, wdwf, dd, b, p0 + p, n, H, W, F);)
 }
 
 // P: out (B*HW, N) = lhs (B*HW, K) . w, w (K, N) row-major (a PyTorch (out, in) weight read transposed)
-template <int RM>
+template <typename TW, int RM>
 __global__ void __launch_bounds__(kThreads)
-k7_prod_kernel(const float* __restrict__ lhs, const float* __restrict__ w, float* __restrict__ out, int HW, int K,
+k7_prod_kernel(const float* __restrict__ lhs, const TW* __restrict__ w, float* __restrict__ out, int HW, int K,
                int N) {
   GEMM_PROLOGUE
   (void)kGemmFloats;
@@ -159,8 +167,9 @@ k7_dqkv_kernel(const float* __restrict__ qkv, const float* __restrict__ dout, co
 // DW: din = the transposed depthwise 3x3 of dout (zero outside the image), and
 // part (B * chunks, 9, D) the chunk's sums of dout * in at each tap; one thread
 // per channel over kTapPix pixels.  w (D, 3, 3).  grid (chunks, cols of kThreads, B).
+template <typename TW>
 __global__ void __launch_bounds__(kThreads)
-k7_dw_bwd_kernel(const float* __restrict__ dout, const float* __restrict__ in, const float* __restrict__ w,
+k7_dw_bwd_kernel(const float* __restrict__ dout, const float* __restrict__ in, const TW* __restrict__ w,
                  float* __restrict__ din, float* __restrict__ part, int H, int W, int D) {
   const int c = blockIdx.y * kThreads + threadIdx.x;
   if (c >= D) return;
@@ -170,7 +179,7 @@ k7_dw_bwd_kernel(const float* __restrict__ dout, const float* __restrict__ in, c
   float wt[9], tap[9];
 #pragma unroll
   for (int k = 0; k < 9; ++k) {
-    wt[k] = w[(size_t)c * 9 + k];
+    wt[k] = ld(w[(size_t)c * 9 + k]);
     tap[k] = 0.f;
   }
   for (int p = p0; p < pend; ++p) {
@@ -228,16 +237,17 @@ k7_dattn_kernel(const float* __restrict__ dout, const float* __restrict__ qkv, f
 //   dqn2 = -1/2 iq^3 rowsum(ds T G ik), dkn2 = -1/2 ik^3 colsum(ds T G iq)
 //   (zero where the clamp is active); pdtemp[b][h] = sum of ds n.
 // Rows one warp each, then columns one thread each, both in a fixed order.
+template <typename TW>
 __global__ void __launch_bounds__(kThreads)
 k7_cspace_kernel(const float* __restrict__ dattn, const float* __restrict__ attn, const float* __restrict__ gram,
-                 const float* __restrict__ qn2, const float* __restrict__ kn2, const float* __restrict__ temperature,
+                 const float* __restrict__ qn2, const float* __restrict__ kn2, const TW* __restrict__ temperature,
                  float* __restrict__ dgram, float* __restrict__ dqn2, float* __restrict__ dkn2,
                  float* __restrict__ pdtemp, int C, int ch, int use_softmax) {
   extern __shared__ float smem[];  // 3 x ch: each row's sum(dattn attn), its iq, its share of dtemp
   float *sDot = smem, *sIq = smem + ch, *sT = smem + 2 * ch;
   const int h = blockIdx.x, b = blockIdx.y, c0 = h * ch;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float temp = temperature[h];
+  const float temp = ld(temperature[h]);
   const float* da = dattn + (size_t)b * C * ch;
   const float* gr = gram + (size_t)b * C * ch;
   const float* at = attn + (size_t)b * C * C;
@@ -298,13 +308,24 @@ k7_cspace_kernel(const float* __restrict__ dattn, const float* __restrict__ attn
   }
 }
 
-// The workspace: the cotangent maps, the LN statistics, every partial sum and colsum's scratch.
+// The 11 parameter gradients' lengths in floats, in the entry's order (dn1w,
+// dn1b, dWqkv, dWdwq, dtemperature, dWproj, dn2w, dn2b, dWin, dWdwf, dWout).
+constexpr int kParams = 11;
+
+void param_lengths(int C, int F, int heads, long long* len) {
+  const long long c = C, f = F;
+  const long long l[kParams] = {c, c, 3 * c * c, 27 * c, heads, c * c, c, c, 2 * f * c, 18 * f, c * f};
+  for (int k = 0; k < kParams; ++k) len[k] = l[k];
+}
+
+// The workspace: the cotangent maps, the LN statistics, every partial sum,
+// colsum's scratch, and in a bf16 call the fp32 staging of the parameter gradients.
 struct Plan {
   int B, H, W, C, F, heads, ch, HW, npix, rm, nchunk, ntap, nrb;
-  size_t mx, my, dln, dy, dout, st2, st1, pdattn, dattn, dgram, dqn2, dkn2, pdtemp, prow, ptap, pw, sum, total;
+  size_t mx, my, dln, dy, dout, st2, st1, pdattn, dattn, dgram, dqn2, dkn2, pdtemp, prow, ptap, pw, sum, stage, total;
 };
 
-Plan make_plan(int B, int H, int W, int C, int F, int heads) {
+Plan make_plan(int B, int H, int W, int C, int F, int heads, bool bf16) {
   Plan pl;
   pl.B = B; pl.H = H; pl.W = W; pl.C = C; pl.F = F; pl.heads = heads;
   pl.ch = C / heads;
@@ -352,16 +373,24 @@ Plan make_plan(int B, int H, int W, int C, int F, int heads) {
   sum = std::max(sum, colsum_scratch(1, pl.nrb, C));
   sum = std::max(sum, colsum_scratch(1, B * pl.ntap, 9 * (int)wide));
   pl.sum = take(sum);
+  long long len[kParams], staged = 0;
+  param_lengths(C, F, heads, len);
+  for (long long l : len) staged += l;
+  pl.stage = take(bf16 ? (size_t)staged : 0);
   pl.total = off;
   return pl;
 }
 
+// dx in the I/O type, the parameter gradients in fp32 (the caller's, or the staging of a bf16 call)
+template <typename T>
 struct Grads {
-  float *dx, *dn1w, *dn1b, *dwqkv, *dwdwq, *dtemp, *dwproj, *dn2w, *dn2b, *dwin, *dwdwf, *dwout;
+  T* dx;
+  float *dn1w, *dn1b, *dwqkv, *dwdwq, *dtemp, *dwproj, *dn2w, *dn2b, *dwin, *dwdwf, *dwout;
 };
 
+template <typename T>
 struct Inputs {
-  const float *x, *dz, *n1w, *n1b, *wqkv, *wdwq, *temp, *wproj, *n2w, *n2b, *win, *wdwf, *wout;
+  const T *x, *dz, *n1w, *n1b, *wqkv, *wdwq, *temp, *wproj, *n2w, *n2b, *win, *wdwf, *wout;
   const float *t, *qkv, *o, *y, *u, *g, *gram, *qn2, *kn2, *attn;
 };
 
@@ -371,24 +400,24 @@ struct Inputs {
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
 // The pixel-space products at RM.
-template <int RM>
-cudaError_t launch_gate(const Plan& pl, float* ws, const Inputs& in, cudaStream_t stream) {
+template <typename T, int RM>
+cudaError_t launch_gate(const Plan& pl, float* ws, const Inputs<T>& in, cudaStream_t stream) {
   const int smem = gemm_smem_floats(RM) * (int)sizeof(float);
-  k7_gate_kernel<RM><<<dim3((pl.HW + 16 * RM - 1) / (16 * RM), (pl.F + kNB - 1) / kNB, pl.B), kThreads, smem, stream>>>(
-      in.dz, in.wout, in.u, in.wdwf, ws + pl.mx, pl.H, pl.W, pl.C, pl.F);
+  k7_gate_kernel<T, RM><<<dim3((pl.HW + 16 * RM - 1) / (16 * RM), (pl.F + kNB - 1) / kNB, pl.B), kThreads, smem,
+                          stream>>>(in.dz, in.wout, in.u, in.wdwf, ws + pl.mx, pl.H, pl.W, pl.C, pl.F);
   return cudaGetLastError();
 }
 
-template <int RM>
-cudaError_t launch_prod(const Plan& pl, const float* a, const float* w, float* out, int K, int N, cudaStream_t stream) {
+template <typename TW, int RM>
+cudaError_t launch_prod(const Plan& pl, const float* a, const TW* w, float* out, int K, int N, cudaStream_t stream) {
   const int smem = gemm_smem_floats(RM) * (int)sizeof(float);
-  k7_prod_kernel<RM><<<dim3((pl.HW + 16 * RM - 1) / (16 * RM), (N + kNB - 1) / kNB, pl.B), kThreads, smem, stream>>>(
-      a, w, out, pl.HW, K, N);
+  k7_prod_kernel<TW, RM><<<dim3((pl.HW + 16 * RM - 1) / (16 * RM), (N + kNB - 1) / kNB, pl.B), kThreads, smem,
+                           stream>>>(a, w, out, pl.HW, K, N);
   return cudaGetLastError();
 }
 
-template <int RM>
-cudaError_t launch_dqkv(const Plan& pl, float* ws, const Inputs& in, cudaStream_t stream) {
+template <typename T, int RM>
+cudaError_t launch_dqkv(const Plan& pl, float* ws, const Inputs<T>& in, cudaStream_t stream) {
   const int smem = gemm_smem_floats(RM) * (int)sizeof(float);
   k7_dqkv_kernel<RM><<<dim3((pl.HW + 16 * RM - 1) / (16 * RM), 3 * ((pl.C + kNB - 1) / kNB), pl.B), kThreads, smem,
                        stream>>>(in.qkv, ws + pl.dout, ws + pl.dgram, in.attn, ws + pl.dqn2, ws + pl.dkn2,
@@ -396,37 +425,42 @@ cudaError_t launch_dqkv(const Plan& pl, float* ws, const Inputs& in, cudaStream_
   return cudaGetLastError();
 }
 
-cudaError_t gate(const Plan& pl, float* ws, const Inputs& in, cudaStream_t s) {
-  return pl.rm == 4 ? launch_gate<4>(pl, ws, in, s) : pl.rm == 2 ? launch_gate<2>(pl, ws, in, s)
-                                                                 : launch_gate<1>(pl, ws, in, s);
+template <typename T>
+cudaError_t gate(const Plan& pl, float* ws, const Inputs<T>& in, cudaStream_t s) {
+  return pl.rm == 4 ? launch_gate<T, 4>(pl, ws, in, s) : pl.rm == 2 ? launch_gate<T, 2>(pl, ws, in, s)
+                                                                    : launch_gate<T, 1>(pl, ws, in, s);
 }
 
-cudaError_t prod(const Plan& pl, const float* a, const float* w, float* out, int K, int N, cudaStream_t s) {
-  return pl.rm == 4 ? launch_prod<4>(pl, a, w, out, K, N, s)
-                    : pl.rm == 2 ? launch_prod<2>(pl, a, w, out, K, N, s) : launch_prod<1>(pl, a, w, out, K, N, s);
+template <typename TW>
+cudaError_t prod(const Plan& pl, const float* a, const TW* w, float* out, int K, int N, cudaStream_t s) {
+  return pl.rm == 4 ? launch_prod<TW, 4>(pl, a, w, out, K, N, s)
+                    : pl.rm == 2 ? launch_prod<TW, 2>(pl, a, w, out, K, N, s) : launch_prod<TW, 1>(pl, a, w, out, K, N, s);
 }
 
-cudaError_t dqkv(const Plan& pl, float* ws, const Inputs& in, cudaStream_t s) {
-  return pl.rm == 4 ? launch_dqkv<4>(pl, ws, in, s) : pl.rm == 2 ? launch_dqkv<2>(pl, ws, in, s)
-                                                                 : launch_dqkv<1>(pl, ws, in, s);
+template <typename T>
+cudaError_t dqkv(const Plan& pl, float* ws, const Inputs<T>& in, cudaStream_t s) {
+  return pl.rm == 4 ? launch_dqkv<T, 4>(pl, ws, in, s) : pl.rm == 2 ? launch_dqkv<T, 2>(pl, ws, in, s)
+                                                                    : launch_dqkv<T, 1>(pl, ws, in, s);
 }
 
 // DW over D channels: din and the tap gradient (3, 3, D).
-cudaError_t dw_bwd(const Plan& pl, float* ws, const float* dout, const float* inp, const float* w, float* din,
+template <typename TW>
+cudaError_t dw_bwd(const Plan& pl, float* ws, const float* dout, const float* inp, const TW* w, float* din,
                    float* dw, int D, cudaStream_t stream) {
-  k7_dw_bwd_kernel<<<dim3(pl.ntap, (D + kThreads - 1) / kThreads, pl.B), kThreads, 0, stream>>>(
+  k7_dw_bwd_kernel<TW><<<dim3(pl.ntap, (D + kThreads - 1) / kThreads, pl.B), kThreads, 0, stream>>>(
       dout, inp, w, din, ws + pl.ptap, pl.H, pl.W, D);
   cudaError_t err;
   CHECK_LAUNCH();
   return colsum<7>(ws + pl.ptap, 1, pl.B * pl.ntap, 9 * D, 9 * D, dw, ws + pl.sum, stream);
 }
 
-// LN backward: out, stats, and the weight and bias gradients
-cudaError_t ln_bwd(const Plan& pl, float* ws, const float* v, const float* res, const float* w, float* out,
-                   float* stats, float* dw, float* db, float eps, int ln_bias, cudaStream_t stream) {
+// LN backward: out = res + the backward through LN(v), stats, and the weight and bias gradients
+template <typename TV, typename TR, typename TW, typename TO>
+cudaError_t ln_bwd(const Plan& pl, float* ws, const TV* v, const TR* res, const TW* w, TO* out, float* stats,
+                   float* dw, float* db, float eps, int ln_bias, cudaStream_t stream) {
   const int C = pl.C;
-  ln_bwd_kernel<7><<<pl.nrb, kThreads, 4 * kRP * sizeof(float), stream>>>(v, ws + pl.dln, res, w, out, stats,
-                                                                          ws + pl.prow, pl.npix, C, eps, ln_bias);
+  ln_bwd_kernel<7, TV, TR, TW, TO><<<pl.nrb, kThreads, 4 * kRP * sizeof(float), stream>>>(
+      v, ws + pl.dln, res, w, out, stats, ws + pl.prow, pl.npix, C, eps, ln_bias);
   cudaError_t err;
   CHECK_LAUNCH();
   CHECK(colsum<7>(ws + pl.prow, 1, pl.nrb, C, 2 * C, dw, ws + pl.sum, stream));
@@ -434,40 +468,42 @@ cudaError_t ln_bwd(const Plan& pl, float* ws, const float* v, const float* res, 
 }
 
 // W: out (M, N) = sum over pixels of a (npix, M) x B (npix, N)
-template <bool LN>
-cudaError_t wgrad(const Plan& pl, float* ws, const float* a, int M, const float* bm, int N, const float* stats,
-                  const float* lw, const float* lb, int ln_bias, float* out, cudaStream_t stream) {
+template <bool LN, typename TA, typename TB, typename TL>
+cudaError_t wgrad(const Plan& pl, float* ws, const TA* a, int M, const TB* bm, int N, const float* stats,
+                  const TL* lw, const TL* lb, int ln_bias, float* out, cudaStream_t stream) {
   int len;
   const int nch = w_chunks(M, N, pl.npix, &len);
-  wgrad_kernel<7, LN><<<dim3((N + kNB - 1) / kNB, (M + kNB - 1) / kNB, nch), kThreads, 2 * kKC * kWS * sizeof(float),
-                        stream>>>(a, M, bm, N, stats, lw, lb, ln_bias, ws + pl.pw, pl.npix, M, N, len);
+  wgrad_kernel<7, LN, TA, TB, TL><<<dim3((N + kNB - 1) / kNB, (M + kNB - 1) / kNB, nch), kThreads,
+                                    2 * kKC * kWS * sizeof(float), stream>>>(a, M, bm, N, stats, lw, lb, ln_bias,
+                                                                             ws + pl.pw, pl.npix, M, N, len);
   cudaError_t err;
   CHECK_LAUNCH();
   return colsum<7>(ws + pl.pw, 1, nch, M * N, M * N, out, ws + pl.sum, stream);
 }
 
-int mdta_block_bwd(const Inputs& in, const Grads& gr, float* ws, int B, int H, int W, int C, int F, int heads,
-                   int use_softmax, int ln_bias, float eps, cudaStream_t stream) {
-  const Plan pl = make_plan(B, H, W, C, F, heads);
-  const int ch = pl.ch;
+template <typename T>
+int mdta_block_bwd(const Inputs<T>& in, const Grads<T>& gr, float* ws, const Plan& pl, int use_softmax, int ln_bias,
+                   float eps, cudaStream_t stream) {
+  const int B = pl.B, C = pl.C, F = pl.F, heads = pl.heads, ch = pl.ch;
+  const T* none = nullptr;
   cudaError_t err;
   // B1: the GDFN backward
   CHECK(gate(pl, ws, in, stream));
-  CHECK(wgrad<false>(pl, ws, in.dz, C, in.g, F, nullptr, nullptr, nullptr, 0, gr.dwout, stream));
+  CHECK(wgrad<false>(pl, ws, in.dz, C, in.g, F, nullptr, none, none, 0, gr.dwout, stream));
   CHECK(dw_bwd(pl, ws, ws + pl.mx, in.u, in.wdwf, ws + pl.my, gr.dwdwf, 2 * F, stream));
   CHECK(prod(pl, ws + pl.my, in.win, ws + pl.dln, 2 * F, C, stream));
   CHECK(ln_bwd(pl, ws, in.y, in.dz, in.n2w, ws + pl.dy, ws + pl.st2, gr.dn2w, gr.dn2b, eps, ln_bias, stream));
   CHECK(wgrad<true>(pl, ws, ws + pl.my, 2 * F, in.y, C, ws + pl.st2, in.n2w, in.n2b, ln_bias, gr.dwin, stream));
   // B1: the attention application's backward
   CHECK(prod(pl, ws + pl.dy, in.wproj, ws + pl.dout, C, C, stream));
-  CHECK(wgrad<false>(pl, ws, ws + pl.dy, C, in.o, C, nullptr, nullptr, nullptr, 0, gr.dwproj, stream));
+  CHECK(wgrad<false>(pl, ws, ws + pl.dy, C, in.o, C, nullptr, none, none, 0, gr.dwproj, stream));
   const int tiles = (ch + kNB - 1) / kNB;
   k7_dattn_kernel<<<dim3(pl.nchunk, heads * tiles * tiles, B), kThreads, 2 * kKC * kWS * sizeof(float), stream>>>(
       ws + pl.dout, in.qkv, ws + pl.pdattn, pl.HW, C, ch);
   CHECK_LAUNCH();
   CHECK(colsum<7>(ws + pl.pdattn, B, pl.nchunk, C * ch, C * ch, ws + pl.dattn, ws + pl.sum, stream));
   // the C-space step
-  k7_cspace_kernel<<<dim3(heads, B), kThreads, 3 * ch * sizeof(float), stream>>>(
+  k7_cspace_kernel<T><<<dim3(heads, B), kThreads, 3 * ch * sizeof(float), stream>>>(
       ws + pl.dattn, in.attn, in.gram, in.qn2, in.kn2, in.temp, ws + pl.dgram, ws + pl.dqn2, ws + pl.dkn2,
       ws + pl.pdtemp, C, ch, use_softmax);
   CHECK_LAUNCH();
@@ -476,7 +512,8 @@ int mdta_block_bwd(const Inputs& in, const Grads& gr, float* ws, int B, int H, i
   CHECK(dqkv(pl, ws, in, stream));
   CHECK(dw_bwd(pl, ws, ws + pl.mx, in.t, in.wdwq, ws + pl.my, gr.dwdwq, 3 * C, stream));
   CHECK(prod(pl, ws + pl.my, in.wqkv, ws + pl.dln, 3 * C, C, stream));
-  CHECK(ln_bwd(pl, ws, in.x, ws + pl.dy, in.n1w, gr.dx, ws + pl.st1, gr.dn1w, gr.dn1b, eps, ln_bias, stream));
+  CHECK(ln_bwd(pl, ws, in.x, static_cast<const float*>(ws + pl.dy), in.n1w, gr.dx, ws + pl.st1, gr.dn1w, gr.dn1b,
+               eps, ln_bias, stream));
   CHECK(wgrad<true>(pl, ws, ws + pl.my, 3 * C, in.x, C, ws + pl.st1, in.n1w, in.n1b, ln_bias, gr.dwqkv, stream));
   return cudaSuccess;
 }
@@ -484,34 +521,55 @@ int mdta_block_bwd(const Inputs& in, const Grads& gr, float* ws, int B, int H, i
 #undef CHECK
 #undef CHECK_LAUNCH
 
-}  // namespace
+#define MDTA_BWD_ARGS                                                                                               \
+  const void *x, const void *dz, const void *n1w, const void *n1b, const void *wqkv, const void *wdwq,             \
+      const void *temp, const void *wproj, const void *n2w, const void *n2b, const void *win, const void *wdwf,    \
+      const void *wout, const void *gram, const void *qn2, const void *kn2, const void *attn, const void *t,       \
+      const void *qkv, const void *o, const void *y, const void *u, const void *g, void *dx, void *dn1w,           \
+      void *dn1b, void *dwqkv, void *dwdwq, void *dtemp, void *dwproj, void *dn2w, void *dn2b, void *dwin,         \
+      void *dwdwf, void *dwout, void *ws, int B, int H, int W, int C, int F, int heads, int use_softmax,           \
+      int ln_bias, float eps, void *stream
+#define MDTA_BWD_PASS                                                                                               \
+  x, dz, n1w, n1b, wqkv, wdwq, temp, wproj, n2w, n2b, win, wdwf, wout, gram, qn2, kn2, attn, t, qkv, o, y, u, g,  \
+      dx, dn1w, dn1b, dwqkv, dwdwq, dtemp, dwproj, dn2w, dn2b, dwin, dwdwf, dwout, ws, B, H, W, C, F, heads,       \
+      use_softmax, ln_bias, eps, stream
 
-// Plain C entry point (loaded with ctypes).  Every pointer is a device pointer
-// to fp32.  Inputs: x and dz (B, H, W, C); the 11 parameters in PyTorch's layout
-// (see mdta_block.cu); the head blocks of the raw Gram (B, C, ch), |q|^2 and
-// |k|^2 (B, C), attn (B, C, C); the forward's maps t, qkv (B, H, W, 3C), o, y
-// (B, H, W, C), u (B, H, W, 2F), g (B, H, W, F).  Outputs: dx (B, H, W, C) and the 11
-// parameter gradients (1x1s in PyTorch's layout, depthwise as (3, 3, D),
-// dtemperature (heads,)).  ws holds mdta_block_bwd_workspace_floats(...) floats.
-// ln_bias 0 = BiasFree (n1b and n2b are not read).  Returns the first CUDA error, or 0.
-extern "C" int mdta_block_bwd_f32(
-    const void* x, const void* dz, const void* n1w, const void* n1b, const void* wqkv, const void* wdwq,
-    const void* temp, const void* wproj, const void* n2w, const void* n2b, const void* win, const void* wdwf,
-    const void* wout, const void* gram, const void* qn2, const void* kn2, const void* attn, const void* t,
-    const void* qkv, const void* o, const void* y, const void* u, const void* g, void* dx, void* dn1w, void* dn1b,
-    void* dwqkv, void* dwdwq, void* dtemp, void* dwproj, void* dn2w, void* dn2b, void* dwin, void* dwdwf,
-    void* dwout, void* ws, int B, int H, int W, int C, int F, int heads, int use_softmax, int ln_bias, float eps,
-    void* stream) {
+template <typename T>
+int mdta_block_bwd_entry(MDTA_BWD_ARGS) {
+  auto p = [](const void* v) { return static_cast<const T*>(v); };
   auto f = [](const void* v) { return static_cast<const float*>(v); };
-  auto m = [](void* v) { return static_cast<float*>(v); };
-  const Inputs in{f(x), f(dz), f(n1w), f(n1b), f(wqkv), f(wdwq), f(temp), f(wproj), f(n2w), f(n2b), f(win),
-                  f(wdwf), f(wout), f(t), f(qkv), f(o), f(y), f(u), f(g), f(gram), f(qn2), f(kn2), f(attn)};
-  const Grads gr{m(dx), m(dn1w), m(dn1b), m(dwqkv), m(dwdwq), m(dtemp), m(dwproj), m(dn2w), m(dn2b), m(dwin),
-                 m(dwdwf), m(dwout)};
-  return mdta_block_bwd(in, gr, m(ws), B, H, W, C, F, heads, use_softmax, ln_bias, eps,
-                        static_cast<cudaStream_t>(stream));
+  constexpr bool f32 = sizeof(T) == sizeof(float);
+  const Plan pl = make_plan(B, H, W, C, F, heads, !f32);
+  float* wsf = static_cast<float*>(ws);
+  void* outs[kParams] = {dn1w, dn1b, dwqkv, dwdwq, dtemp, dwproj, dn2w, dn2b, dwin, dwdwf, dwout};
+  long long len[kParams];
+  param_lengths(C, F, heads, len);
+  const StagedGrads<T, kParams> sg(outs, len, wsf + pl.stage);
+  float* const* gs = sg.g32;
+  const Inputs<T> in{p(x), p(dz), p(n1w), p(n1b), p(wqkv), p(wdwq), p(temp), p(wproj), p(n2w), p(n2b), p(win),
+                     p(wdwf), p(wout), f(t), f(qkv), f(o), f(y), f(u), f(g), f(gram), f(qn2), f(kn2), f(attn)};
+  const Grads<T> gr{static_cast<T*>(dx), gs[0], gs[1], gs[2], gs[3], gs[4], gs[5], gs[6], gs[7], gs[8], gs[9], gs[10]};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int err = mdta_block_bwd<T>(in, gr, wsf, pl, use_softmax, ln_bias, eps, s);
+  if (err != cudaSuccess) return err;
+  return sg.cast(s);
 }
 
-extern "C" long long mdta_block_bwd_workspace_floats(int B, int H, int W, int C, int F, int heads) {
-  return (long long)make_plan(B, H, W, C, F, heads).total;
+}  // namespace
+
+// Plain C entry points (loaded with ctypes).  Every pointer is a device pointer.
+// Inputs: x and dz (B, H, W, C) and the 11 parameters in PyTorch's layout (see
+// mdta_block.cu), in the I/O type (f32: float, bf16: bfloat16); K6's fp32
+// residuals: the head blocks of the raw Gram (B, C, ch), |q|^2 and |k|^2 (B, C),
+// attn (B, C, C), and the maps t, qkv (B, H, W, 3C), o, y (B, H, W, C), u
+// (B, H, W, 2F), g (B, H, W, F).  Outputs in the I/O type: dx (B, H, W, C) and
+// the 11 parameter gradients (1x1s in PyTorch's layout, depthwise as (3, 3, D),
+// dtemperature (heads,)).  ws holds mdta_block_bwd_workspace_floats(..., bf16)
+// floats.  ln_bias 0 = BiasFree (n1b and n2b are not read).  Returns the first
+// CUDA error, or 0.
+extern "C" int mdta_block_bwd_f32(MDTA_BWD_ARGS) { return mdta_block_bwd_entry<float>(MDTA_BWD_PASS); }
+extern "C" int mdta_block_bwd_bf16(MDTA_BWD_ARGS) { return mdta_block_bwd_entry<__nv_bfloat16>(MDTA_BWD_PASS); }
+
+extern "C" long long mdta_block_bwd_workspace_floats(int B, int H, int W, int C, int F, int heads, int bf16) {
+  return (long long)make_plan(B, H, W, C, F, heads, bf16 != 0).total;
 }

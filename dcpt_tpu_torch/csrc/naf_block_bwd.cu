@@ -647,19 +647,16 @@ int naf_block_bwd_entry(NAF_BWD_ARGS) {
                          dw5, db5, dgamma};
   long long len[kParams];
   param_lengths(C, len);
-  float* g32[kParams];
-  for (int k = 0, off = 0; k < kParams; off += (int)len[k++])
-    g32[k] = f32 ? static_cast<float*>(outs[k]) : wsf + pl.stage + off;
-  const Grads gr{g32[0], g32[1], g32[2], g32[3], g32[4], g32[5], g32[6], g32[7], g32[8],
-                 g32[9], g32[10], g32[11], g32[12], g32[13], g32[14], g32[15], g32[16], g32[17]};
+  const StagedGrads<T, kParams> sg(outs, len, wsf + pl.stage);
+  float* const* gs = sg.g32;
+  const Grads gr{gs[0], gs[1], gs[2], gs[3], gs[4], gs[5], gs[6], gs[7], gs[8], gs[9], gs[10], gs[11], gs[12], gs[13],
+                 gs[14], gs[15], gs[16], gs[17]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int err = naf_block_bwd<T>(p(x), p(dz), p(n1w), p(n1b), p(w1), p(wdw), p(bdw), p(wsca), p(w3), p(beta),
                                    p(n2w), p(n2b), p(w4), p(w5), p(gamma), p(g), f(t), f(u), f(y), f(h), f(o),
                                    f(pooled), f(att), static_cast<T*>(dx), gr, wsf, pl, eps, s);
-  if (err != cudaSuccess || f32) return err;
-  CastList<T> casts;
-  for (int k = 0; k < kParams; ++k) casts.add(g32[k], static_cast<T*>(outs[k]), len[k]);
-  return cast_all(casts, s);
+  if (err != cudaSuccess) return err;
+  return sg.cast(s);
 }
 
 }  // namespace

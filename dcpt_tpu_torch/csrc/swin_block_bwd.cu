@@ -1,4 +1,4 @@
-// Whole SwinIR Swin block backward on Hopper (sm_90a): K9.  fp32 I/O, fp32 math.
+// Whole SwinIR Swin block backward on Hopper (sm_90a): K9.  fp32 or bf16 I/O, fp32 math.
 //
 // Replaces the TPU kernel dcpt_tpu/ops/swin_block_bwd.py::swin_block_bwd
 // (_block_bwd_kernel).  Given the upstream cotangent dz of z =
@@ -41,6 +41,13 @@
 // operations.  wgmma/TMA tiles and a window-resident recompute are the next steps.
 //
 // Weights come and gradients go in PyTorch's layout: every Linear as (out, in).
+//
+// bf16 (mixed-precision training): x, dz and the 12 parameters are read in
+// bf16 through ld(); the recomputed forward, the whole backward and every
+// partial sum stay fp32 in the same workspace.  dx is stored in bf16 by the
+// LN1 backward, and the 12 parameter gradients are summed into fp32 staging in
+// the workspace and cast once, in one launch, to bf16 (CastList), as the TPU
+// kernel casts each cotangent to its primal's dtype.
 
 #include <algorithm>
 
@@ -60,23 +67,24 @@ __device__ __forceinline__ float warp_max(float v) {
 
 // out = LN(in) w + b over the C channels of each token, one token a warp (biased
 // variance); the same sums in the same order as ln_bwd_kernel's statistics.
+template <typename TI, typename TW>
 __global__ void __launch_bounds__(kThreads)
-k9_ln_kernel(const float* __restrict__ in, const float* __restrict__ w, const float* __restrict__ b,
+k9_ln_kernel(const TI* __restrict__ in, const TW* __restrict__ w, const TW* __restrict__ b,
              float* __restrict__ out, int T, int C, float eps) {
   const int lane = threadIdx.x & 31, p = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
   if (p >= T) return;
-  const float* r = in + (size_t)p * C;
+  const TI* r = in + (size_t)p * C;
   float s = 0.f;
-  for (int c = lane; c < C; c += 32) s += r[c];
+  for (int c = lane; c < C; c += 32) s += ld(r[c]);
   const float mu = warp_sum(s) / C;
   float var = 0.f;
   for (int c = lane; c < C; c += 32) {
-    const float d = r[c] - mu;
+    const float d = ld(r[c]) - mu;
     var += d * d;
   }
   const float rs = 1.f / sqrtf(warp_sum(var) / C + eps);
   float* o = out + (size_t)p * C;
-  for (int c = lane; c < C; c += 32) o[c] = (r[c] - mu) * rs * w[c] + b[c];
+  for (int c = lane; c < C; c += 32) o[c] = (ld(r[c]) - mu) * rs * ld(w[c]) + ld(b[c]);
 }
 
 // The epilogues of k9_prod_kernel.
@@ -90,20 +98,21 @@ enum Epi { kQKV, kProj, kFc1, kGeluBwd, kPlain };
 //   kFc1      + bias[n] into out, its GELU into out2 (pre1 and g)
 //   kGeluBwd  times GELU'(out[p][n]) in place       (out holds pre1, becomes dpre1)
 //   kPlain    as it is
-// grid (token tiles of 16 RM, column blocks of kNB).
-template <int RM, bool WT, int E>
+// grid (token tiles of 16 RM, column blocks of kNB).  a is fp32 or (dz) the I/O
+// type TIO of the weights, the biases and res (x).
+template <int RM, bool WT, int E, typename TA, typename TIO>
 __global__ void __launch_bounds__(kThreads)
-k9_prod_kernel(const float* __restrict__ a, const float* __restrict__ w, const float* __restrict__ bias,
-               const float* __restrict__ res, float* out, float* __restrict__ out2, int T, int K, int N, int C,
+k9_prod_kernel(const TA* __restrict__ a, const TIO* __restrict__ w, const TIO* __restrict__ bias,
+               const TIO* __restrict__ res, float* out, float* __restrict__ out2, int T, int K, int N, int C,
                float scale) {
   constexpr int P = 16 * RM;
   extern __shared__ float smem[];
   const int p0 = blockIdx.x * P, n0 = blockIdx.y * kNB, np = min(P, T - p0);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const float* ab = a + (size_t)p0 * K;
+  const TA* ab = a + (size_t)p0 * K;
   float acc[RM][4];
   gemm_masked<RM, WT>(smem, w, WT ? N : K, N, n0, 0, K, [&](int p, int k) {
-    return p < np ? ab[(size_t)p * K + k] : 0.f;
+    return p < np ? ld(ab[(size_t)p * K + k]) : 0.f;
   }, acc);
 #pragma unroll
   for (int r = 0; r < RM; ++r)
@@ -113,10 +122,10 @@ k9_prod_kernel(const float* __restrict__ a, const float* __restrict__ w, const f
       if (p >= np || n >= N) continue;
       const size_t q = (size_t)(p0 + p) * N + n;
       float v = acc[r][i];
-      if (E == kQKV) v = (v + bias[n]) * (n < C ? scale : 1.f);
-      if (E == kProj) v = res[q] + (v + bias[n]);
+      if (E == kQKV) v = (v + ld(bias[n])) * (n < C ? scale : 1.f);
+      if (E == kProj) v = ld(res[q]) + (v + ld(bias[n]));
       if (E == kFc1) {
-        v += bias[n];
+        v += ld(bias[n]);
         out2[q] = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
       }
       if (E == kGeluBwd) {
@@ -250,13 +259,24 @@ k9_attn_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ dacc
   }
 }
 
-// The workspace: the recomputed forward, the cotangent maps, every partial sum and colsum's scratch.
+// The 12 parameter gradients' lengths in floats, in the entry's order (dln1_w,
+// dln1_b, dWqkv, dbqkv, dWproj, dbproj, dln2_w, dln2_b, dWfc1, dbfc1, dWfc2, dbfc2).
+constexpr int kParams = 12;
+
+void param_lengths(int C, int hidden, long long* len) {
+  const long long c = C, h = hidden;
+  const long long l[kParams] = {c, c, 3 * c * c, 3 * c, c * c, c, c, c, h * c, h, c * h, c};
+  for (int k = 0; k < kParams; ++k) len[k] = l[k];
+}
+
+// The workspace: the recomputed forward, the cotangent maps, every partial sum,
+// colsum's scratch, and in a bf16 call the fp32 staging of the parameter gradients.
 struct Plan {
   int B, H, W, C, heads, hd, hidden, T, rm, nrb;
-  size_t xn, qkv, acc, y, yn, pre, g, dm, dy, dqkv, stats, prow, pw, sum, total;
+  size_t xn, qkv, acc, y, yn, pre, g, dm, dy, dqkv, stats, prow, pw, sum, stage, total;
 };
 
-Plan make_plan(int B, int H, int W, int C, int heads, int hidden) {
+Plan make_plan(int B, int H, int W, int C, int heads, int hidden, bool bf16) {
   Plan pl;
   pl.B = B; pl.H = H; pl.W = W; pl.C = C; pl.heads = heads; pl.hidden = hidden;
   pl.hd = C / heads;
@@ -294,42 +314,51 @@ Plan make_plan(int B, int H, int W, int C, int heads, int hidden) {
   for (int width : {C, hidden, 3 * C}) sum = std::max(sum, colsum_scratch(1, pl.T, width));
   sum = std::max(sum, colsum_scratch(1, pl.nrb, C));
   pl.sum = take(sum);
+  long long len[kParams], staged = 0;
+  param_lengths(C, hidden, len);
+  for (long long l : len) staged += l;
+  pl.stage = take(bf16 ? (size_t)staged : 0);
   pl.total = off;
   return pl;
 }
 
+template <typename T>
 struct Weights {
-  const float *ln1w, *ln1b, *wqkv, *bqkv, *wproj, *bproj, *ln2w, *ln2b, *wfc1, *bfc1, *wfc2, *bfc2;
+  const T *ln1w, *ln1b, *wqkv, *bqkv, *wproj, *bproj, *ln2w, *ln2b, *wfc1, *bfc1, *wfc2, *bfc2;
 };
 
+// dx in the I/O type, the parameter gradients in fp32 (the caller's, or the staging of a bf16 call)
+template <typename T>
 struct Grads {
-  float *dx, *dln1w, *dln1b, *dwqkv, *dbqkv, *dwproj, *dbproj, *dln2w, *dln2b, *dwfc1, *dbfc1, *dwfc2, *dbfc2;
+  T* dx;
+  float *dln1w, *dln1b, *dwqkv, *dbqkv, *dwproj, *dbproj, *dln2w, *dln2b, *dwfc1, *dbfc1, *dwfc2, *dbfc2;
 };
 
 #define CHECK(call) \
   if ((err = (call)) != cudaSuccess) return err;
 
-template <int RM, bool WT, int E>
-cudaError_t launch_prod(const Plan& pl, const float* a, const float* w, const float* bias, const float* res,
-                        float* out, float* out2, int K, int N, float scale, cudaStream_t stream) {
+template <int RM, bool WT, int E, typename TA, typename TIO>
+cudaError_t launch_prod(const Plan& pl, const TA* a, const TIO* w, const TIO* bias, const TIO* res, float* out,
+                        float* out2, int K, int N, float scale, cudaStream_t stream) {
   const int smem = gemm_smem_floats(RM) * (int)sizeof(float);
-  k9_prod_kernel<RM, WT, E><<<dim3((pl.T + 16 * RM - 1) / (16 * RM), (N + kNB - 1) / kNB), kThreads, smem,
-                              stream>>>(a, w, bias, res, out, out2, pl.T, K, N, pl.C, scale);
+  k9_prod_kernel<RM, WT, E, TA, TIO><<<dim3((pl.T + 16 * RM - 1) / (16 * RM), (N + kNB - 1) / kNB), kThreads, smem,
+                                       stream>>>(a, w, bias, res, out, out2, pl.T, K, N, pl.C, scale);
   return cudaGetLastError();
 }
 
-template <bool WT, int E>
-cudaError_t prod(const Plan& pl, const float* a, const float* w, const float* bias, const float* res, float* out,
+template <bool WT, int E, typename TA, typename TIO>
+cudaError_t prod(const Plan& pl, const TA* a, const TIO* w, const TIO* bias, const TIO* res, float* out,
                  float* out2, int K, int N, cudaStream_t s, float scale = 1.f) {
   return pl.rm == 4   ? launch_prod<4, WT, E>(pl, a, w, bias, res, out, out2, K, N, scale, s)
          : pl.rm == 2 ? launch_prod<2, WT, E>(pl, a, w, bias, res, out, out2, K, N, scale, s)
                       : launch_prod<1, WT, E>(pl, a, w, bias, res, out, out2, K, N, scale, s);
 }
 
-cudaError_t layer_norm(const Plan& pl, const float* in, const float* w, const float* b, float* out, float eps,
+template <typename TI, typename TW>
+cudaError_t layer_norm(const Plan& pl, const TI* in, const TW* w, const TW* b, float* out, float eps,
                        cudaStream_t stream) {
   constexpr int per = kThreads / 32;
-  k9_ln_kernel<<<(pl.T + per - 1) / per, kThreads, 0, stream>>>(in, w, b, out, pl.T, pl.C, eps);
+  k9_ln_kernel<TI, TW><<<(pl.T + per - 1) / per, kThreads, 0, stream>>>(in, w, b, out, pl.T, pl.C, eps);
   return cudaGetLastError();
 }
 
@@ -351,12 +380,13 @@ cudaError_t attention(const Plan& pl, const float* qkv, const float* dacc, float
   return cudaGetLastError();
 }
 
-// LN backward: out, and the weight and bias gradients
-cudaError_t ln_bwd(const Plan& pl, float* ws, const float* v, const float* dln, const float* res, const float* w,
-                   float* out, float* dw, float* db, float eps, cudaStream_t stream) {
+// LN backward: out = res + the backward through LN(v), and the weight and bias gradients
+template <typename TV, typename TR, typename TW, typename TO>
+cudaError_t ln_bwd(const Plan& pl, float* ws, const TV* v, const float* dln, const TR* res, const TW* w, TO* out,
+                   float* dw, float* db, float eps, cudaStream_t stream) {
   const int C = pl.C;
-  ln_bwd_kernel<9><<<pl.nrb, kThreads, 4 * kRP * sizeof(float), stream>>>(v, dln, res, w, out, ws + pl.stats,
-                                                                          ws + pl.prow, pl.T, C, eps, 1);
+  ln_bwd_kernel<9, TV, TR, TW, TO><<<pl.nrb, kThreads, 4 * kRP * sizeof(float), stream>>>(
+      v, dln, res, w, out, ws + pl.stats, ws + pl.prow, pl.T, C, eps, 1);
   cudaError_t err;
   CHECK(cudaGetLastError());
   CHECK(colsum<9>(ws + pl.prow, 1, pl.nrb, C, 2 * C, dw, ws + pl.sum, stream));
@@ -364,76 +394,101 @@ cudaError_t ln_bwd(const Plan& pl, float* ws, const float* v, const float* dln, 
 }
 
 // W: out (M, N) = sum over tokens of a (T, M) x bm (T, N); bias (M,) = the column sums of a
-cudaError_t wgrad(const Plan& pl, float* ws, const float* a, int M, const float* bm, int N, float* out, float* bias,
+template <typename TA>
+cudaError_t wgrad(const Plan& pl, float* ws, const TA* a, int M, const float* bm, int N, float* out, float* bias,
                   cudaStream_t stream) {
   int len;
   const int nch = w_chunks(M, N, pl.T, &len);
-  wgrad_kernel<9, false><<<dim3((N + kNB - 1) / kNB, (M + kNB - 1) / kNB, nch), kThreads,
-                          2 * kKC * kWS * sizeof(float), stream>>>(a, M, bm, N, nullptr, nullptr, nullptr, 0,
-                                                                   ws + pl.pw, pl.T, M, N, len);
+  const float* none = nullptr;
+  wgrad_kernel<9, false, TA, float, float><<<dim3((N + kNB - 1) / kNB, (M + kNB - 1) / kNB, nch), kThreads,
+                                             2 * kKC * kWS * sizeof(float), stream>>>(
+      a, M, bm, N, nullptr, none, none, 0, ws + pl.pw, pl.T, M, N, len);
   cudaError_t err;
   CHECK(cudaGetLastError());
   CHECK(colsum<9>(ws + pl.pw, 1, nch, M * N, M * N, out, ws + pl.sum, stream));
   return colsum<9>(a, 1, pl.T, M, M, bias, ws + pl.sum, stream);
 }
 
-int swin_block_bwd(const float* x, const float* dz, const Weights& wt, const Grads& gr, float* ws, int B, int H,
-                   int W, int C, int heads, int wsz, int shift, int hidden, float eps, cudaStream_t stream) {
-  const Plan pl = make_plan(B, H, W, C, heads, hidden);
+template <typename T>
+int swin_block_bwd(const T* x, const T* dz, const Weights<T>& wt, const Grads<T>& gr, float* ws, const Plan& pl,
+                   int wsz, int shift, float eps, cudaStream_t stream) {
+  const int C = pl.C, hidden = pl.hidden;
   float *xn = ws + pl.xn, *qkv = ws + pl.qkv, *acc = ws + pl.acc, *y = ws + pl.y, *yn = ws + pl.yn;
   float *pre = ws + pl.pre, *g = ws + pl.g, *dm = ws + pl.dm, *dy = ws + pl.dy, *dqkv = ws + pl.dqkv;
+  const T* none = nullptr;
   cudaError_t err;
   // R: recompute the forward
   CHECK(layer_norm(pl, x, wt.ln1w, wt.ln1b, xn, eps, stream));
-  CHECK((prod<false, kQKV>(pl, xn, wt.wqkv, wt.bqkv, nullptr, qkv, nullptr, C, 3 * C, stream,
+  CHECK((prod<false, kQKV>(pl, static_cast<const float*>(xn), wt.wqkv, wt.bqkv, none, qkv, nullptr, C, 3 * C, stream,
                            1.f / sqrtf((float)pl.hd))));
   CHECK(attention<false>(pl, qkv, nullptr, acc, wsz, shift, stream));
-  CHECK((prod<false, kProj>(pl, acc, wt.wproj, wt.bproj, x, y, nullptr, C, C, stream)));
-  CHECK(layer_norm(pl, y, wt.ln2w, wt.ln2b, yn, eps, stream));
-  CHECK((prod<false, kFc1>(pl, yn, wt.wfc1, wt.bfc1, nullptr, pre, g, C, hidden, stream)));
+  CHECK((prod<false, kProj>(pl, static_cast<const float*>(acc), wt.wproj, wt.bproj, x, y, nullptr, C, C, stream)));
+  CHECK(layer_norm(pl, static_cast<const float*>(y), wt.ln2w, wt.ln2b, yn, eps, stream));
+  CHECK((prod<false, kFc1>(pl, static_cast<const float*>(yn), wt.wfc1, wt.bfc1, none, pre, g, C, hidden, stream)));
   // B and W: the MLP and LN2
-  CHECK((prod<true, kGeluBwd>(pl, dz, wt.wfc2, nullptr, nullptr, pre, nullptr, C, hidden, stream)));
+  CHECK((prod<true, kGeluBwd>(pl, dz, wt.wfc2, none, none, pre, nullptr, C, hidden, stream)));
   CHECK(wgrad(pl, ws, dz, C, g, hidden, gr.dwfc2, gr.dbfc2, stream));
-  CHECK((prod<true, kPlain>(pl, pre, wt.wfc1, nullptr, nullptr, dm, nullptr, hidden, C, stream)));
-  CHECK(wgrad(pl, ws, pre, hidden, yn, C, gr.dwfc1, gr.dbfc1, stream));
-  CHECK(ln_bwd(pl, ws, y, dm, dz, wt.ln2w, dy, gr.dln2w, gr.dln2b, eps, stream));
+  CHECK((prod<true, kPlain>(pl, static_cast<const float*>(pre), wt.wfc1, none, none, dm, nullptr, hidden, C, stream)));
+  CHECK(wgrad(pl, ws, static_cast<const float*>(pre), hidden, yn, C, gr.dwfc1, gr.dbfc1, stream));
+  CHECK(ln_bwd(pl, ws, static_cast<const float*>(y), dm, dz, wt.ln2w, dy, gr.dln2w, gr.dln2b, eps, stream));
   // proj, the attention, qkv and LN1
-  CHECK((prod<true, kPlain>(pl, dy, wt.wproj, nullptr, nullptr, dm, nullptr, C, C, stream)));
-  CHECK(wgrad(pl, ws, dy, C, acc, C, gr.dwproj, gr.dbproj, stream));
+  CHECK((prod<true, kPlain>(pl, static_cast<const float*>(dy), wt.wproj, none, none, dm, nullptr, C, C, stream)));
+  CHECK(wgrad(pl, ws, static_cast<const float*>(dy), C, acc, C, gr.dwproj, gr.dbproj, stream));
   CHECK(attention<true>(pl, qkv, dm, dqkv, wsz, shift, stream));
-  CHECK((prod<true, kPlain>(pl, dqkv, wt.wqkv, nullptr, nullptr, dm, nullptr, 3 * C, C, stream)));
-  CHECK(wgrad(pl, ws, dqkv, 3 * C, xn, C, gr.dwqkv, gr.dbqkv, stream));
-  CHECK(ln_bwd(pl, ws, x, dm, dy, wt.ln1w, gr.dx, gr.dln1w, gr.dln1b, eps, stream));
+  CHECK((prod<true, kPlain>(pl, static_cast<const float*>(dqkv), wt.wqkv, none, none, dm, nullptr, 3 * C, C,
+                            stream)));
+  CHECK(wgrad(pl, ws, static_cast<const float*>(dqkv), 3 * C, xn, C, gr.dwqkv, gr.dbqkv, stream));
+  CHECK(ln_bwd(pl, ws, x, dm, static_cast<const float*>(dy), wt.ln1w, gr.dx, gr.dln1w, gr.dln1b, eps, stream));
   return cudaSuccess;
 }
 
 #undef CHECK
 
-}  // namespace
+#define SWIN_BWD_ARGS                                                                                               \
+  const void *x, const void *dz, const void *ln1w, const void *ln1b, const void *wqkv, const void *bqkv,           \
+      const void *wproj, const void *bproj, const void *ln2w, const void *ln2b, const void *wfc1, const void *bfc1, \
+      const void *wfc2, const void *bfc2, void *dx, void *dln1w, void *dln1b, void *dwqkv, void *dbqkv,             \
+      void *dwproj, void *dbproj, void *dln2w, void *dln2b, void *dwfc1, void *dbfc1, void *dwfc2, void *dbfc2,    \
+      void *ws, int B, int H, int W, int C, int heads, int wsz, int shift, int hidden, float eps, void *stream
+#define SWIN_BWD_PASS                                                                                               \
+  x, dz, ln1w, ln1b, wqkv, bqkv, wproj, bproj, ln2w, ln2b, wfc1, bfc1, wfc2, bfc2, dx, dln1w, dln1b, dwqkv, dbqkv, \
+      dwproj, dbproj, dln2w, dln2b, dwfc1, dbfc1, dwfc2, dbfc2, ws, B, H, W, C, heads, wsz, shift, hidden, eps,    \
+      stream
 
-// Plain C entry points (loaded with ctypes).  Every pointer is a device pointer
-// to fp32.  Inputs: x and dz (B, H, W, C); the norm weights and biases (C,);
-// Wqkv (3C, C), bqkv (3C,), Wproj (C, C), bproj (C,), Wfc1 (hidden, C), bfc1
-// (hidden,), Wfc2 (C, hidden), bfc2 (C,).  Outputs: dx (B, H, W, C) and the 12
-// parameter gradients in the same layouts.  ws holds
-// swin_block_bwd_workspace_floats(...) floats.  H and W are multiples of wsz,
-// wsz * wsz <= 64, 0 <= shift < wsz.  Returns the first CUDA error, or 0.
-extern "C" int swin_block_bwd_f32(
-    const void* x, const void* dz, const void* ln1w, const void* ln1b, const void* wqkv, const void* bqkv,
-    const void* wproj, const void* bproj, const void* ln2w, const void* ln2b, const void* wfc1, const void* bfc1,
-    const void* wfc2, const void* bfc2, void* dx, void* dln1w, void* dln1b, void* dwqkv, void* dbqkv, void* dwproj,
-    void* dbproj, void* dln2w, void* dln2b, void* dwfc1, void* dbfc1, void* dwfc2, void* dbfc2, void* ws, int B,
-    int H, int W, int C, int heads, int wsz, int shift, int hidden, float eps, void* stream) {
-  auto f = [](const void* v) { return static_cast<const float*>(v); };
-  auto m = [](void* v) { return static_cast<float*>(v); };
-  const Weights wt{f(ln1w), f(ln1b), f(wqkv), f(bqkv), f(wproj), f(bproj),
-                   f(ln2w), f(ln2b), f(wfc1), f(bfc1), f(wfc2), f(bfc2)};
-  const Grads gr{m(dx), m(dln1w), m(dln1b), m(dwqkv), m(dbqkv), m(dwproj), m(dbproj),
-                 m(dln2w), m(dln2b), m(dwfc1), m(dbfc1), m(dwfc2), m(dbfc2)};
-  return swin_block_bwd(f(x), f(dz), wt, gr, m(ws), B, H, W, C, heads, wsz, shift, hidden, eps,
-                        static_cast<cudaStream_t>(stream));
+template <typename T>
+int swin_block_bwd_entry(SWIN_BWD_ARGS) {
+  auto p = [](const void* v) { return static_cast<const T*>(v); };
+  constexpr bool f32 = sizeof(T) == sizeof(float);
+  const Plan pl = make_plan(B, H, W, C, heads, hidden, !f32);
+  float* wsf = static_cast<float*>(ws);
+  void* outs[kParams] = {dln1w, dln1b, dwqkv, dbqkv, dwproj, dbproj, dln2w, dln2b, dwfc1, dbfc1, dwfc2, dbfc2};
+  long long len[kParams];
+  param_lengths(C, hidden, len);
+  const StagedGrads<T, kParams> sg(outs, len, wsf + pl.stage);
+  float* const* gs = sg.g32;
+  const Weights<T> wt{p(ln1w), p(ln1b), p(wqkv), p(bqkv), p(wproj), p(bproj),
+                      p(ln2w), p(ln2b), p(wfc1), p(bfc1), p(wfc2), p(bfc2)};
+  const Grads<T> gr{static_cast<T*>(dx), gs[0], gs[1], gs[2], gs[3], gs[4], gs[5], gs[6], gs[7], gs[8], gs[9], gs[10],
+                    gs[11]};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int err = swin_block_bwd<T>(p(x), p(dz), wt, gr, wsf, pl, wsz, shift, eps, s);
+  if (err != cudaSuccess) return err;
+  return sg.cast(s);
 }
 
-extern "C" long long swin_block_bwd_workspace_floats(int B, int H, int W, int C, int heads, int hidden) {
-  return (long long)make_plan(B, H, W, C, heads, hidden).total;
+}  // namespace
+
+// Plain C entry points (loaded with ctypes).  Every pointer is a device pointer,
+// in the I/O type (f32: float, bf16: bfloat16).  Inputs: x and dz (B, H, W, C);
+// the norm weights and biases (C,); Wqkv (3C, C), bqkv (3C,), Wproj (C, C),
+// bproj (C,), Wfc1 (hidden, C), bfc1 (hidden,), Wfc2 (C, hidden), bfc2 (C,).
+// Outputs: dx (B, H, W, C) and the 12 parameter gradients in the same layouts.
+// ws holds swin_block_bwd_workspace_floats(..., bf16) floats.  H and W are
+// multiples of wsz, wsz * wsz <= 64, 0 <= shift < wsz.  Returns the first CUDA
+// error, or 0.
+extern "C" int swin_block_bwd_f32(SWIN_BWD_ARGS) { return swin_block_bwd_entry<float>(SWIN_BWD_PASS); }
+extern "C" int swin_block_bwd_bf16(SWIN_BWD_ARGS) { return swin_block_bwd_entry<__nv_bfloat16>(SWIN_BWD_PASS); }
+
+extern "C" long long swin_block_bwd_workspace_floats(int B, int H, int W, int C, int heads, int hidden, int bf16) {
+  return (long long)make_plan(B, H, W, C, heads, hidden, bf16 != 0).total;
 }

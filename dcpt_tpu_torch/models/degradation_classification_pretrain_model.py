@@ -24,11 +24,12 @@ through ``torch.func.functional_call``, so the gradients flow back through the
 cast into the fp32 masters), on bf16 ``lq`` and ``gt``; the pixel loss is taken
 on ``output.float()`` against the fp32 ``gt`` and the cross-entropy on
 ``logits.float()``; the clip, the optimizers, the schedules and the checkpoints
-stay on the fp32 masters.  On the card the NAFBlocks run K1 and K2 in bf16 and
-the classifier's wide LayerNorms K3 in bf16.  Only NAFNet has the bf16 kernels
-it needs; Restormer, PromptIR and SwinIR raise (ROADMAP Q1 #2: bf16 K7, K9).
-dcpt_tpu's ``batched_trunk``, ``accumulate_steps`` and ``zero_sharding`` are
-not ported yet and raise.
+stay on the fp32 masters.  On the card the blocks run their kernels in bf16,
+each keeping fp32 residuals and doing fp32 math: the NAFBlocks K1 and K2, the
+Restormer / PromptIR TransformerBlocks K6 and K7, the SwinIR Swin blocks K8
+and K9; the classifier's wide LayerNorms are K3 in bf16.  dcpt_tpu's
+``batched_trunk``, ``accumulate_steps`` and ``zero_sharding`` are not ported
+yet and raise.
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ class DCPTModel(DCModel):
     _pixel_input = "gt"
 
     # the restoration nets whose blocks have bf16 kernels for the backward
-    MIXED_PRECISION_ARCHS = ("NAFNetBaseline",)
+    MIXED_PRECISION_ARCHS = ("NAFNetBaseline", "Restormer", "Restormer_origin", "PromptIR", "SwinIR")
 
     def init_training_settings(self) -> None:
         self._check_train_options()
@@ -57,8 +58,8 @@ class DCPTModel(DCModel):
         arch = self.opt["network_g"]["type"]
         if self.mixed_precision and arch not in self.MIXED_PRECISION_ARCHS:
             raise NotImplementedError(
-                f"train.mixed_precision with {arch} is not ported to dcpt_tpu_torch yet: its blocks' backward "
-                "kernels take float32 only (ROADMAP Q1 #2: bf16 K7 for Restormer and PromptIR, bf16 K9 for SwinIR)")
+                f"train.mixed_precision with {arch} is not ported to dcpt_tpu_torch: its blocks have no bf16 "
+                f"backward kernels (the nets that have them: {', '.join(self.MIXED_PRECISION_ARCHS)})")
         self.net_g.train()
         self.net_dc.train()
         self.cri_pixel = build_loss(train_opt["pixel_opt"]) if train_opt.get("pixel_opt") else None

@@ -20,9 +20,9 @@ block runs as ``MDTABlockFunction``, the counterpart of dcpt_tpu's
 ``jax.custom_vjp``: on the card its forward is K6 keeping its residuals (the
 Gram's head blocks, the squared norms, attn, and the maps t, qkv, o, y, u, g
 that the backward reads, see ``csrc/mdta_block_bwd.cu``) and its backward
-kernel K7 (``ops/mdta_block_bwd.py``); on a CPU tensor the same Function runs
-the plain forward and K7's plain version.  Training in bf16 through the
-kernels is not ported yet and raises.
+kernel K7 (``ops/mdta_block_bwd.py``), in fp32 or bf16 (the residuals fp32 in
+both); on a CPU tensor the same Function runs the plain forward and K7's plain
+version.
 """
 
 from __future__ import annotations
@@ -206,7 +206,7 @@ def _kernel_forward(x, params, heads: int, use_softmax: bool, ln_bias: bool, eps
 
 
 class MDTABlockFunction(torch.autograd.Function):
-    """The TransformerBlock with its analytic backward (dcpt_tpu's ``custom_vjp``, fp32).
+    """The TransformerBlock with its analytic backward (dcpt_tpu's ``custom_vjp``), fp32 or bf16.
 
     ``apply(x, heads, use_softmax, ln_bias, eps, *params)``; on the card the
     forward is K6 keeping its residuals and the backward K7, on the CPU both
@@ -239,10 +239,6 @@ def mdta_block_fused(x, n1w, n1b, wqkv, wdwq, temperature, wproj, n2w, n2b, win_
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"mdta_block_fused: no kernel for device {x.device}")
     if torch.is_grad_enabled() and (x.requires_grad or any(p.requires_grad for p in params)):
-        if x.device.type == "cuda" and x.dtype != torch.float32:
-            raise NotImplementedError(
-                f"mdta_block_fused: training in {x.dtype} through the TransformerBlock kernels (mixed precision "
-                "with bf16 K6/K7) is not ported yet (ROADMAP Q1, deferred from slice 4); train in float32")
         return MDTABlockFunction.apply(x, heads, use_softmax, ln_bias, eps, *params)
     if x.device.type == "cpu":
         return mdta_block_ref(x, *params, heads, use_softmax, ln_bias, eps)

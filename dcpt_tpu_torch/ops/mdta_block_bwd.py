@@ -10,9 +10,14 @@ temperature (heads, 1, 1)).
   backward; the C-space step: activation, temperature and L2-norm backward;
   B2: the qkv-prefix backward), not as autograd of the plain forward.
 * ``mdta_block_bwd``: on a CUDA tensor it launches ``csrc/mdta_block_bwd.cu``
-  (fp32) with the residuals K6 kept, or raises; on a CPU tensor it returns
+  (fp32 or bf16 x, dz and parameters; K6's residuals fp32; fp32 math) with the
+  residuals K6 kept, or raises; on a CPU tensor it returns
   ``mdta_block_bwd_ref``.  ``mdta_block_bwd.launches`` counts the calls that
   launched the kernel.
+
+Both compute in fp32 (the plain version in float64 for float64 inputs) and
+return each cotangent in its primal's dtype, as dcpt_tpu's kernel does for
+bf16 primals (its ``mdta_block_bwd.py:441``).
 
 BiasFree blocks return zero LayerNorm-bias cotangents, as dcpt_tpu does: their
 bias is not a parameter (``archs/restormer_arch.py``'s ``affine``).
@@ -28,7 +33,7 @@ import torch.nn.functional as F
 
 from .cuda_build import load_library
 from .mdta_block import _check as check_forward
-from .mdta_block import _dwconv, torch_layout
+from .mdta_block import _dwconv, _wide, torch_layout
 
 _TAPS = [(dy, dx) for dy in range(3) for dx in range(3)]
 
@@ -89,10 +94,15 @@ def cspace_bwd_ref(dattn, attn, gram, qn2, kn2, temperature, heads: int, use_sof
 
 def mdta_block_bwd_ref(x, n1w, n1b, wqkv, wdwq, temperature, wproj, n2w, n2b, win_, wdwf, wout,
                        gram, qn2, kn2, attn, dz, heads: int, use_softmax: bool, ln_bias: bool, eps: float):
-    """All 12 cotangents of mdta_block_ref in fp32 (dcpt_tpu's mdta_block_bwd, plain).
+    """All 12 cotangents of mdta_block_ref (dcpt_tpu's mdta_block_bwd, plain):
+    computed in fp32 (float64 for float64 inputs) from inputs of any float
+    dtype, each returned in its primal's dtype.
 
     ``gram`` (B, C, ch), ``qn2``, ``kn2`` (B, C) and ``attn`` (B, C, C) are the
     forward's residuals; everything else is recomputed from x."""
+    primals = (x, n1w, n1b, wqkv, wdwq, temperature, wproj, n2w, n2b, win_, wdwf, wout)
+    x, n1w, n1b, wqkv, wdwq, temperature, wproj, n2w, n2b, win_, wdwf, wout, gram, qn2, kn2, attn, dz = (
+        _wide(t) for t in (*primals, gram, qn2, kn2, attn, dz))
     c = x.shape[-1]
     f = wout.shape[0]
     sums = (0, 1, 2)
@@ -142,7 +152,11 @@ def mdta_block_bwd_ref(x, n1w, n1b, wqkv, wdwq, temperature, wproj, n2w, n2b, wi
     dn1w = (dln1 * xh1).sum(sums)
     dn1b = dln1.sum(sums) if ln_bias else torch.zeros_like(n1b)
     dx = dy + _ln_bwd(dln1 * n1w, x, xh1, mu1, inv1, ln_bias)
-    return dx, dn1w, dn1b, dwqkv, dwdwq, dtemp, dwproj, dn2w, dn2b, dwin, dwdwf, dwout
+    grads = (dx, dn1w, dn1b, dwqkv, dwdwq, dtemp, dwproj, dn2w, dn2b, dwin, dwdwf, dwout)
+    return tuple(g.to(p.dtype) for g, p in zip(grads, primals))
+
+
+_ENTRY = {torch.float32: "mdta_block_bwd_f32", torch.bfloat16: "mdta_block_bwd_bf16"}
 
 
 @functools.cache
@@ -152,18 +166,17 @@ def _lib() -> ctypes.CDLL:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C entry points of a build of ``csrc/mdta_block_bwd.cu``."""
-    lib.mdta_block_bwd_f32.argtypes = [ctypes.c_void_p] * 36 + [ctypes.c_int] * 8 + [ctypes.c_float,
-                                                                                     ctypes.c_void_p]
-    lib.mdta_block_bwd_f32.restype = ctypes.c_int
-    lib.mdta_block_bwd_workspace_floats.argtypes = [ctypes.c_int] * 6
+    for name in _ENTRY.values():
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 36 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.mdta_block_bwd_workspace_floats.argtypes = [ctypes.c_int] * 7
     lib.mdta_block_bwd_workspace_floats.restype = ctypes.c_longlong
     return lib
 
 
 def _check(x, params, dz, res, heads: int) -> None:
     check_forward(x, params, heads)
-    if x.dtype != torch.float32:
-        raise TypeError(f"mdta_block_bwd: the kernel takes float32, got {x.dtype}")
     b, h, w, c = x.shape
     f, ch = params[-1].shape[0], c // heads
     shapes = [(b, h, w, c), (b, c, ch), (b, c), (b, c), (b, c, c), (b, h, w, 3 * c), (b, h, w, 3 * c), (b, h, w, c),
@@ -172,27 +185,33 @@ def _check(x, params, dz, res, heads: int) -> None:
     if len(res) != 10:
         raise ValueError("mdta_block_bwd: the kernel needs K6's residuals (gram, qn2, kn2, attn, t, qkv, o, y, u, g)")
     for name, m, shape in zip(names, [dz, *res], shapes):
-        if tuple(m.shape) != shape or m.dtype != torch.float32 or m.device != x.device or not m.is_contiguous():
-            raise ValueError(f"mdta_block_bwd: {name} is {tuple(m.shape)} {m.dtype} on {m.device}, the kernel "
-                             f"takes a contiguous {shape} float32 on {x.device}")
+        dtype = x.dtype if name == "dz" else torch.float32
+        if tuple(m.shape) != shape or not m.is_contiguous():
+            raise ValueError(f"mdta_block_bwd: {name} is {tuple(m.shape)} with strides {m.stride()}, the kernel "
+                             f"takes a contiguous {shape}")
+        if m.dtype != dtype or m.device != x.device:
+            raise TypeError(f"mdta_block_bwd: {name} is {m.dtype} on {m.device}, the kernel takes {dtype} on "
+                            f"{x.device} (dz in x's dtype, K6's residuals float32)")
 
 
 def _launch(lib, x, params, dz, res, heads: int, use_softmax: bool, ln_bias: bool, eps: float, stream: int):
-    """Allocate the cotangents and workspace and run the kernel's C entry on
-    ``stream``; returns the 12 cotangents in the op's layouts."""
+    """Allocate the cotangents (in x's dtype) and the fp32 workspace and run the
+    kernel's C entry on ``stream``; returns the 12 cotangents in the op's layouts."""
     b, h, w, c = x.shape
     f = params[-1].shape[0]
-    f32 = dict(dtype=torch.float32, device=x.device)
+    io = dict(dtype=x.dtype, device=x.device)
     # PyTorch's layouts: 1x1 weights (out, in), the depthwise gradients (3, 3, D), temperature (heads,)
-    grads = [torch.empty_like(x), torch.empty(c, **f32), torch.empty(c, **f32), torch.empty((3 * c, c), **f32),
-             torch.empty((3, 3, 3 * c), **f32), torch.empty(heads, **f32), torch.empty((c, c), **f32),
-             torch.empty(c, **f32), torch.empty(c, **f32), torch.empty((2 * f, c), **f32),
-             torch.empty((3, 3, 2 * f), **f32), torch.empty((c, f), **f32)]
-    ws = torch.empty(lib.mdta_block_bwd_workspace_floats(b, h, w, c, f, heads), **f32)
+    grads = [torch.empty_like(x), torch.empty(c, **io), torch.empty(c, **io), torch.empty((3 * c, c), **io),
+             torch.empty((3, 3, 3 * c), **io), torch.empty(heads, **io), torch.empty((c, c), **io),
+             torch.empty(c, **io), torch.empty(c, **io), torch.empty((2 * f, c), **io),
+             torch.empty((3, 3, 2 * f), **io), torch.empty((c, f), **io)]
+    ws = torch.empty(lib.mdta_block_bwd_workspace_floats(b, h, w, c, f, heads, int(x.dtype == torch.bfloat16)),
+                     dtype=torch.float32, device=x.device)
     weights = torch_layout(params)  # held until the kernel has read them
-    err = lib.mdta_block_bwd_f32(x.data_ptr(), dz.data_ptr(), *(p.data_ptr() for p in weights),
-                                 *(r.data_ptr() for r in res), *(g.data_ptr() for g in grads), ws.data_ptr(),
-                                 b, h, w, c, f, heads, int(use_softmax), int(ln_bias), eps, stream)
+    err = getattr(lib, _ENTRY[x.dtype])(x.data_ptr(), dz.data_ptr(), *(p.data_ptr() for p in weights),
+                                            *(r.data_ptr() for r in res), *(g.data_ptr() for g in grads),
+                                            ws.data_ptr(), b, h, w, c, f, heads, int(use_softmax), int(ln_bias), eps,
+                                            stream)
     if err != 0:
         raise RuntimeError(f"mdta_block_bwd kernel launch failed with CUDA error {err}")
     # back to the op's layouts: every 1x1 weight gradient (in, out), temperature (heads, 1, 1)

@@ -11,9 +11,14 @@ the op's layouts (every Linear weight (in, out), every norm weight and bias (C,)
   then the MLP, LN2, proj, per-head attention, qkv and LN1 backward), not as
   autograd of the plain forward.
 * ``swin_block_bwd``: on a CUDA tensor it launches ``csrc/swin_block_bwd.cu``
-  (fp32), which recomputes the forward from x alone, or raises; on a CPU
-  tensor it returns ``swin_block_bwd_ref``.  ``swin_block_bwd.launches``
-  counts the calls that launched the kernel.
+  (fp32 or bf16 x, dz and parameters, fp32 math), which recomputes the
+  forward from x alone, or raises; on a CPU tensor it returns
+  ``swin_block_bwd_ref``.  ``swin_block_bwd.launches`` counts the calls that
+  launched the kernel.
+
+Both compute in fp32 (the plain version in float64 for float64 inputs) and
+return each cotangent in its primal's dtype, as dcpt_tpu's kernel does
+(its ``swin_block_bwd.py:209``).
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import functools
 import torch
 
 from .cuda_build import load_library
+from .mdta_block import _wide
 from .mdta_block_bwd import _ln_bwd, _ln_fwd
 from .window_attention import _MAX_SMEM_BYTES, MAX_TOKENS, _block_shapes, _check, window_partition, window_reverse
 
@@ -44,7 +50,12 @@ def _windows(t: torch.Tensor, ws: int, shift: int) -> torch.Tensor:
 
 def swin_block_bwd_ref(x, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w, ln2_b, wfc1, bfc1, wfc2, bfc2, dz,
                        num_heads: int, ws: int, shift: int, eps: float = 1e-5):
-    """All 13 cotangents of ``swin_block_map_ref`` (dcpt_tpu's swin_block_bwd, plain)."""
+    """All 13 cotangents of ``swin_block_map_ref`` (dcpt_tpu's swin_block_bwd, plain):
+    computed in fp32 (float64 for float64 inputs) from inputs of any float
+    dtype, each returned in its primal's dtype."""
+    primals = (x, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w, ln2_b, wfc1, bfc1, wfc2, bfc2)
+    x, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w, ln2_b, wfc1, bfc1, wfc2, bfc2, dz = (
+        _wide(t) for t in (*primals, dz))
     b, h, w, c = x.shape
     hd = c // num_heads
     scale = hd ** -0.5
@@ -100,7 +111,11 @@ def swin_block_bwd_ref(x, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w, ln2_b, 
     dx = window_reverse(dxw, ws, h, w)
     if shift:
         dx = torch.roll(dx, (shift, shift), dims=(1, 2))
-    return dx, dln1_w, dln1_b, dwqkv, dbqkv, dwproj, dbproj, dln2_w, dln2_b, dwfc1, dbfc1, dwfc2, dbfc2
+    grads = (dx, dln1_w, dln1_b, dwqkv, dbqkv, dwproj, dbproj, dln2_w, dln2_b, dwfc1, dbfc1, dwfc2, dbfc2)
+    return tuple(g.to(p.dtype) for g, p in zip(grads, primals))
+
+
+_ENTRY = {torch.float32: "swin_block_bwd_f32", torch.bfloat16: "swin_block_bwd_bf16"}
 
 
 @functools.cache
@@ -110,18 +125,17 @@ def _lib() -> ctypes.CDLL:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C entry points of a build of ``csrc/swin_block_bwd.cu``."""
-    lib.swin_block_bwd_f32.argtypes = [ctypes.c_void_p] * 28 + [ctypes.c_int] * 8 + [ctypes.c_float,
-                                                                                     ctypes.c_void_p]
-    lib.swin_block_bwd_f32.restype = ctypes.c_int
-    lib.swin_block_bwd_workspace_floats.argtypes = [ctypes.c_int] * 6
+    for name in _ENTRY.values():
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 28 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.swin_block_bwd_workspace_floats.argtypes = [ctypes.c_int] * 7
     lib.swin_block_bwd_workspace_floats.restype = ctypes.c_longlong
     return lib
 
 
 def _check_bwd(x, params, dz, heads: int, ws: int, shift: int) -> None:
     _check("swin_block_bwd", x, params, _block_shapes(x.shape[3], params[8].shape[1]), heads, ws, shift)
-    if x.dtype != torch.float32:
-        raise TypeError(f"swin_block_bwd: the kernel takes float32, got {x.dtype}")
     if dz.shape != x.shape or dz.dtype != x.dtype or dz.device != x.device or not dz.is_contiguous():
         raise ValueError(f"swin_block_bwd: dz is {tuple(dz.shape)} {dz.dtype} on {dz.device}, the kernel takes a "
                          f"contiguous {tuple(x.shape)} {x.dtype} on {x.device}")
@@ -131,22 +145,24 @@ def _check_bwd(x, params, dz, heads: int, ws: int, shift: int) -> None:
 
 
 def _launch(lib, x, params, dz, heads: int, ws: int, shift: int, eps: float, stream: int):
-    """Allocate the cotangents and the workspace and run the kernel's C entry on
-    ``stream``; returns the 13 cotangents in the op's layouts.  The kernel reads
-    and writes every Linear weight in PyTorch's (out, in) layout, so a module's
-    ``.t()`` view comes back as its parameter with no copy."""
+    """Allocate the cotangents (in x's dtype) and the fp32 workspace and run the
+    kernel's C entry on ``stream``; returns the 13 cotangents in the op's
+    layouts.  The kernel reads and writes every Linear weight in PyTorch's
+    (out, in) layout, so a module's ``.t()`` view comes back as its parameter
+    with no copy."""
     b, h, w, c = x.shape
     hidden = params[8].shape[1]
-    f32 = dict(dtype=torch.float32, device=x.device)
-    grads = [torch.empty_like(x), torch.empty(c, **f32), torch.empty(c, **f32), torch.empty((3 * c, c), **f32),
-             torch.empty(3 * c, **f32), torch.empty((c, c), **f32), torch.empty(c, **f32), torch.empty(c, **f32),
-             torch.empty(c, **f32), torch.empty((hidden, c), **f32), torch.empty(hidden, **f32),
-             torch.empty((c, hidden), **f32), torch.empty(c, **f32)]
-    work = torch.empty(lib.swin_block_bwd_workspace_floats(b, h, w, c, heads, hidden), **f32)
+    io = dict(dtype=x.dtype, device=x.device)
+    grads = [torch.empty_like(x), torch.empty(c, **io), torch.empty(c, **io), torch.empty((3 * c, c), **io),
+             torch.empty(3 * c, **io), torch.empty((c, c), **io), torch.empty(c, **io), torch.empty(c, **io),
+             torch.empty(c, **io), torch.empty((hidden, c), **io), torch.empty(hidden, **io),
+             torch.empty((c, hidden), **io), torch.empty(c, **io)]
+    work = torch.empty(lib.swin_block_bwd_workspace_floats(b, h, w, c, heads, hidden, int(x.dtype == torch.bfloat16)),
+                       dtype=torch.float32, device=x.device)
     weights = [t.t().contiguous() if t.dim() == 2 else t.contiguous() for t in params]  # held until read
-    err = lib.swin_block_bwd_f32(x.data_ptr(), dz.data_ptr(), *(p.data_ptr() for p in weights),
-                                 *(g.data_ptr() for g in grads), work.data_ptr(), b, h, w, c, heads, ws, shift,
-                                 hidden, eps, stream)
+    err = getattr(lib, _ENTRY[x.dtype])(x.data_ptr(), dz.data_ptr(), *(p.data_ptr() for p in weights),
+                                        *(g.data_ptr() for g in grads), work.data_ptr(), b, h, w, c, heads, ws, shift,
+                                        hidden, eps, stream)
     if err != 0:
         raise RuntimeError(f"swin_block_bwd kernel launch failed with CUDA error {err}")
     return tuple(g.t() if g.dim() == 2 else g for g in grads)

@@ -223,7 +223,7 @@ def _differentiated(x, params) -> bool:
 
 
 class SwinBlockFunction(torch.autograd.Function):
-    """The whole Swin block with its analytic backward (dcpt_tpu's ``custom_vjp``, fp32).
+    """The whole Swin block with its analytic backward (dcpt_tpu's ``custom_vjp``), fp32 or bf16.
 
     ``apply(x, heads, ws, shift, eps, *params)``; on the card the forward is K8,
     which keeps nothing but x and the parameters, and the backward K9, which
@@ -256,10 +256,6 @@ def fused_swin_block(x, ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w, ln2_b, wf
     params = [ln1_w, ln1_b, wqkv, bqkv, wproj, bproj, ln2_w, ln2_b, wfc1, bfc1, wfc2, bfc2]
     _device_ok("fused_swin_block", x)
     if _differentiated(x, params):
-        if x.device.type == "cuda" and x.dtype != torch.float32:
-            raise NotImplementedError(
-                f"fused_swin_block: training in {x.dtype} through the Swin block kernels (mixed precision with a "
-                "bf16 K9) is not ported yet (ROADMAP Q1 #2); train in float32")
         return SwinBlockFunction.apply(x, num_heads, ws, shift, eps, *params)
     if x.device.type == "cpu":
         return swin_block_map_ref(x, *params, num_heads, ws, shift, eps)

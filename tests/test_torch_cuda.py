@@ -328,16 +328,31 @@ def test_k6_is_deterministic_and_returns_its_residuals(cuda):
     assert u.shape == (1, 40, 40, 510) and g.shape == (1, 40, 40, 255)
 
 
-def test_k6_raises_under_autograd(cuda):
-    """Training in bf16 through K6 / K7 is not ported: under autograd a bf16 block raises before any launch."""
-    x, params = _mdta_inputs(1, 8, 8, 48, 1, seed=0, device=cuda, dtype=torch.bfloat16)
-    params[2].requires_grad_()
-    before = tmb.mdta_block_fused.launches
-    with pytest.raises(NotImplementedError, match="mixed precision"):
-        tmb.mdta_block_fused(x, *params, 1, False, False)
-    assert tmb.mdta_block_fused.launches == before
-    with torch.no_grad():
-        assert tmb.mdta_block_fused(x, *params, 1, False, False).grad_fn is None
+# (B, H, W, C, heads), flavour: Restormer's first stage in its flavour at B = 2, and a
+# ragged map with two 48-wide heads in PromptIR's
+@pytest.mark.parametrize("shape,flavour", [((2, 32, 32, 48, 1), (False, False, 1e-6)),
+                                           ((1, 21, 13, 96, 2), (True, True, 1e-5))])
+def test_bf16_transformer_block_trains_through_k6_and_k7(cuda, shape, flavour):
+    """A bf16 TransformerBlock under autograd is MDTABlockFunction: K6 in bf16 keeping
+    fp32 residuals (the bits its fp32 entry writes for the same values), then K7 in
+    bf16; every cotangent bf16 and within 2e-2 of max(1, max|ref|) of the plain
+    backward (fp32 math on the same bf16 inputs and residuals); K7 twice gives equal bits."""
+    b, h, w, c, heads = shape
+    x, params = _mdta_inputs(b, h, w, c, heads, seed=5, device=cuda, dtype=torch.bfloat16)
+    leaves = [t.clone().requires_grad_() for t in (x, *params)]
+    dz = torch.randn(x.shape, generator=torch.Generator().manual_seed(6)).to(cuda, torch.bfloat16)
+    before = (tmb.mdta_block_fused.launches, tmbb.mdta_block_bwd.launches)
+    tmb.mdta_block_fused(leaves[0], *leaves[1:], heads, *flavour).backward(dz)
+    assert (tmb.mdta_block_fused.launches, tmbb.mdta_block_bwd.launches) == (before[0] + 1, before[1] + 1)
+    _, res = tmb._kernel_forward(x, params, heads, *flavour, residuals=True)
+    _, res32 = tmb._kernel_forward(x.float(), [p.float() for p in params], heads, *flavour, residuals=True)
+    again = tmbb.mdta_block_bwd(x, *params, dz, res, heads, *flavour)
+    ref = tmbb.mdta_block_bwd_ref(x, *params, *res[:4], dz, heads, *flavour)
+    torch.cuda.synchronize()
+    assert all(r.dtype == torch.float32 and torch.equal(r, r32) for r, r32 in zip(res, res32))
+    for i, (leaf, r, a) in enumerate(zip(leaves, ref, again)):
+        assert leaf.grad.dtype == torch.bfloat16 and torch.equal(leaf.grad, a), i
+        assert _rel(leaf.grad.float(), r.float()) <= 2e-2, (i, _rel(leaf.grad.float(), r.float()))
 
 
 # (B, H, W, C, heads), flavour: a Restormer stage, a ragged map with a 96-wide head,
@@ -478,17 +493,40 @@ def test_k10_matches_plain(cuda, shape, dtype, tol, with_ln):
     assert _rel(out.float(), ref) <= tol, _rel(out.float(), ref)
 
 
-def test_swin_kernels_raise_under_autograd(cuda):
-    """Training in bf16 through K8 / K9 is not ported: under autograd a bf16 Swin
-    block raises before any launch, naming ROADMAP Q1 #2; without autograd it runs."""
-    x, params = _swin_inputs(1, 8, 8, 12, 2, 24, seed=0, device=cuda, dtype=torch.bfloat16)
-    params[2].requires_grad_()
+def test_bf16_swin_block_trains_through_k8_and_k9(cuda):
+    """A bf16 Swin block under autograd at the shipped width is SwinBlockFunction:
+    K8 then K9 in bf16; every cotangent bf16 and within 2e-2 of max(1, max|ref|)
+    of the plain backward (fp32 math on the same bf16 inputs); K9 twice gives
+    equal bits.  On the DCPT_TPU_SWIN_BLOCK=0 route the attention branch is
+    WindowAttentionFunction (K10 in bf16, the plain version's VJP in bf16), its
+    cotangents within 2e-2 of the fp32 VJP on the same values."""
+    b, h, w, c, heads, hidden, ws, shift = 2, 16, 16, 180, 6, 360, 8, 4
+    x, params = _swin_inputs(b, h, w, c, heads, hidden, seed=7, device=cuda, dtype=torch.bfloat16)
+    leaves = [t.clone().requires_grad_() for t in (x, *params)]
+    dz = torch.randn(x.shape, generator=torch.Generator().manual_seed(8)).to(cuda, torch.bfloat16)
     before = (twa.fused_swin_block.launches, tsbb.swin_block_bwd.launches)
-    with pytest.raises(NotImplementedError, match="Q1 #2"):
-        twa.fused_swin_block(x, *params, 2, 4, 2)
-    assert (twa.fused_swin_block.launches, tsbb.swin_block_bwd.launches) == before
-    with torch.no_grad():
-        assert twa.fused_swin_block(x, *params, 2, 4, 2).grad_fn is None
+    twa.fused_swin_block(leaves[0], *leaves[1:], heads, ws, shift).backward(dz)
+    assert (twa.fused_swin_block.launches, tsbb.swin_block_bwd.launches) == (before[0] + 1, before[1] + 1)
+    again = tsbb.swin_block_bwd(x, *params, dz, heads, ws, shift)
+    ref = tsbb.swin_block_bwd_ref(x, *params, dz, heads, ws, shift)
+    torch.cuda.synchronize()
+    for i, (leaf, r, a) in enumerate(zip(leaves, ref, again)):
+        assert leaf.grad.dtype == torch.bfloat16 and torch.equal(leaf.grad, a), i
+        assert _rel(leaf.grad.float(), r.float()) <= 2e-2, (i, _rel(leaf.grad.float(), r.float()))
+
+    attn = [x, *params[:6]]  # x, LN1's weight and bias, qkv and proj
+
+    def branch_grads(tensors):
+        leaves = [t.clone().requires_grad_() for t in tensors]
+        twa.fused_window_attention_ln(leaves[0], *leaves[1:], heads, ws, shift).backward(dz.to(tensors[0].dtype))
+        return [t.grad for t in leaves]
+
+    before = twa.fused_window_attention.launches
+    got = branch_grads(attn)
+    assert twa.fused_window_attention.launches == before + 1
+    want = branch_grads([t.float() for t in attn])
+    for i, (g, r) in enumerate(zip(got, want)):
+        assert g.dtype == torch.bfloat16 and _rel(g.float(), r) <= 2e-2, (i, _rel(g.float(), r))
 
 
 # (B, H, W, C, heads, ws, shift): the shipped width across the seam, a ragged

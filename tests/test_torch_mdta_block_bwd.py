@@ -116,7 +116,8 @@ def test_head_blocks_and_cspace_step():
 
 
 def test_kernel_wrapper_checks_its_inputs():
-    """What the CUDA path refuses, checked before any launch: bf16, and residuals of the wrong shape or number."""
+    """What the CUDA path refuses, checked before any launch: residuals of the wrong
+    shape or number, and a dtype mix (bf16 x and parameters take a bf16 dz and fp32 residuals)."""
     x, params = block_inputs(1, 4, 6)
     xt, pt = torch.from_numpy(x), [torch.from_numpy(p) for p in params]
     b, h, w, c = x.shape
@@ -129,5 +130,11 @@ def test_kernel_wrapper_checks_its_inputs():
         tmbb._check(xt, pt, dz, res[:8] + [torch.zeros(b, h, w, f)] + res[9:], HEADS)
     with pytest.raises(ValueError, match="residuals"):
         tmbb._check(xt, pt, dz, res[:4], HEADS)
-    with pytest.raises(TypeError):
+    tmbb._check(xt.bfloat16(), [p.bfloat16() for p in pt], dz.bfloat16(), res, HEADS)
+    with pytest.raises(TypeError, match="dz is"):
         tmbb._check(xt.bfloat16(), [p.bfloat16() for p in pt], dz, res, HEADS)
+    with pytest.raises(TypeError, match="attn is"):
+        tmbb._check(xt.bfloat16(), [p.bfloat16() for p in pt], dz.bfloat16(), res[:3] + [res[3].bfloat16()] + res[4:],
+                    HEADS)
+    with pytest.raises(TypeError):
+        tmbb._check(xt.bfloat16(), pt, dz.bfloat16(), res, HEADS)
