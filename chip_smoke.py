@@ -121,7 +121,22 @@ Phases, each of which raises on failure (exit code 1):
    and moments; every K7 (K9) call of a batch-8 step against its plain
    version; the ms per step and peak memory beside the fp32 step and the
    plain bf16 path; five steps' losses from the same weights on one batch in
-   bf16 and in fp32.
+   bf16 and in fp32;
+22. dcpt_tpu's standalone ops, which no net of dcpt_tpu calls, TF32 off: K11
+   (``window_partition_fused`` / ``window_reverse_fused``) on SwinIR's 128 x
+   128 x 180 map at B = 1 and 8, shifts 0 and 4, exact; K12
+   (``fused_bias_leaky_relu``, forward and backward) at (8, 64, 64, 512); K14
+   (``fused_ln_proj``) at the Restormer and PromptIR projections of a 128 x 128
+   forward in both LayerNorm flavours; K5' (``naf_expand``) at NAFNet-w64's
+   stages c <= 512; K13 (``mdta_attention``) at the Restormer and PromptIR
+   attentions (and enc1 at B = 8); fp32 and bf16, a ragged shape each, every
+   call twice for equal bits; each kernel's ms beside its plain version's, a
+   library composite's and the bound.  Then the counted path: the shipped
+   ``test_Restormer_5d.yml`` and ``test_PromptIR_5d.yml`` nets at full width
+   on seeded weights, one 128 x 128 forward each with every TransformerBlock
+   through ``_standalone_transformer_forward`` (88 / 94 K14 and 44 / 47 K13
+   launches checked, the output within 1e-4 of the K6 route's), K11's round
+   trip, K12 under autograd and K5' at the NAFNet stages.
 
 The entry points turn cuDNN's algorithm timing on
 (``torch.backends.cudnn.benchmark``), as the reference's do; every phase from
@@ -168,6 +183,12 @@ KERNELS = {
     "swin_block_bwd": ("dcpt_tpu_torch/csrc/swin_block_bwd.cu", "dcpt_tpu/ops/swin_block_bwd.py:159"),
     "naf_prefix": ("dcpt_tpu_torch/csrc/naf_prefix.cu", "dcpt_tpu/ops/naf_prefix.py:147"),
     "naf_ffn": ("dcpt_tpu_torch/csrc/naf_ffn.cu", "dcpt_tpu/ops/naf_ffn.py:169"),
+    "window_partition_fused": ("dcpt_tpu_torch/csrc/window_process.cu", "dcpt_tpu/ops/window_process.py:47"),
+    "window_reverse_fused": ("dcpt_tpu_torch/csrc/window_process.cu", "dcpt_tpu/ops/window_process.py:63"),
+    "fused_bias_leaky_relu": ("dcpt_tpu_torch/csrc/fused_act.cu", "dcpt_tpu/ops/fused_act.py:78"),
+    "fused_ln_proj": ("dcpt_tpu_torch/csrc/ln_proj.cu", "dcpt_tpu/ops/ln_proj.py:75"),
+    "naf_expand": ("dcpt_tpu_torch/csrc/ln_proj.cu", "dcpt_tpu/ops/naf_ffn.py:131"),
+    "mdta_attention": ("dcpt_tpu_torch/csrc/mdta.cu", "dcpt_tpu/ops/mdta.py:158"),
 }
 # the card's peaks (NVIDIA's H100 SXM data sheet): fp32 outside the tensor cores, bf16 on
 # the tensor cores (dense), HBM3
@@ -263,6 +284,19 @@ K45_C, K45_CASES, K45_PER_FORWARD = 512, [(1, 16, 16), (2, 16, 16), (8, 16, 16),
 # the DCPT_TPU_PALLAS=1 DCPT_TPU_NAF_BLOCK=0 eval: the module path, K4 and K5 at c = 512, K3 at the middle block
 PALLAS_ENV = {"DCPT_TPU_PALLAS": "1", "DCPT_TPU_NAF_BLOCK": "0"}
 K3_PER_FORWARD_MODULE = 2  # the c = 1024 middle block's two LayerNorm2d
+# [22], dcpt_tpu's standalone ops, which no net of dcpt_tpu calls.  Limits relative to max(1, max|ref|):
+# K11 exact; K12, K14 and K5' 1e-5 (fp32); K13 1e-4 (fp32, sums over up to 16 k pixels); 2e-2 in bf16
+STANDALONE_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+K13_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+K11_CASES = [(1, 0), (1, 4), (8, 0), (8, 4)]  # (B, shift) on SwinIR's 128 x 128 x 180 map, ws 8
+K12_SHAPE, K12_RAGGED = (8, 64, 64, 512), (3, 5, 37)  # StyleGAN2's width: no shipped net runs the op
+K14_RAGGED = (37, 704, 70)  # (rows, C, C_out)
+K5P_STAGES = [(c, s, n) for c, s, n in STAGES if c <= 512]  # NAFNet-w64's LN -> 1x1 expand, C -> 2C, B = 1
+K5P_RAGGED = (135, 37, 70)
+K13_RAGGED = (3, 37, 1000)  # (BH, c, L)
+# per 128 x 128 forward through _standalone_transformer_forward: two K14 calls and one K13 call a TransformerBlock
+STANDALONE_PER_FORWARD = {"Restormer": {"fused_ln_proj": 88, "mdta_attention": 44},
+                          "PromptIR": {"fused_ln_proj": 94, "mdta_attention": 47}}
 
 
 def card_line() -> str:
@@ -277,7 +311,7 @@ def build_kernels() -> list[float]:
 
     from dcpt_tpu_torch.ops import cuda_build
 
-    libs = [(Path(src).stem, [Path(src).name]) for src, _ in KERNELS.values()]
+    libs = list({Path(src).stem: [Path(src).name] for src, _ in KERNELS.values()}.items())  # one build a source
     with ThreadPoolExecutor(len(libs)) as pool:
         built = list(pool.map(lambda lib: cuda_build.build_library(*lib), libs))
     for lib_path, _ in built:
@@ -1165,6 +1199,25 @@ def _plain_transformer_forward(self, inp):
     x = inp.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
     return mdta_block_ref(x, *self.op_args(), self.attn.num_heads, self.attn.use_softmax, self.norm1.with_bias,
                           self.norm1.eps).permute(0, 3, 1, 2)
+
+
+def _standalone_transformer_forward(self, inp):
+    """TransformerBlock.forward (PromptTransformerBlock's too) through dcpt_tpu's
+    standalone ops, the composition its ``test_mdta_pre_norm_path_matches`` and
+    ``test_restormer_with_pallas_mdta_matches`` assert: ``x + MDTA'(x,
+    pre_norm=norm1)``, then ``+ GDFN(., pre_norm=norm2)``, where the qkv and
+    project_in 1x1s are K14 (``fused_ln_proj``) and MDTA''s attention is K13
+    (``mdta_attention``) on its q, k, v.  A harness, not a shipped route."""
+    from dcpt_tpu_torch.ops.mdta import mdta_attention
+
+    attn = self.attn
+    b, c, h, w = inp.shape
+    heads = attn.num_heads
+    q, k, v = attn.qkv_heads(inp, (*self.norm1.affine(), self.norm1.eps, not self.norm1.with_bias))
+    t = attn.temperature.reshape(1, heads).expand(b, heads).reshape(b * heads)
+    o = mdta_attention(*(u.reshape(b * heads, c // heads, h * w) for u in (q, k, v)), t, attn.use_softmax)
+    x = inp + attn.project_out(o.reshape(b, c, h, w))
+    return x + self.ffn(x, pre_norm=(*self.norm2.affine(), self.norm2.eps, not self.norm2.with_bias))
 
 
 def run_transformer_slices(force: list[str]) -> dict:
@@ -2338,6 +2391,387 @@ def check_bf16_k7_k9() -> dict:
     return {"mdta_block_bwd": k7, "swin_block_bwd": k9}
 
 
+def _rel_err(got, ref) -> tuple[float, float]:
+    """(max |got - ref|, that over max(1, max |ref|)), in fp32."""
+    err = (got.float() - ref.float()).abs().max().item()
+    return err, err / max(1.0, ref.float().abs().max().item())
+
+
+def k14_work(rows: int, c: int, c_out: int, io: int = 4, out_bias: bool = False) -> tuple[float, float]:
+    """(flops, bytes) of one K14 (or K5') call: the product's 2 C C_out and the
+    LayerNorm's ~8 C flops a row; x read, out written, w, the norm's affine (and
+    the output bias) read once, ``io`` bytes an element."""
+    return rows * (2 * c * c_out + 8 * c), io * (rows * (c + c_out) + c * c_out + 2 * c + out_bias * c_out)
+
+
+def k13_work(bh: int, c: int, length: int, io: int = 4) -> tuple[float, float]:
+    """(flops, bytes) of one K13 call: the Gram and attn . v (2 c^2 L flops each)
+    and the norms (4 c L) per head; q, k, v read and out written once."""
+    return bh * (4 * c * c * length + 4 * c * length), io * 4 * bh * c * length
+
+
+def _k14_shapes() -> list[tuple]:
+    """(C, H, blocks, flavour) of the Restormer (BiasFree, 1e-6) and PromptIR (WithBias,
+    1e-5, its noise levels too) projections of a 128 x 128 forward."""
+    return ([(c, s, n, RESTORMER_FLAVOUR) for (c, s, _), n in K6_BODY.items()]
+            + [(c, s, n, PROMPTIR_FLAVOUR) for (c, s, _), n in [*K6_BODY.items(), *K6_NOISE.items()]])
+
+
+def _k13_shapes() -> list[tuple]:
+    """((BH, c, L), blocks, flavour) of the Restormer (ReLU) and PromptIR (softmax) attentions of
+    a 128 x 128 forward: per head a c = C / heads x L = H W block."""
+    return ([((h, c // h, s * s), n, RESTORMER_FLAVOUR) for (c, s, h), n in K6_BODY.items()]
+            + [((h, c // h, s * s), n, PROMPTIR_FLAVOUR) for (c, s, h), n in [*K6_BODY.items(), *K6_NOISE.items()]])
+
+
+def check_standalone() -> dict:
+    """K11, K12, K14, K5' and K13 against their plain versions on the card (TF32
+    off), each call twice for equal bits, at the shapes of the nets' paths
+    (SwinIR's map; StyleGAN2's width; Restormer's and PromptIR's projections and
+    attentions, NAFNet-w64's stages, of a 128 x 128 input) plus a ragged shape
+    each; CUDA-event ms of the kernel, the plain version and one library
+    composite (timed only: the port calls none) beside the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from dcpt_tpu_torch import ops
+    from dcpt_tpu_torch.ops import fused_act, ln_proj, mdta, naf_ffn, window_process
+
+    gen = torch.Generator().manual_seed(22)
+    out = {name: {"max_abs_err": 0.0, "bf16_max_abs_err": 0.0} for name in
+           ("window_partition_fused", "window_reverse_fused", "fused_bias_leaky_relu", "fused_ln_proj", "naf_expand",
+            "mdta_attention")}
+
+    def held(name, dname, got, again, ref, tol, what):
+        if got.shape != ref.shape or not torch.isfinite(got.float()).all():
+            raise RuntimeError(f"[22] {name} {what} {dname}: bad output {tuple(got.shape)} {got.dtype}")
+        if not torch.equal(got, again):
+            raise RuntimeError(f"[22] {name} {what} {dname}: two runs on the same inputs differ")
+        err, rel = _rel_err(got, ref)
+        if rel > tol:
+            raise RuntimeError(f"[22] {name} {what} {dname}: error {rel:.3e} relative, limit {tol:.0e}")
+        key = "max_abs_err" if dname == "float32" else "bf16_max_abs_err"
+        out[name][key] = max(out[name][key], err)
+        return rel
+
+    def rand(*shape, dtype=torch.float32, scale=1.0, shift=0.0):
+        return (torch.randn(*shape, generator=gen) * scale + shift).to(device="cuda", dtype=dtype)
+
+    # K11: SwinIR's map; exact, so the plain version runs in the kernel's dtype
+    print(f"  K11 {'B':>3} {'shift':>5} {'dtype':>9} {'part ms':>8} {'plain':>8} {'library':>8} {'rev ms':>8} "
+          f"{'plain':>8} {'library':>8} {'bound':>8}  (128 x 128 x {SWIN_C}, ws {SWIN_WS}; exact)")
+    k11 = {}
+    for dname in ("float32", "bfloat16"):
+        for b, shift in K11_CASES:
+            x = rand(b, 128, 128, SWIN_C, dtype=getattr(torch, dname))
+            ws = SWIN_WS
+            with torch.no_grad():
+                win, win2 = ops.window_partition_fused(x, ws, shift), ops.window_partition_fused(x, ws, shift)
+                back, back2 = ops.window_reverse_fused(win, ws, 128, 128, shift), \
+                    ops.window_reverse_fused(win, ws, 128, 128, shift)
+                ref = window_process.window_partition_ref(x, ws, shift)
+            held("window_partition_fused", dname, win, win2, ref, 0.0, f"B={b} shift={shift}")
+            held("window_reverse_fused", dname, back, back2, x, 0.0, f"B={b} shift={shift}")
+            if not torch.equal(window_process.window_reverse_ref(win, ws, 128, 128, shift), x):
+                raise RuntimeError(f"[22] window_reverse_ref does not undo the partition at B={b} shift={shift}")
+
+            def library_part():
+                rolled = torch.roll(x, (-shift, -shift), (1, 2)) if shift else x
+                return rolled.view(b, 128 // ws, ws, 128 // ws, ws, -1).permute(0, 1, 3, 2, 4, 5).contiguous()
+
+            def library_rev():
+                y = win.view(b, 128 // ws, 128 // ws, ws, ws, -1).permute(0, 1, 3, 2, 4, 5).reshape(x.shape)
+                return torch.roll(y, (shift, shift), (1, 2)) if shift else y
+
+            if not torch.equal(library_part().view(ref.shape), ref) or \
+                    not torch.equal(library_rev(), x):
+                raise RuntimeError(f"[22] K11's library composite differs at B={b} shift={shift}")
+            with torch.no_grad():
+                t = [cuda_ms(lambda: ops.window_partition_fused(x, ws, shift)),
+                     cuda_ms(lambda: window_process.window_partition_ref(x, ws, shift)), cuda_ms(library_part),
+                     cuda_ms(lambda: ops.window_reverse_fused(win, ws, 128, 128, shift)),
+                     cuda_ms(lambda: window_process.window_reverse_ref(win, ws, 128, 128, shift)), cuda_ms(library_rev)]
+            bound_ms = bound([(1, 0.0, 2 * x.numel() * x.element_size())])[0]
+            k11[(dname, b, shift)] = t + [bound_ms]
+            print(f"  K11 {b:>3} {shift:>5} {dname:>9} " + " ".join(f"{v:>8.4f}" for v in t) + f" {bound_ms:>8.4f}",
+                  flush=True)
+    # per SwinIR forward at B = 1, had it partitioned its windows so: 18 calls at each shift
+    for name, cols in (("window_partition_fused", (0, 1, 2)), ("window_reverse_fused", (3, 4, 5))):
+        per = [SWIN_PER_FORWARD // 2 * (k11[("float32", 1, 0)][i] + k11[("float32", 1, 4)][i]) for i in cols]
+        out[name].update(ms=per[0], plain_ms=per[1], library_ms=per[2],
+                         bound_ms=SWIN_PER_FORWARD * k11[("float32", 1, 0)][6], bound_by="bytes",
+                         bf16_ms=SWIN_PER_FORWARD // 2 * (k11[("bfloat16", 1, 0)][cols[0]]
+                                                          + k11[("bfloat16", 1, 4)][cols[0]]),
+                         b8_ms=k11[("float32", 8, 4)][cols[0]], b8_plain_ms=k11[("float32", 8, 4)][cols[1]],
+                         b8_library_ms=k11[("float32", 8, 4)][cols[2]], b8_bound_ms=k11[("float32", 8, 4)][6])
+
+    # K12, forward and backward; the plain versions in fp32 on the same rounded inputs
+    print(f"  K12 {'shape':>18} {'dtype':>9} {'fwd rel':>9} {'gx rel':>9} {'gb rel':>9} {'fwd ms':>8} {'plain':>8} "
+          f"{'library':>8} {'bound':>8} {'bwd ms':>8} {'plain':>8} {'bound':>8}")
+    for dname in ("float32", "bfloat16"):
+        dtype = getattr(torch, dname)
+        for shape in (K12_SHAPE, K12_RAGGED):
+            x, g = rand(*shape, dtype=dtype), rand(*shape, dtype=dtype)
+            b = rand(shape[-1], dtype=dtype, scale=0.2)
+            x[0, 0] = -b  # x + b == 0: the strict mask takes the slope
+            grads = []
+            for _ in range(2):
+                xr, br = x.clone().requires_grad_(), b.clone().requires_grad_()
+                y = ops.fused_bias_leaky_relu(xr, br)
+                y.backward(g)
+                grads.append((y.detach(), xr.grad, br.grad))
+            ref, mask = fused_act.fused_bias_leaky_relu_ref(x.float(), b.float())
+            gx_ref = fused_act.fused_bias_leaky_relu_bwd_ref(g.float(), mask)
+            what = "x".join(map(str, shape))
+            rels = [held("fused_bias_leaky_relu", dname, a, a2, r, STANDALONE_TOL[dname], what + " " + n)
+                    for (a, a2, r, n) in zip(grads[0], grads[1], (ref, gx_ref, gx_ref.reshape(-1, shape[-1]).sum(0)),
+                                             ("out", "gx", "gb"))]
+            if mask[0, 0].any() or (dname == "float32" and
+                                    not torch.equal(grads[0][1][0, 0], g[0, 0] * 0.2 * 2 ** 0.5)):
+                raise RuntimeError("[22] K12 at x + b == 0: the gradient is not slope * scale * g")
+            lib_rel = _rel_err(F.leaky_relu(x.float() + b.float(), 0.2) * 2 ** 0.5, ref)[1]
+            if lib_rel > LIBRARY_TOL:
+                raise RuntimeError(f"[22] K12's library composite differs by {lib_rel:.3e}")
+            kmask = fused_act._forward(x, b, 0.2, 2 ** 0.5)[1]
+            lib = fused_act._lib()
+            stream = torch.cuda.current_stream().cuda_stream
+            with torch.no_grad():
+                t = [cuda_ms(lambda: ops.fused_bias_leaky_relu(x, b)),
+                     cuda_ms(lambda: fused_act.fused_bias_leaky_relu_ref(x, b)),
+                     cuda_ms(lambda: F.leaky_relu(x + b, 0.2) * 2 ** 0.5),
+                     cuda_ms(lambda: fused_act._launch_bwd(lib, g, kmask, 0.2, 2 ** 0.5, stream)),
+                     cuda_ms(lambda: fused_act.fused_bias_leaky_relu_bwd_ref(g, kmask))]
+            n, io = x.numel(), x.element_size()
+            peak = PEAK_FP32_FLOPS if dname == "float32" else PEAK_BF16_FLOPS
+            fwd_bound, fwd_by = bound([(1, 4.0 * n, 2 * n * io + n + shape[-1] * io)], peak)
+            bwd_bound, _ = bound([(1, 2.0 * n, 2 * n * io + n)], peak)
+            print(f"  K12 {what:>18} {dname:>9} " + " ".join(f"{r:>9.2e}" for r in rels) + " "
+                  + " ".join(f"{v:>8.4f}" for v in (*t[:3], fwd_bound, *t[3:], bwd_bound)), flush=True)
+            if shape == K12_SHAPE:
+                pre = "" if dname == "float32" else "bf16_"
+                out["fused_bias_leaky_relu"].update({
+                    pre + "ms": t[0], pre + "plain_ms": t[1], pre + "library_ms": t[2], pre + "bound_ms": fwd_bound,
+                    pre + "bwd_ms": t[3], pre + "bwd_plain_ms": t[4], pre + "bwd_bound_ms": bwd_bound})
+                if dname == "float32":
+                    out["fused_bias_leaky_relu"]["bound_by"] = fwd_by
+
+    # K14 and K5'; the plain versions in fp32 on the same rounded inputs, the library in fp32
+    print(f"  K14 {'rows':>6} {'C':>4} {'C_out':>5} {'flavour':>9} {'dtype':>9} {'rel':>9} {'lib rel':>9} {'ms':>8} "
+          f"{'plain':>8} {'library':>8} {'bound':>8}")
+    k14 = {}
+
+    def proj_case(name, rows, c, c_out, flavour, dname, timed):
+        dtype = getattr(torch, dname)
+        _, ln_bias, eps = flavour
+        x = rand(rows, c, dtype=dtype, scale=2.0, shift=0.5)
+        ln_w, ln_b = rand(c, dtype=dtype, scale=0.3, shift=1.0), rand(c, dtype=dtype, scale=0.3)
+        if not ln_bias:
+            ln_b = torch.zeros_like(ln_b)
+        w = rand(c, c_out, dtype=dtype, scale=c ** -0.5)
+        if name == "naf_expand":
+            params = [ln_w, ln_b, w, rand(c_out, dtype=dtype, scale=0.3)]
+            fn, ref_fn = (lambda *a: naf_ffn.naf_expand(*a, eps)), (lambda *a: naf_ffn.naf_expand_ref(*a, eps))
+        else:
+            params = [ln_w, ln_b, w]
+            fn = lambda *a: ln_proj.fused_ln_proj(*a, eps, not ln_bias)  # noqa: E731
+            ref_fn = lambda *a: ln_proj.ln_proj_ref(*a, eps, not ln_bias)  # noqa: E731
+        with torch.no_grad():
+            got, again = fn(x, *params), fn(x, *params)
+            ref = ref_fn(x.float(), *[p.float() for p in params])
+        rel = held(name, dname, got, again, ref, STANDALONE_TOL[dname], f"({rows}, {c}) -> {c_out}")
+        t, lib_rel = [float("nan")] * 3, float("nan")
+        if timed:
+
+            def library():
+                h = F.layer_norm(x, (c,), ln_w, ln_b, eps)
+                return F.linear(h, w.t(), params[3] if name == "naf_expand" else None)
+
+            with torch.no_grad():
+                if ln_bias:  # F.layer_norm computes the WithBias flavour: hold it to the same function
+                    lib_rel = _rel_err(library(), ref)[1]
+                    if lib_rel > max(LIBRARY_TOL, STANDALONE_TOL[dname]):
+                        raise RuntimeError(f"[22] {name}'s library composite differs by {lib_rel:.3e}")
+                t = [cuda_ms(lambda: fn(x, *params)), cuda_ms(lambda: ref_fn(x, *params)), cuda_ms(library)]
+        peak = PEAK_FP32_FLOPS if dname == "float32" else PEAK_BF16_FLOPS
+        b_ms, b_by = bound([(1, *k14_work(rows, c, c_out, x.element_size(), name == "naf_expand"))], peak)
+        print(f"  {'K14' if name == 'fused_ln_proj' else 'K5p'} {rows:>6} {c:>4} {c_out:>5} "
+              f"{'WithBias' if ln_bias else 'BiasFree':>9} {dname:>9} {rel:>9.2e} {lib_rel:>9.2e} "
+              + " ".join(f"{v:>8.4f}" for v in (*t, b_ms)), flush=True)
+        return t + [b_ms, b_by]
+
+    for c, s, _, flavour in _k14_shapes():
+        for c_out in (3 * c, 2 * int(2.66 * c)):  # qkv, project_in
+            k14[(c, s, c_out, flavour)] = proj_case("fused_ln_proj", s * s, c, c_out, flavour, "float32", True)
+    bf16_stages = [(c, s) for c, s, _ in K6_BODY if c in (48, 384)]  # the first and the deepest level
+    for c, s in bf16_stages:
+        for flavour in (RESTORMER_FLAVOUR, PROMPTIR_FLAVOUR):
+            for c_out in (3 * c, 2 * int(2.66 * c)):
+                k14[(c, "bf16", c_out, flavour)] = proj_case("fused_ln_proj", s * s, c, c_out, flavour, "bfloat16",
+                                                             True)
+    for dname in ("float32", "bfloat16"):
+        proj_case("fused_ln_proj", *K14_RAGGED, PROMPTIR_FLAVOUR, dname, False)
+    for net, flavour, shapes in (("", RESTORMER_FLAVOUR, K6_BODY.items()),
+                                 ("promptir_", PROMPTIR_FLAVOUR, [*K6_BODY.items(), *K6_NOISE.items()])):
+        calls = [(n, c, s, c_out) for (c, s, _), n in shapes for c_out in (3 * c, 2 * int(2.66 * c))]
+        ms, plain_ms = (sum(n * k14[(c, s, c_out, flavour)][i] for n, c, s, c_out in calls) for i in (0, 1))
+        # F.layer_norm computes the WithBias flavour; its time at the same shapes stands for both
+        lib_ms = sum(n * k14[(c, s, c_out, PROMPTIR_FLAVOUR)][2] for n, c, s, c_out in calls)
+        b_ms, b_by = bound([(n, *k14_work(s * s, c, c_out)) for n, c, s, c_out in calls])
+        out["fused_ln_proj"].update({net + "ms": ms, net + "plain_ms": plain_ms, net + "library_ms": lib_ms,
+                                     net + "bound_ms": b_ms, net + "bound_by": b_by})
+    # one qkv and one project_in call at each of those levels, bf16 beside fp32
+    out["fused_ln_proj"]["bf16_ms"] = sum(k14[(c, "bf16", c_out, RESTORMER_FLAVOUR)][0] for c, _ in bf16_stages
+                                          for c_out in (3 * c, 2 * int(2.66 * c)))
+    out["fused_ln_proj"]["bf16_ms_fp32"] = sum(k14[(c, s, c_out, RESTORMER_FLAVOUR)][0] for c, s in bf16_stages
+                                               for c_out in (3 * c, 2 * int(2.66 * c)))
+    k5p = {}
+    for dname in ("float32", "bfloat16"):
+        for c, s, n in K5P_STAGES:
+            k5p[(dname, c)] = proj_case("naf_expand", s * s, c, 2 * c, PROMPTIR_FLAVOUR[:2] + (1e-6,), dname, True)
+        proj_case("naf_expand", *K5P_RAGGED, PROMPTIR_FLAVOUR[:2] + (1e-6,), dname, False)
+    ms, plain_ms, lib_ms = (sum(n * k5p[("float32", c)][i] for c, _, n in K5P_STAGES) for i in range(3))
+    b_ms, b_by = bound([(n, *k14_work(s * s, c, 2 * c, 4, True)) for c, s, n in K5P_STAGES])
+    out["naf_expand"].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                             bf16_ms=sum(n * k5p[("bfloat16", c)][0] for c, _, n in K5P_STAGES),
+                             bf16_plain_ms=sum(n * k5p[("bfloat16", c)][1] for c, _, n in K5P_STAGES))
+
+    # K13; the plain version in fp32 on the same rounded inputs
+    print(f"  K13 {'BH':>3} {'c':>4} {'L':>6} {'act':>7} {'dtype':>9} {'rel':>9} {'lib rel':>9} {'ms':>8} {'plain':>8} "
+          f"{'library':>8} {'bound':>8}")
+    k13 = {}
+
+    def attn_case(bh, c, length, use_softmax, dname, timed):
+        dtype = getattr(torch, dname)
+        q, k, v = (rand(bh, c, length, dtype=dtype) for _ in range(3))
+        t = (torch.rand(bh, 1, 1, generator=gen) + 0.5).to(device="cuda", dtype=dtype)
+        with torch.no_grad():
+            got, again = mdta.mdta_attention(q, k, v, t, use_softmax), mdta.mdta_attention(q, k, v, t, use_softmax)
+            ref = mdta.mdta_ref(q.float(), k.float(), v.float(), t.float(), use_softmax)
+        act = "softmax" if use_softmax else "relu"
+        rel = held("mdta_attention", dname, got, again, ref, K13_TOL[dname], f"({bh}, {c}, {length}) {act}")
+
+        def library():
+            a = torch.bmm(F.normalize(q, dim=-1), F.normalize(k, dim=-1).transpose(1, 2)) * t
+            return torch.bmm(a.softmax(-1) if use_softmax else F.relu(a), v)
+
+        times, lib_rel = [float("nan")] * 3, float("nan")
+        if timed:
+            with torch.no_grad():
+                lib_rel = _rel_err(library(), ref)[1]
+                if lib_rel > max(LIBRARY_TOL, K13_TOL[dname]):
+                    raise RuntimeError(f"[22] K13's library composite differs by {lib_rel:.3e}")
+                times = [cuda_ms(lambda: mdta.mdta_attention(q, k, v, t, use_softmax)),
+                         cuda_ms(lambda: mdta.mdta_ref(q, k, v, t, use_softmax)), cuda_ms(library)]
+        peak = PEAK_FP32_FLOPS if dname == "float32" else PEAK_BF16_FLOPS
+        b_ms, b_by = bound([(1, *k13_work(bh, c, length, q.element_size()))], peak)
+        print(f"  K13 {bh:>3} {c:>4} {length:>6} {act:>7} {dname:>9} {rel:>9.2e} {lib_rel:>9.2e} "
+              + " ".join(f"{v:>8.4f}" for v in (*times, b_ms)), flush=True)
+        return times + [b_ms, b_by]
+
+    for shape, _, flavour in _k13_shapes():
+        k13[(shape, flavour)] = attn_case(*shape, flavour[0], "float32", True)
+    enc1, latent = _k13_shapes()[0][0], _k13_shapes()[3][0]  # (1, 48, 16384) and (8, 48, 256)
+    b8 = attn_case(8, *enc1[1:], False, "float32", True)  # enc1 at the train ymls' batch
+    for shape in (enc1, latent):
+        for use_softmax in (False, True):
+            k13[(shape, "bf16", use_softmax)] = attn_case(*shape, use_softmax, "bfloat16", True)
+    for dname in ("float32", "bfloat16"):
+        for use_softmax in (False, True):
+            attn_case(*K13_RAGGED, use_softmax, dname, False)
+    for net, flavour in (("", RESTORMER_FLAVOUR), ("promptir_", PROMPTIR_FLAVOUR)):
+        calls = [(shape, n) for shape, n, fl in _k13_shapes() if fl == flavour]
+        ms, plain_ms, lib_ms = (sum(n * k13[(shape, flavour)][i] for shape, n in calls) for i in range(3))
+        b_ms, b_by = bound([(n, *k13_work(*shape)) for shape, n in calls])
+        out["mdta_attention"].update({net + "ms": ms, net + "plain_ms": plain_ms, net + "library_ms": lib_ms,
+                                      net + "bound_ms": b_ms, net + "bound_by": b_by})
+    out["mdta_attention"].update(b8_ms=b8[0], b8_plain_ms=b8[1], b8_library_ms=b8[2], b8_bound_ms=b8[3],
+                                 bf16_ms=k13[(enc1, "bf16", False)][0], bf16_ms_fp32=k13[(enc1, RESTORMER_FLAVOUR)][0])
+    print("  K11-K14 and K5' twice on the same inputs: equal bit for bit at every shape", flush=True)
+    return out
+
+
+def run_standalone_path() -> dict:
+    """The standalone ops through the entry points a user calls, every count set to
+    0 just before: the shipped Restormer and PromptIR eval nets (the ymls'
+    network_g at full width, seeded weights) on one 128 x 128 image each with
+    every TransformerBlock through ``_standalone_transformer_forward`` (K14 at
+    each qkv and project_in, K13 at each attention), launches per forward
+    checked; K11 on SwinIR's map (partition, reverse), K12 forward and backward
+    at StyleGAN2's width and K5' at NAFNet-w64's stages.  Then, outside the
+    counted run, each net's output against its K6 route and both routes'
+    forward times.  Returns the launches and the per-net results."""
+    import torch
+
+    from dcpt_tpu_torch import ops
+    from dcpt_tpu_torch.archs import build_network
+    from dcpt_tpu_torch.archs.restormer_arch import TransformerBlock
+    from dcpt_tpu_torch.utils.options import yaml_load
+
+    counted = [ops.window_partition_fused, ops.window_reverse_fused, ops.fused_bias_leaky_relu, ops.fused_ln_proj,
+               ops.naf_expand, ops.mdta_attention]
+    nets = {}
+    WORK.mkdir(parents=True, exist_ok=True)
+    for seed, (arch, yml) in enumerate(TRANSFORMER_YMLS.items()):
+        ckpt = WORK / f"{arch}_standalone.pth"
+        write_transformer_checkpoint(yml, ckpt, seed=40 + seed)
+        net = build_network(yaml_load(str(yml))["network_g"])
+        net.load_state_dict(torch.load(ckpt, map_location="cpu")["params_ema"], strict=True)
+        nets[arch] = net.cuda().eval()
+    gen = torch.Generator().manual_seed(23)
+    lq = torch.rand(1, 3, 128, 128, generator=gen).cuda()
+    x = torch.randn(1, 128, 128, SWIN_C, generator=gen).cuda()
+    y = torch.randn(*K12_SHAPE, generator=gen).cuda().requires_grad_()
+    b = (0.2 * torch.randn(K12_SHAPE[-1], generator=gen)).cuda().requires_grad_()
+    stages = [(torch.randn(1, s, s, c, generator=gen).cuda(), torch.randn(c, 2 * c, generator=gen).cuda() * c ** -0.5)
+              for c, s, _ in K5P_STAGES]
+    torch.cuda.synchronize()
+
+    for fn in counted:
+        fn.launches = 0
+    ops.fused_bias_leaky_relu.bwd_launches = 0
+    per_net, outs = {}, {}
+    for arch, net in nets.items():
+        before = {"fused_ln_proj": ops.fused_ln_proj.launches, "mdta_attention": ops.mdta_attention.launches}
+        with torch.inference_mode(), mock.patch.object(TransformerBlock, "forward", _standalone_transformer_forward):
+            outs[arch] = net(lq)[0]
+        per_net[arch] = {k: getattr(ops, k).launches - v for k, v in before.items()}
+    with torch.no_grad():
+        back = ops.window_reverse_fused(ops.window_partition_fused(x, SWIN_WS, SWIN_WS // 2), SWIN_WS, 128, 128,
+                                        SWIN_WS // 2)
+    ops.fused_bias_leaky_relu(y, b).square().sum().backward()
+    with torch.no_grad():
+        for h, w1 in stages:
+            c = h.shape[-1]
+            ops.naf_expand(h, torch.ones(c, device="cuda"), torch.zeros(c, device="cuda"), w1,
+                           torch.zeros(2 * c, device="cuda"))
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counted}
+    launches["fused_bias_leaky_relu_bwd"] = ops.fused_bias_leaky_relu.bwd_launches
+    print(f"[22] launches on the path: {launches}", flush=True)
+
+    for arch, net in nets.items():
+        if per_net[arch] != STANDALONE_PER_FORWARD[arch]:
+            raise RuntimeError(f"[22] {arch}: launches {per_net[arch]} per forward, expected "
+                               f"{STANDALONE_PER_FORWARD[arch]}")
+        with torch.inference_mode():
+            ref = net(lq)[0]  # the K6 route
+            with mock.patch.object(TransformerBlock, "forward", _standalone_transformer_forward):
+                path_ms = cuda_ms(lambda: net(lq), iters=5)
+            k6_ms = cuda_ms(lambda: net(lq), iters=5)
+        out = outs[arch]
+        rel = _rel_err(out, ref)[1]
+        print(f"[22] {arch} at 128x128 through K14 + K13 ({per_net[arch]} launches): against the K6 route {rel:.3e} "
+              f"relative to max(1, max|ref|) (limit 1e-4); forward {path_ms:.2f} ms (K6 route {k6_ms:.2f} ms)",
+              flush=True)
+        if out.shape != (1, 3, 128, 128) or not torch.isfinite(out).all() or rel > 1e-4:
+            raise RuntimeError(f"[22] {arch}: output {tuple(out.shape)} against the K6 route {rel:.3e}")
+        per_net[arch].update(rel=rel, path_ms=path_ms, k6_ms=k6_ms)
+    if not torch.equal(back, x) or not torch.isfinite(y.grad).all() or not torch.isfinite(b.grad).all():
+        raise RuntimeError("[22] K11's round trip or K12's gradients are wrong")
+    if min(launches.values()) == 0:
+        raise RuntimeError(f"[22] a kernel of the path was not launched: {launches}")
+    return {"launches": launches, "per_net": per_net}
+
 PHASE_RESULT = "CHIP_SMOKE_PHASE_RESULT "
 # set once torch.profiler has recorded no device time in this process
 _profiler_lost = False
@@ -2408,7 +2842,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     build_s = build_kernels()
-    print(f"[2] built K1, K2, K3, K6, K7, K8, K10, K9, K4, K5 in {', '.join(f'{b:.1f}' for b in build_s)} s (nvcc, in parallel), "
+    print(f"[2] built K1, K2, K3, K6, K7, K8, K10, K9, K4, K5, K11, K12, K14 (with K5'), K13 in "
+          f"{', '.join(f'{b:.1f}' for b in build_s)} s (nvcc, in parallel), "
           f"phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     print("[3] K1 naf_block_fused vs naf_block_ref, B=2, TF32 off", flush=True)
@@ -2524,18 +2959,50 @@ def main() -> int:
     mixed_tf = run_phase(run_mixed_training, in_process, ["Restormer", "PromptIR", "SwinIR"], "[21]",
                          profiles=False)
 
+    print("[22] dcpt_tpu's standalone ops: K11 window_partition_fused / window_reverse_fused, K12 "
+          "fused_bias_leaky_relu, K14 fused_ln_proj, K5' naf_expand, K13 mdta_attention vs their plain versions, TF32 "
+          "off; limits: K11 exact, K12 / K14 / K5' 1e-5 (fp32), K13 1e-4 (fp32), 2e-2 (bf16), relative to max(1, "
+          "max|ref|)", flush=True)
+    standalone = run_phase(check_standalone, profiles=False)
+    path = run_phase(run_standalone_path, profiles=False)
+    for name in ("window_partition_fused", "window_reverse_fused"):
+        k = standalone[name]
+        print(f"[22] {name} per SwinIR forward's worth (36 calls at B=1, 128x128x{SWIN_C}): {k['ms']:.3f} ms (bf16 "
+              f"{k['bf16_ms']:.3f}), plain {k['plain_ms']:.3f} ms, torch.roll + permute().contiguous() "
+              f"{k['library_ms']:.3f} ms, bound {k['bound_ms']:.3f} ms (bytes); one call at B=8: {k['b8_ms']:.3f} ms "
+              f"(library {k['b8_library_ms']:.3f}, bound {k['b8_bound_ms']:.3f})", flush=True)
+    k = standalone["fused_bias_leaky_relu"]
+    print(f"[22] fused_bias_leaky_relu at {K12_SHAPE}: forward {k['ms']:.3f} ms (plain {k['plain_ms']:.3f}, "
+          f"F.leaky_relu(x + b) * scale {k['library_ms']:.3f}, bound {k['bound_ms']:.3f}), backward {k['bwd_ms']:.3f} "
+          f"ms (plain {k['bwd_plain_ms']:.3f}, bound {k['bwd_bound_ms']:.3f}); bf16 forward {k['bf16_ms']:.3f}, "
+          f"backward {k['bf16_bwd_ms']:.3f}", flush=True)
+    for name, calls in (("fused_ln_proj", "88 / 94 calls"), ("mdta_attention", "44 / 47 calls")):
+        k = standalone[name]
+        print(f"[22] {name} per Restormer / PromptIR forward (128x128, {calls}): {k['ms']:.3f} / "
+              f"{k['promptir_ms']:.3f} ms, plain {k['plain_ms']:.3f} / {k['promptir_plain_ms']:.3f}, library "
+              f"{k['library_ms']:.3f} / {k['promptir_library_ms']:.3f}, bound {k['bound_ms']:.3f} / "
+              f"{k['promptir_bound_ms']:.3f} ms ({k['bound_by']})", flush=True)
+    k = standalone["naf_expand"]
+    print(f"[22] naf_expand per NAFNet-w64 forward's worth (35 blocks at C <= 512, B=1, 128x128): {k['ms']:.3f} ms "
+          f"(bf16 {k['bf16_ms']:.3f}), plain {k['plain_ms']:.3f}, F.layer_norm + F.linear {k['library_ms']:.3f}, "
+          f"bound {k['bound_ms']:.3f} ms ({k['bound_by']})", flush=True)
+
     launches = dict(train["launches"], mdta_block_fused=k6_launches["Restormer"],
                     mdta_block_bwd=transformer_train["Restormer"]["launches"]["mdta_block_bwd"],
                     fused_swin_block=swin_slice["launches"]["K8"]["fused_swin_block"],
                     fused_window_attention=swin_slice["launches"]["K10"]["fused_window_attention"],
                     swin_block_bwd=swin_train["launches"]["swin_block_bwd"],
-                    naf_prefix=pallas["launches"]["naf_prefix"], naf_ffn=pallas["launches"]["naf_ffn"])
+                    naf_prefix=pallas["launches"]["naf_prefix"], naf_ffn=pallas["launches"]["naf_ffn"],
+                    **{k: v for k, v in path["launches"].items() if k in KERNELS})
     kernels = []
     for name, measured in (("naf_block_fused", k1), ("naf_block_bwd", k2), ("layer_norm_2d", k3),
                            ("mdta_block_fused", k6), ("mdta_block_bwd", k7),
                            ("fused_swin_block", swin["fused_swin_block"]),
                            ("fused_window_attention", swin["fused_window_attention"]), ("swin_block_bwd", k9),
-                           ("naf_prefix", k45["naf_prefix"]), ("naf_ffn", k45["naf_ffn"])):
+                           ("naf_prefix", k45["naf_prefix"]), ("naf_ffn", k45["naf_ffn"]),
+                           *((name, standalone[name]) for name in ("window_partition_fused", "window_reverse_fused",
+                                                                    "fused_bias_leaky_relu", "fused_ln_proj",
+                                                                    "naf_expand", "mdta_attention"))):
         source, replaces = KERNELS[name]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": launches[name], "max_abs_err": measured["max_abs_err"],
@@ -2572,6 +3039,13 @@ def main() -> int:
         entry.update(launches_per_image=K45_PER_FORWARD, bf16_ms=k45[entry["name"]]["bf16_ms"],
                      bf16_plain_ms=k45[entry["name"]]["bf16_plain_ms"],
                      bf16_max_abs_err=k45[entry["name"]]["bf16_max_abs_err"])
+    # the standalone ops: their extra columns (bf16, backward, B = 8, PromptIR), and the launches per net forward
+    for entry in kernels[10:]:
+        entry.update({k: v for k, v in standalone[entry["name"]].items() if k not in entry})
+    kernels[12]["bwd_launches"] = path["launches"]["fused_bias_leaky_relu_bwd"]
+    for entry in (kernels[13], kernels[15]):
+        entry.update(launches_per_restormer_forward=path["per_net"]["Restormer"][entry["name"]],
+                     launches_per_promptir_forward=path["per_net"]["PromptIR"][entry["name"]])
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.ln_proj import fused_ln_proj
 from ..ops.mdta_block import mdta_block_fused
 from ..utils.registry import ARCH_REGISTRY
 
@@ -71,9 +72,24 @@ class ChannelLayerNorm(nn.Module):
         return out.permute(0, 3, 1, 2)
 
 
+def _ln_conv1x1(x: torch.Tensor, conv: nn.Conv2d, pre_norm) -> torch.Tensor:
+    """``conv(LN(x))`` on an NCHW map as one ``fused_ln_proj`` call on its
+    channels-last view, the bias-free 1x1 weight viewed as (in, out);
+    ``pre_norm`` = (ln_w, ln_b, eps, biasfree), as dcpt_tpu's."""
+    ln_w, ln_b, eps, biasfree = pre_norm
+    c_out, c = conv.weight.shape[:2]
+    out = fused_ln_proj(x.permute(0, 2, 3, 1), ln_w, ln_b, conv.weight.view(c_out, c).t(), eps, biasfree)
+    return out.permute(0, 3, 1, 2)
+
+
 class MDTA(nn.Module):
     """Multi-Dconv-head transposed attention over channels (reference restormer_arch.py:103-145),
-    the plain modules that a ``bias: true`` config runs."""
+    the plain modules that a ``bias: true`` config runs.
+
+    ``pre_norm`` = (ln_w, ln_b, eps, biasfree), as dcpt_tpu's ``MDTA.__call__``:
+    x is then the raw block input, and the LayerNorm and the qkv 1x1 run as one
+    ``fused_ln_proj`` call (kernel K14 on a CUDA tensor), when the module has
+    no bias.  No caller in the port passes it, as in dcpt_tpu."""
 
     def __init__(self, dim: int, num_heads: int, bias: bool = False, use_softmax: bool = False):
         super().__init__()
@@ -83,10 +99,15 @@ class MDTA(nn.Module):
         self.qkv_dwconv = nn.Conv2d(dim * 3, dim * 3, 3, padding=1, groups=dim * 3, bias=bias)
         self.project_out = nn.Conv2d(dim, dim, 1, bias=bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def qkv_heads(self, x: torch.Tensor, pre_norm=None) -> list[torch.Tensor]:
+        """q, k, v as (B, heads, C / heads, H W), after qkv (LN-fused with ``pre_norm``) and qkv_dwconv."""
         b, c, h, w = x.shape
-        q, k, v = (t.reshape(b, self.num_heads, c // self.num_heads, h * w)
-                   for t in self.qkv_dwconv(self.qkv(x)).chunk(3, dim=1))
+        t = _ln_conv1x1(x, self.qkv, pre_norm) if pre_norm is not None and self.qkv.bias is None else self.qkv(x)
+        return [u.reshape(b, self.num_heads, c // self.num_heads, h * w) for u in self.qkv_dwconv(t).chunk(3, dim=1)]
+
+    def forward(self, x: torch.Tensor, pre_norm=None) -> torch.Tensor:
+        b, c, h, w = x.shape
+        q, k, v = self.qkv_heads(x, pre_norm)
         attn = (F.normalize(q, dim=-1) @ F.normalize(k, dim=-1).transpose(-2, -1)) * self.temperature
         attn = attn.softmax(dim=-1) if self.use_softmax else F.relu(attn)
         return self.project_out((attn @ v).reshape(b, c, h, w))
@@ -94,7 +115,8 @@ class MDTA(nn.Module):
 
 class GDFN(nn.Module):
     """Gated-dconv feed-forward network (reference restormer_arch.py:75-100); its
-    convs are bias-free whatever ``bias`` says, as in dcpt_tpu."""
+    convs are bias-free whatever ``bias`` says, as in dcpt_tpu.  ``pre_norm``
+    fuses the preceding LayerNorm into project_in (see MDTA)."""
 
     def __init__(self, dim: int, ffn_expansion_factor: float = 2.66, bias: bool = False):
         super().__init__()
@@ -104,8 +126,9 @@ class GDFN(nn.Module):
         self.dwconv = nn.Conv2d(hidden * 2, hidden * 2, 3, padding=1, groups=hidden * 2, bias=False)
         self.project_out = nn.Conv2d(hidden, dim, 1, bias=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x1, x2 = self.dwconv(self.project_in(x)).chunk(2, dim=1)
+    def forward(self, x: torch.Tensor, pre_norm=None) -> torch.Tensor:
+        x = self.project_in(x) if pre_norm is None else _ln_conv1x1(x, self.project_in, pre_norm)
+        x1, x2 = self.dwconv(x).chunk(2, dim=1)
         return self.project_out(F.gelu(x1) * x2)
 
 

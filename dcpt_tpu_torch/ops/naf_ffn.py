@@ -13,8 +13,18 @@ transposed views, which the wrapper transposes back for free.
   kernel.  Under autograd it runs as ``NAFFFNFunction``: K5 forward, the plain
   version's VJP backward (dcpt_tpu has no backward kernel for it).
 
-dcpt_tpu's ``naf_expand`` (LN -> 1x1, the same file) has no call site there
-and is not ported yet (ROADMAP Q2).
+``naf_expand`` (K5', dcpt_tpu's ``naf_expand`` ``:131``, ``pallas_call``
+``:115``): over (..., c), ``LN(x) @ w1 + b1`` with a WithBias LN (biased
+variance, eps 1e-6 by default) and w1 (c, c_out).  ``naf_expand_ref`` follows
+dcpt_tpu's ``naf_expand_ref``, its math in x's dtype.  On a CUDA tensor it
+launches ``csrc/ln_proj.cu``'s WithBias entry with the output bias (K14's
+kernel, its LN in fp32 in both dtypes) or raises; on a CPU tensor it returns
+the plain version.  ``naf_expand.launches`` counts the calls that launched the
+kernel; under autograd ``NAFExpandFunction`` runs the kernel forward and the
+plain version's VJP backward, as dcpt_tpu's custom VJP.  dcpt_tpu wires it
+into no NAFBlock (``naf_ffn.py:131-141``), and neither does the port.
+dcpt_tpu drops to the plain version at c > 512 or c % 16 != 0; the kernel
+takes every c and c_out.
 """
 
 from __future__ import annotations
@@ -24,6 +34,7 @@ import functools
 
 import torch
 
+from . import ln_proj
 from .cuda_build import load_library
 from .naf_block import layer_norm_last
 
@@ -121,3 +132,52 @@ def naf_ffn(y, ln_w, ln_b, w4, b4, w5, b5, gamma, eps: float = 1e-6) -> torch.Te
 
 
 naf_ffn.launches = 0
+
+
+def naf_expand_ref(x, ln_w, ln_b, w1, b1, eps: float = 1e-6):
+    """LN(x) @ w1 + b1 over (..., c), plain PyTorch, the math in x's dtype (dcpt_tpu's naf_expand_ref)."""
+    mu = x.mean(-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(-1, keepdim=True)
+    return ((x - mu) * torch.rsqrt(var + eps) * ln_w + ln_b) @ w1 + b1
+
+
+def _expand_forward(x, ln_w, ln_b, w1, b1, eps: float) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return naf_expand_ref(x, ln_w, ln_b, w1, b1, eps)
+    c, c_out = x.shape[-1], w1.shape[-1]
+    ln_proj.check("naf_expand", x, [ln_w, ln_b, w1, b1], [(c,), (c,), (c, c_out), (c_out,)])
+    naf_expand.launches += 1
+    with torch.cuda.device(x.device):
+        return ln_proj.launch(ln_proj._lib(), x, ln_w, ln_b, w1, eps, torch.cuda.current_stream().cuda_stream,
+                              bias=b1)
+
+
+class NAFExpandFunction(torch.autograd.Function):
+    """``apply(x, ln_w, ln_b, w1, b1, eps)``: the kernel forward (its plain version
+    on the CPU), the VJP of ``naf_expand_ref`` backward."""
+
+    @staticmethod
+    def forward(ctx, x, ln_w, ln_b, w1, b1, eps):
+        ctx.eps = eps
+        ctx.save_for_backward(x, ln_w, ln_b, w1, b1)
+        return _expand_forward(x, ln_w, ln_b, w1, b1, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = naf_expand_ref(*inputs, ctx.eps)
+        return (*torch.autograd.grad(out, inputs, g), None)
+
+
+def naf_expand(x, ln_w, ln_b, w1, b1, eps: float = 1e-6) -> torch.Tensor:
+    """LN -> 1x1 expand over (..., c) with w1 (c, c_out): the kernel on a CUDA
+    tensor, the plain version on a CPU tensor."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"naf_expand: no kernel for device {x.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, ln_w, ln_b, w1, b1)):
+        return NAFExpandFunction.apply(x, ln_w, ln_b, w1, b1, eps)
+    return _expand_forward(x, ln_w, ln_b, w1, b1, eps)
+
+
+naf_expand.launches = 0

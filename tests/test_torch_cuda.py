@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K10) against their plain versions, on the card.
+"""The port's CUDA kernels (K1-K14, K5') against their plain versions, on the card.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU: a CUDA
 kernel has no CPU mode.  The file imports neither JAX nor dcpt_tpu, so it runs
@@ -20,7 +20,10 @@ from dcpt_tpu_torch.archs.promptir_arch import PromptIR
 from dcpt_tpu_torch.archs import swinir_arch
 from dcpt_tpu_torch.archs.restormer_arch import Restormer, TransformerBlock
 from dcpt_tpu_torch.archs.swinir_arch import SwinIR
+from dcpt_tpu_torch.ops import fused_act as tfa
 from dcpt_tpu_torch.ops import layernorm2d as tln
+from dcpt_tpu_torch.ops import ln_proj as tln_proj
+from dcpt_tpu_torch.ops import mdta as tmd
 from dcpt_tpu_torch.ops import mdta_block as tmb
 from dcpt_tpu_torch.ops import mdta_block_bwd as tmbb
 from dcpt_tpu_torch.ops import naf_block as tnb
@@ -29,6 +32,7 @@ from dcpt_tpu_torch.ops import naf_ffn as tnff
 from dcpt_tpu_torch.ops import naf_prefix as tnpf
 from dcpt_tpu_torch.ops import swin_block_bwd as tsbb
 from dcpt_tpu_torch.ops import window_attention as twa
+from dcpt_tpu_torch.ops import window_process as twp
 
 pytestmark = pytest.mark.cuda
 
@@ -603,4 +607,133 @@ def test_swinir_kernel_path_matches_plain_path(cuda, monkeypatch, block_kernel):
         assert counter.launches == before + 4
         with mock.patch.object(swinir_arch.SwinTransformerBlock, "forward", _plain_swin_forward):
             ref, _ = net(x)
+    assert _rel(out, ref) <= 1e-4
+
+
+# ---- the standalone ops of dcpt_tpu's public API: K11, K12, K13, K14 and K5' ----
+
+STANDALONE_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("shape,shift", [((2, 128, 128, 180), 4), ((1, 128, 128, 180), 0), ((2, 24, 16, 7), 11)])
+def test_window_process_is_exact(cuda, dtype, shape, shift):
+    """K11: the partition equals torch.roll + view bit for bit, the reverse undoes
+    it, two runs give the same bits; each call launches once."""
+    x = (torch.randn(*shape, generator=torch.Generator().manual_seed(1)) * 30).to(cuda, dtype)
+    before = (twp.window_partition_fused.launches, twp.window_reverse_fused.launches)
+    win = twp.window_partition_fused(x, 8, shift)
+    back = twp.window_reverse_fused(win, 8, shape[1], shape[2], shift)
+    assert (twp.window_partition_fused.launches, twp.window_reverse_fused.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(win, twp.window_partition_ref(x, 8, shift)) and torch.equal(back, x)
+    assert torch.equal(win, twp.window_partition_fused(x, 8, shift))
+    with pytest.raises(ValueError, match="multiples"):
+        twp.window_partition_fused(x[:, :-1], 8, shift)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 64, 64, 512), (3, 5, 37)])
+def test_fused_act_forward_and_backward(cuda, dtype, shape):
+    """K12 forward and backward against the plain versions on the card, bit for bit
+    (both round after every operation), twice for equal bits; gb as the sum of gx."""
+    gen = torch.Generator().manual_seed(2)
+    x, g = (torch.randn(*shape, generator=gen).to(cuda, dtype) for _ in range(2))
+    b = torch.randn(shape[-1], generator=gen).to(cuda, dtype)
+    x[0, 0] = -b
+    xr, br = x.clone().requires_grad_(), b.clone().requires_grad_()
+    before = (tfa.fused_bias_leaky_relu.launches, tfa.fused_bias_leaky_relu.bwd_launches)
+    out = tfa.fused_bias_leaky_relu(xr, br)
+    out.backward(g)
+    assert (tfa.fused_bias_leaky_relu.launches, tfa.fused_bias_leaky_relu.bwd_launches) == (before[0] + 1,
+                                                                                          before[1] + 1)
+    ref, mask = tfa.fused_bias_leaky_relu_ref(x, b)
+    gx = tfa.fused_bias_leaky_relu_bwd_ref(g, mask)
+    assert torch.equal(out, ref) and torch.equal(xr.grad, gx)
+    assert _rel(br.grad.float(), gx.float().reshape(-1, shape[-1]).sum(0)) <= STANDALONE_TOL[dtype]
+    assert torch.equal(tfa.fused_bias_leaky_relu(x, b), out.detach())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op,rows,c,c_out,biasfree", [("ln_proj", 16384, 48, 144, True),
+                                                      ("ln_proj", 4096, 96, 254, False),
+                                                      ("ln_proj", 37, 704, 70, False),
+                                                      ("naf_expand", 256, 512, 1024, False),
+                                                      ("naf_expand", 135, 37, 70, False)])
+def test_ln_proj_and_naf_expand(cuda, dtype, op, rows, c, c_out, biasfree):
+    """K14 and K5' against their plain versions (in fp32 on the same rounded
+    inputs), twice for equal bits, and every gradient through their autograd
+    Functions (the plain versions' VJPs) against the plain versions'."""
+    gen = torch.Generator().manual_seed(3)
+
+    def r(*s, scale=1.0, shift=0.0):
+        return (torch.randn(*s, generator=gen) * scale + shift).to(cuda, dtype)
+
+    x = r(rows, c, scale=2.0, shift=0.5)
+    params = [r(c, scale=0.3, shift=1.0), torch.zeros(c, device=cuda, dtype=dtype) if biasfree else r(c, scale=0.3),
+              r(c, c_out, scale=c ** -0.5)]
+    if op == "ln_proj":
+        fn, ref_fn, counter = (lambda *a: tln_proj.fused_ln_proj(*a, 1e-6, biasfree),
+                               lambda *a: tln_proj.ln_proj_ref(*a, 1e-6, biasfree), tln_proj.fused_ln_proj)
+    else:
+        params.append(r(c_out, scale=0.3))
+        fn, ref_fn, counter = tnff.naf_expand, tnff.naf_expand_ref, tnff.naf_expand
+    before = counter.launches
+    with torch.no_grad():
+        out, again = fn(x, *params), fn(x, *params)
+    assert counter.launches == before + 2 and out.dtype == dtype and torch.equal(out, again)
+    assert _rel(out.float(), ref_fn(x.float(), *[p.float() for p in params])) <= STANDALONE_TOL[dtype]
+    leaves = [t.clone().requires_grad_() for t in (x, *params)]
+    ref_leaves = [t.clone().requires_grad_() for t in (x, *params)]
+    g = torch.randn(rows, c_out, generator=gen).to(cuda, dtype)
+    fn(*leaves).backward(g)
+    ref_fn(*ref_leaves).backward(g)
+    for i, (a, b) in enumerate(zip(leaves, ref_leaves)):  # the same plain VJP on the same inputs
+        if b.grad is not None:
+            assert _rel(a.grad.float(), b.grad.float()) <= STANDALONE_TOL[dtype], i
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,c,length", [(1, 48, 16384), (8, 48, 256), (2, 96, 4096), (3, 176, 300), (2, 40, 37)])
+@pytest.mark.parametrize("use_softmax", [False, True])
+def test_mdta_attention(cuda, dtype, bh, c, length, use_softmax):
+    """K13 against its plain version (in fp32 on the same rounded inputs; 1e-4 in
+    fp32, 2e-2 in bf16), twice for equal bits, and the gradients of q, k, v and
+    the temperature (in its caller's shape) through MDTAFunction."""
+    gen = torch.Generator().manual_seed(4)
+    q, k, v = (torch.randn(bh, c, length, generator=gen).to(cuda, dtype) for _ in range(3))
+    t = (torch.rand(bh, 1, 1, generator=gen) + 0.5).to(cuda, dtype)
+    before = tmd.mdta_attention.launches
+    with torch.no_grad():
+        out, again = tmd.mdta_attention(q, k, v, t, use_softmax), tmd.mdta_attention(q, k, v, t, use_softmax)
+    assert tmd.mdta_attention.launches == before + 2 and torch.equal(out, again)
+    ref = tmd.mdta_ref(q.float(), k.float(), v.float(), t.float(), use_softmax)
+    assert _rel(out.float(), ref) <= {torch.float32: 1e-4, torch.bfloat16: 2e-2}[dtype]
+    leaves = [u.clone().requires_grad_() for u in (q, k, v, t)]
+    tmd.mdta_attention(*leaves, use_softmax).backward(out)
+    assert leaves[3].grad.shape == (bh, 1, 1)
+    ref_leaves = [u.clone().requires_grad_() for u in (q, k, v, t)]
+    tmd.mdta_ref(*ref_leaves, use_softmax).backward(out)
+    for a, b in zip(leaves, ref_leaves):  # the same plain VJP on the same inputs
+        assert _rel(a.grad.float(), b.grad.float()) <= STANDALONE_TOL[dtype]
+
+
+@pytest.mark.parametrize("arch", ["Restormer", "PromptIR"])
+def test_standalone_block_harness_on_the_card(cuda, arch):
+    """chip_smoke.py's harness (K14 at every qkv and project_in, K13 at every
+    attention) through a tiny net against its K6 route: two K14 and one K13
+    launch per TransformerBlock, the output within 1e-4."""
+    import chip_smoke
+
+    torch.manual_seed(0)
+    kw = dict(dim=16, num_blocks=[1, 1, 1, 1], num_refinement_blocks=1, heads=[1, 2, 2, 4])
+    net = (Restormer(**kw) if arch == "Restormer" else PromptIR(**kw)).to(cuda).eval()
+    blocks = sum(isinstance(m, TransformerBlock) for m in net.modules())
+    x = torch.rand(1, 3, 32, 24, generator=torch.Generator().manual_seed(1)).to(cuda)
+    before = (tln_proj.fused_ln_proj.launches, tmd.mdta_attention.launches)
+    with torch.inference_mode():
+        ref, _ = net(x)
+        with mock.patch.object(TransformerBlock, "forward", chip_smoke._standalone_transformer_forward):
+            out, _ = net(x)
+    assert (tln_proj.fused_ln_proj.launches - before[0], tmd.mdta_attention.launches - before[1]) == (2 * blocks,
+                                                                                                       blocks)
     assert _rel(out, ref) <= 1e-4
