@@ -48,8 +48,8 @@ Phases, each of which raises on failure (exit code 1):
    per Restormer and per PromptIR backward beside the plain version's and the bound;
 11. the training paths of the shipped ``train_Restormer_dcpt_5d.yml`` and
    ``train_PromptIR_dcpt_5d.yml`` through ``train_pipeline`` at full width,
-   batch 8, gt_size 128, on the PNGs of [7]: 4 iterations with a checkpoint,
-   the launch counts of K6, K7 and K3 per step checked, a resume for 2 more;
+   batch 8, gt_size 128, on the PNGs of [7]: 1 iteration with a checkpoint,
+   the launch counts of K6, K7 and K3 per step checked, a resume for 1 more;
    the step's device time by kernel, the ms per step and peak memory of both
    paths; every K7 call of a batch-8 step against its plain version on that
    call's inputs, and one step's gradients through the kernels against the
@@ -60,7 +60,8 @@ Phases, each of which raises on failure (exit code 1):
    plain versions at the shipped width (C 180, 6 heads, 8 x 8 windows): B = 1
    at 128 x 128 with shift 0 and 4, B = 2 at 120 x 72 with shift 4, fp32 (TF32
    off) and bf16, each run twice for equal bits; their ms per SwinIR forward
-   (36 calls at 128 x 128) beside the plain versions' and the bound;
+   (36 calls at 128 x 128) beside the plain versions', the library calls'
+   and the bound (3xTF32 on the tensor cores, and the SIMT fp32 bound);
 13. the eval path of the shipped ``test_SwinIR_5d.yml`` through
    ``test_pipeline`` at full width on the PNGs of [4] and seeded weights, with
    exactly 36 K8 launches per image, then again on the route that
@@ -100,11 +101,11 @@ Phases, each of which raises on failure (exit code 1):
    bits; K2's ms per backward and K3's per step beside the plain versions';
 19. the mixed-precision training path: ``train_NAFNet_dcpt_5d.yml`` with
    ``train:mixed_precision=true`` through ``train_pipeline`` at full width,
-   batch 8, gt_size 128 on the PNGs of [7]: 4 iterations with a checkpoint,
+   batch 8, gt_size 128 on the PNGs of [7]: 1 iteration with a checkpoint,
    the launch counts of K1, K2 and K3 per step checked and no plain version
-   run, a resume for 2 more with fp32 masters and moments; every K2 call of a
+   run, a resume for 1 more with fp32 masters and moments; every K2 call of a
    batch-8 step against its plain version on that call's inputs; the ms per
-   step and peak memory beside the plain bf16 path and the fp32 step; five
+   step and peak memory beside the plain bf16 path and the fp32 step; two
    steps' losses from the same weights on one batch in bf16 and in fp32;
 20. kernels K7 and K9 in bf16 against their plain versions: K7 from bf16 K6's
    fp32 residuals (held equal, bit for bit, to those of K6's fp32 entry on the
@@ -115,12 +116,12 @@ Phases, each of which raises on failure (exit code 1):
    K8 per forward;
 21. the mixed-precision training paths of the Restormer, PromptIR and SwinIR
    DCPT ymls with ``train:mixed_precision=true`` through ``train_pipeline`` at
-   full width, batch 8, gt_size 128 on the PNGs of [7]: per net 4 iterations
+   full width, batch 8, gt_size 128 on the PNGs of [7]: per net 1 iteration
    with a checkpoint, the launch counts of K6 / K7 / K3 (K8 / K9 / K3) per step
-   checked and no plain version run, a resume for 2 more with fp32 masters
+   checked and no plain version run, a resume for 1 more with fp32 masters
    and moments; every K7 (K9) call of a batch-8 step against its plain
    version; the ms per step and peak memory beside the fp32 step and the
-   plain bf16 path; five steps' losses from the same weights on one batch in
+   plain bf16 path; two steps' losses from the same weights on one batch in
    bf16 and in fp32;
 22. dcpt_tpu's standalone ops, which no net of dcpt_tpu calls, TF32 off: K11
    (``window_partition_fused`` / ``window_reverse_fused``) on SwinIR's 128 x
@@ -190,9 +191,11 @@ KERNELS = {
     "naf_expand": ("dcpt_tpu_torch/csrc/ln_proj.cu", "dcpt_tpu/ops/naf_ffn.py:131"),
     "mdta_attention": ("dcpt_tpu_torch/csrc/mdta.cu", "dcpt_tpu/ops/mdta.py:158"),
 }
-# the card's peaks (NVIDIA's H100 SXM data sheet): fp32 outside the tensor cores, bf16 on
-# the tensor cores (dense), HBM3
+# the card's peaks (NVIDIA's H100 SXM data sheet): fp32 outside the tensor cores, TF32 and
+# bf16 on the tensor cores (dense), HBM3.  K8 and K10 compute fp32 products as three TF32
+# products (3xTF32), so their fp32 bound takes PEAK_TF32_FLOPS / 3.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 # NAFNet-w64 (enc [1,1,1,28], middle 1, dec [1,1,1,1]) on a 128 x 128 input:
@@ -204,6 +207,9 @@ K2_TOL = 1e-3  # relative to max(1, max|ref|): weight gradients sum up to 32 k p
 # the classifier's LayerNorms at K3's gate in a batch-8 step: (rows, C) -> calls per step
 K3_SHAPES = {(8192, 512): 4, (2048, 1024): 4, (2048, 512): 2, (512, 1024): 4, (512, 512): 2}
 TRAIN_ITERS, RESUME_ITERS = 4, 2
+# the later training phases [11], [19] and [21] run the same paths, launches and checks at
+# fewer steps: 1 iteration with a checkpoint, a resume for 1
+SHORT_ITERS, SHORT_RESUME_ITERS = 1, 1
 # per step of the DCPT yml's net: two forwards through all 36 NAFBlocks, a
 # backward through 71 (decoder3.0's output feeds no 'ups' tap in the skip-tail pass)
 K1_PER_STEP, K2_PER_STEP, K3_PER_STEP = 72, 71, sum(K3_SHAPES.values())
@@ -360,19 +366,20 @@ def k7_work(c: int, f: int, ch: int, pixels: int, batch: int, io: int = 4) -> tu
             io * (3 * pixels * c + 2 * weights) + 4 * (pixels * (8 * c + 3 * f) + batch * per_image))
 
 
-def k8_work(c: int, hidden: int, tokens: int, pixels: int) -> tuple[float, float]:
+def k8_work(c: int, hidden: int, tokens: int, pixels: int, io: int = 4) -> tuple[float, float]:
     """(flops, bytes) of one K8 call: per pixel the products qkv, proj, fc1 and fc2
     (3C^2 + C^2 + 2 C hidden multiply-adds) and the window attention's q k^T and
-    attn . v (2 N C, N tokens a window); x read, z written and the weights read once."""
+    attn . v (2 N C, N tokens a window); x read, z written and the weights read
+    once, ``io`` bytes an element (4 in fp32, 2 in bf16)."""
     weights = 4 * c * c + 2 * c * hidden + 9 * c + hidden
-    return pixels * 2 * (4 * c * c + 2 * c * hidden + 2 * tokens * c), 4 * (2 * pixels * c + weights)
+    return pixels * 2 * (4 * c * c + 2 * c * hidden + 2 * tokens * c), io * (2 * pixels * c + weights)
 
 
-def k10_work(c: int, tokens: int, pixels: int) -> tuple[float, float]:
+def k10_work(c: int, tokens: int, pixels: int, io: int = 4) -> tuple[float, float]:
     """(flops, bytes) of one K10 call with its LayerNorm: per pixel qkv and proj
     (4 C^2 multiply-adds) and the attention (2 N C); x read, the branch written
-    and the weights read once."""
-    return pixels * 2 * (4 * c * c + 2 * tokens * c), 4 * (2 * pixels * c + 4 * c * c + 6 * c)
+    and the weights read once, ``io`` bytes an element."""
+    return pixels * 2 * (4 * c * c + 2 * tokens * c), io * (2 * pixels * c + 4 * c * c + 6 * c)
 
 
 def k9_work(c: int, hidden: int, tokens: int, pixels: int, io: int = 4) -> tuple[float, float]:
@@ -1386,41 +1393,41 @@ def run_transformer_training(force: list[str]) -> dict:
         work = ROOT / "build" / f"chip_smoke_train_{arch}"
         shutil.rmtree(work, ignore_errors=True)
         args = ["-opt", str(yml), "--force_yml", *force, "datasets:train:datasets:d3_dehaze:suffix=.png",
-                "logger:use_tb_logger=false", "logger:print_freq=1", f"logger:save_checkpoint_freq={TRAIN_ITERS}",
-                f"train:scheduler:periods=[{TRAIN_ITERS + RESUME_ITERS}]"]
+                "logger:use_tb_logger=false", "logger:print_freq=1", f"logger:save_checkpoint_freq={SHORT_ITERS}",
+                f"train:scheduler:periods=[{SHORT_ITERS + SHORT_RESUME_ITERS}]"]
         mdta_block_fused.launches = mdta_block_bwd.launches = layer_norm_2d.launches = layer_norm_2d.bwd_launches = 0
         t0 = time.perf_counter()
-        model = train_pipeline(str(work), args=args + [f"train:total_iter={TRAIN_ITERS}"])
+        model = train_pipeline(str(work), args=args + [f"train:total_iter={SHORT_ITERS}"])
         torch.cuda.synchronize()
         launches = {"mdta_block_fused": mdta_block_fused.launches, "mdta_block_bwd": mdta_block_bwd.launches,
                     "layer_norm_2d": layer_norm_2d.launches + layer_norm_2d.bwd_launches}
-        print(f"[11] train_pipeline on {yml.name}, {TRAIN_ITERS} iterations at batch 8, gt_size 128: "
+        print(f"[11] train_pipeline on {yml.name}, {SHORT_ITERS} iterations at batch 8, gt_size 128: "
               f"{time.perf_counter() - t0:.1f} s; launches K6 {launches['mdta_block_fused']}, K7 "
               f"{launches['mdta_block_bwd']}, K3 {layer_norm_2d.launches} forward + {layer_norm_2d.bwd_launches} "
               f"backward; losses {dict(model.log_dict)}", flush=True)
-        want = {k: n * TRAIN_ITERS for k, n in TRANSFORMER_PER_STEP[arch].items()}
+        want = {k: n * SHORT_ITERS for k, n in TRANSFORMER_PER_STEP[arch].items()}
         if launches != want:
-            raise RuntimeError(f"{arch}: launches {launches}, expected {want} for {TRAIN_ITERS} steps")
+            raise RuntimeError(f"{arch}: launches {launches}, expected {want} for {SHORT_ITERS} steps")
         if not all(np.isfinite(v) for v in model.log_dict.values()) or set(model.log_dict) != {"l_pix", "l_classify"}:
             raise RuntimeError(f"{arch}: bad losses {model.log_dict}")
         models_dir = work / "experiments" / yaml_load(str(yml))["name"] / "models"
-        if not (models_dir / f"net_g_{TRAIN_ITERS}.pth").exists():
-            raise RuntimeError(f"{arch}: no checkpoint at iteration {TRAIN_ITERS} in {models_dir}")
+        if not (models_dir / f"net_g_{SHORT_ITERS}.pth").exists():
+            raise RuntimeError(f"{arch}: no checkpoint at iteration {SHORT_ITERS} in {models_dir}")
 
         resumed = train_pipeline(str(work), args=["--auto_resume", *args,
-                                                  f"train:total_iter={TRAIN_ITERS + RESUME_ITERS}"])
+                                                  f"train:total_iter={SHORT_ITERS + SHORT_RESUME_ITERS}"])
         steps = resumed.optimizer_g.state_dict()["state"][0]["step"].item()
-        print(f"[11] {arch} resumed from iteration {TRAIN_ITERS} for {RESUME_ITERS} more: optimizer at step "
+        print(f"[11] {arch} resumed from iteration {SHORT_ITERS} for {SHORT_RESUME_ITERS} more: optimizer at step "
               f"{steps:.0f}, losses {dict(resumed.log_dict)}", flush=True)
-        if steps != TRAIN_ITERS + RESUME_ITERS or not all(np.isfinite(v) for v in resumed.log_dict.values()):
+        if steps != SHORT_ITERS + SHORT_RESUME_ITERS or not all(np.isfinite(v) for v in resumed.log_dict.values()):
             raise RuntimeError(f"{arch} resume: optimizer step {steps}, losses {resumed.log_dict}")
         del model
 
         kernels = [k for k in ("mdta_block_fused", "mdta_block_bwd", "layer_norm_2d") if TRANSFORMER_PER_STEP[arch][k]]
         profile = step_profile(resumed, kernels, f"[11] {arch}")
-        step_ms, peak = ms_per_step(resumed, 5)
+        step_ms, peak = ms_per_step(resumed, 2)
         with plain_path():
-            plain_step_ms, plain_peak = ms_per_step(resumed, 3)
+            plain_step_ms, plain_peak = ms_per_step(resumed, 1)
         print(f"[11] {arch} DCPT step at batch 8, 128 x 128, fp32: kernel path {step_ms:.2f} ms/step (peak "
               f"{peak:.0f} MiB), plain path {plain_step_ms:.2f} ms/step (peak {plain_peak:.0f} MiB)", flush=True)
         torch.cuda.empty_cache()
@@ -1473,7 +1480,9 @@ def check_k8_k10() -> dict:
     versions at the SWIN_CASES shapes, fp32 and (B = 1) bf16, each call twice
     for equal bits; per SwinIR forward at 128 x 128 (18 calls at each shift):
     device time (``ms``, ``plain_ms``), CUDA events around back-to-back calls
-    (``call_ms``, ``plain_call_ms``) and the bound.  K8 is also held against,
+    (``call_ms``, ``plain_call_ms``) and the bound: its products at the TF32
+    tensor-core rate over three (3xTF32, ``bound_ms``; a bf16 call at the bf16
+    rate), beside the SIMT fp32 bound (``simt_bound_ms``).  K8 is also held against,
     and timed beside, ``nn.TransformerEncoderLayer`` on the partitioned windows,
     and K10 without its LayerNorm beside ``F.multi_head_attention_forward``
     (``library_ms``; for K10 beside ``no_ln_ms``)."""
@@ -1489,12 +1498,14 @@ def check_k8_k10() -> dict:
     worst = {(n, d): 0.0 for n in names for d in TOL}
     times = {}
     print(f"  {'kernel':>30} {'B':>2} {'H':>4} {'W':>4} {'shift':>5} {'dtype':>9} {'max_abs':>10} {'rel':>10} "
-          f"{'kernel_ms':>10} {'plain_ms':>10} {'call_ms':>10} {'plain_call':>10} {'bound_ms':>10} {'lib_err':>10} "
-          f"{'library_ms':>10}  (kernel_ms, plain_ms, library_ms: device time per call, torch.profiler; call_ms: "
-          f"CUDA events around back-to-back calls)")
+          f"{'kernel_ms':>10} {'plain_ms':>10} {'call_ms':>10} {'plain_call':>10} {'bound_ms':>10} {'simt_bound':>10} "
+          f"{'lib_err':>10} {'library_ms':>10}  (kernel_ms, plain_ms, library_ms: device time per call, "
+          f"torch.profiler; call_ms: CUDA events around back-to-back calls; bound_ms: TF32 tensor cores / 3 in fp32, "
+          f"bf16 tensor cores in bf16; simt_bound: fp32 outside the tensor cores)")
     with torch.no_grad():
         for b, h, w, shift, dname in cases:
             dtype = getattr(torch, dname)
+            io, peak = (4, PEAK_TF32_FLOPS / 3) if dname == "float32" else (2, PEAK_BF16_FLOPS)
             x = torch.randn(b, h, w, SWIN_C, generator=gen).to(device="cuda", dtype=dtype)
             p = swin_params(gen, dtype, "cuda")
             pf = [t.float() for t in p]
@@ -1514,18 +1525,18 @@ def check_k8_k10() -> dict:
                 "fused_swin_block": (lambda: wa.fused_swin_block(x, *p, heads, ws, shift),
                                      lambda: wa.swin_block_map_ref(x, *p, heads, ws, shift),
                                      lambda: wa.swin_block_map_ref(x.float(), *pf, heads, ws, shift),
-                                     k8_work(SWIN_C, SWIN_HIDDEN, ws * ws, b * h * w), lambda: layer(win)),
+                                     k8_work(SWIN_C, SWIN_HIDDEN, ws * ws, b * h * w, io), lambda: layer(win)),
                 "fused_window_attention": (lambda: wa.fused_window_attention_ln(x, *p[:6], heads, ws, shift),
                                            lambda: wa.window_attention_map_ref(x, *p[2:6], heads, ws, shift,
                                                                                (p[0], p[1], 1e-5)),
                                            lambda: wa.window_attention_map_ref(x.float(), *pf[2:6], heads, ws, shift,
                                                                                (pf[0], pf[1], 1e-5)),
-                                           k10_work(SWIN_C, ws * ws, b * h * w), None),
+                                           k10_work(SWIN_C, ws * ws, b * h * w, io), None),
                 "fused_window_attention (no LN)": (
                     lambda: wa.fused_window_attention(x, *p[2:6], heads, ws, shift),
                     lambda: wa.window_attention_map_ref(x, *p[2:6], heads, ws, shift),
                     lambda: wa.window_attention_map_ref(x.float(), *pf[2:6], heads, ws, shift),
-                    k10_work(SWIN_C, ws * ws, b * h * w), attention),
+                    k10_work(SWIN_C, ws * ws, b * h * w, io), attention),
             }
             for name, (kernel, plain, reference, work, library) in runs.items():
                 z, again, ref = kernel(), kernel(), reference()
@@ -1545,7 +1556,7 @@ def check_k8_k10() -> dict:
                     raise RuntimeError(f"{name}'s profile shows {sorted(funcs)}, expected {DEVICE_FUNCTIONS[owner]}")
                 k_ms, p_ms = sum(funcs.values()), sum(device_ms_by_function(plain, 10)[0].values())
                 k_call, p_call = cuda_ms(kernel), cuda_ms(plain)
-                b_ms = bound([(1, *work)])[0]
+                b_ms, simt_ms = bound([(1, *work)], peak)[0], bound([(1, *work)])[0]
                 lib_rel = lib_ms = float("nan")
                 if library is not None and dname == "float32":  # in bf16 a library rounds every intermediate
                     lib_map = torch.roll(wa.window_reverse(library(), ws, h, w), (shift, shift), dims=(1, 2))
@@ -1555,8 +1566,8 @@ def check_k8_k10() -> dict:
                                            f"{lib_rel:.3e} against the plain version")
                     lib_ms = sum(device_ms_by_function(library, 10)[0].values())
                 print(f"  {name:>30} {b:>2} {h:>4} {w:>4} {shift:>5} {dname:>9} {err:>10.3e} {rel:>10.3e} "
-                      f"{k_ms:>10.4f} {p_ms:>10.4f} {k_call:>10.4f} {p_call:>10.4f} {b_ms:>10.4f} {lib_rel:>10.3e} "
-                      f"{lib_ms:>10.4f}", flush=True)
+                      f"{k_ms:>10.4f} {p_ms:>10.4f} {k_call:>10.4f} {p_call:>10.4f} {b_ms:>10.4f} {simt_ms:>10.4f} "
+                      f"{lib_rel:>10.3e} {lib_ms:>10.4f}", flush=True)
                 worst[(name, dname)] = max(worst[(name, dname)], err)
                 if dname == "float32" and (b, h, w) == (1, 128, 128):
                     times[(name, shift)] = (k_ms, p_ms, k_call, p_call, lib_ms)
@@ -1568,10 +1579,11 @@ def check_k8_k10() -> dict:
     out = {}
     for name, work in (("fused_swin_block", k8_work(SWIN_C, SWIN_HIDDEN, SWIN_WS ** 2, 128 * 128)),
                        ("fused_window_attention", k10_work(SWIN_C, SWIN_WS ** 2, 128 * 128))):
-        bound_ms, bound_by = bound([(SWIN_PER_FORWARD, *work)])
+        bound_ms, bound_by = bound([(SWIN_PER_FORWARD, *work)], PEAK_TF32_FLOPS / 3)
         out[name] = {"max_abs_err": worst[(name, "float32")], "bf16_max_abs_err": worst[(name, "bfloat16")],
                      "ms": per_forward(name, 0), "plain_ms": per_forward(name, 1), "call_ms": per_forward(name, 2),
-                     "plain_call_ms": per_forward(name, 3), "bound_ms": bound_ms, "bound_by": bound_by}
+                     "plain_call_ms": per_forward(name, 3), "bound_ms": bound_ms, "bound_by": bound_by,
+                     "simt_bound_ms": bound([(SWIN_PER_FORWARD, *work)])[0]}
     no_ln = "fused_window_attention (no LN)"
     out["fused_swin_block"]["library_ms"] = per_forward("fused_swin_block", 4)
     out["fused_window_attention"].update(library_ms=per_forward(no_ln, 4), no_ln_ms=per_forward(no_ln, 0),
@@ -2107,7 +2119,7 @@ def _restore(model, snap):
         o.load_state_dict(sd)
 
 
-MIXED_STEP_ITERS = 3  # timed steps of each path in the mixed-precision phases
+MIXED_STEP_ITERS = 1  # timed steps of each path in the mixed-precision phases (after a warm-up step)
 
 
 def _mixed_net(arch: str) -> dict:
@@ -2141,13 +2153,13 @@ def _mixed_net(arch: str) -> dict:
 
 def run_mixed_training(force: list[str], archs: list[str], label: str) -> dict:
     """Each net's DCPT yml with ``train:mixed_precision=true`` through train_pipeline
-    at full width, batch 8, on the PNGs of [7]: 4 iterations with a checkpoint,
-    the launch counts per step checked and no plain version run, a resume for 2
-    more with fp32 masters and moments; every backward of its blocks in a
-    batch-8 mixed step against its plain version on that call's inputs; the ms
-    per step and peak memory beside the fp32 step and the plain bf16 path (at
-    the largest batch that path fits); five steps' losses from the same weights
-    on one batch in bf16 and in fp32."""
+    at full width, batch 8, on the PNGs of [7]: SHORT_ITERS iterations with a
+    checkpoint, the launch counts per step checked and no plain version run, a
+    resume for SHORT_RESUME_ITERS more with fp32 masters and moments; every
+    backward of its blocks in a batch-8 mixed step against its plain version on
+    that call's inputs; the ms per step and peak memory beside the fp32 step
+    and the plain bf16 path (at the largest batch that path fits); two steps'
+    losses from the same weights on one batch in bf16 and in fp32."""
     import gc
     import shutil
 
@@ -2165,8 +2177,8 @@ def run_mixed_training(force: list[str], archs: list[str], label: str) -> dict:
         work = ROOT / "build" / f"chip_smoke_train_mixed_{arch}"
         shutil.rmtree(work, ignore_errors=True)
         args = ["-opt", str(yml), "--force_yml", *force, "datasets:train:datasets:d3_dehaze:suffix=.png",
-                "logger:use_tb_logger=false", "logger:print_freq=1", f"logger:save_checkpoint_freq={TRAIN_ITERS}",
-                f"train:scheduler:periods=[{TRAIN_ITERS + RESUME_ITERS}]", "train:mixed_precision=true"]
+                "logger:use_tb_logger=false", "logger:print_freq=1", f"logger:save_checkpoint_freq={SHORT_ITERS}",
+                f"train:scheduler:periods=[{SHORT_ITERS + SHORT_RESUME_ITERS}]", "train:mixed_precision=true"]
         plain_calls = {"block": 0, "block_bwd": 0, "layer_norm_2d": 0}
 
         def counted(key, fn):
@@ -2181,34 +2193,34 @@ def run_mixed_training(force: list[str], archs: list[str], label: str) -> dict:
         with mock.patch.object(fmod, fname, counted("block", getattr(fmod, fname))), \
                 mock.patch.object(bmod, bname, counted("block_bwd", getattr(bmod, bname))), \
                 mock.patch.object(ln, "layer_norm_2d_ref", counted("layer_norm_2d", ln.layer_norm_2d_ref)):
-            model = train_pipeline(str(work), args=args + [f"train:total_iter={TRAIN_ITERS}"])
+            model = train_pipeline(str(work), args=args + [f"train:total_iter={SHORT_ITERS}"])
             torch.cuda.synchronize()
         launches = {fwd.__name__: fwd.launches, bwd.__name__: bwd.launches,
                     "layer_norm_2d": ln.layer_norm_2d.launches + ln.layer_norm_2d.bwd_launches}
-        print(f"{label} train_pipeline on {yml.name} with train:mixed_precision=true, {TRAIN_ITERS} iterations at batch "
+        print(f"{label} train_pipeline on {yml.name} with train:mixed_precision=true, {SHORT_ITERS} iterations at batch "
               f"8, gt_size 128: {time.perf_counter() - t0:.1f} s; launches {launches}, plain versions run "
               f"{plain_calls}; losses {dict(model.log_dict)}", flush=True)
-        want = {k: n * TRAIN_ITERS for k, n in net["per_step"].items()}
+        want = {k: n * SHORT_ITERS for k, n in net["per_step"].items()}
         if launches != want or any(plain_calls.values()):
             raise RuntimeError(f"{label} {arch}: launches {launches} (expected {want}), plain versions run "
                                f"{plain_calls}")
         if not all(np.isfinite(v) for v in model.log_dict.values()) or set(model.log_dict) != {"l_pix", "l_classify"}:
             raise RuntimeError(f"{label} {arch}: bad losses {model.log_dict}")
         models_dir = work / "experiments" / yaml_load(str(yml))["name"] / "models"
-        if not (models_dir / f"net_g_{TRAIN_ITERS}.pth").exists():
-            raise RuntimeError(f"{label} {arch}: no checkpoint at iteration {TRAIN_ITERS} in {models_dir}")
+        if not (models_dir / f"net_g_{SHORT_ITERS}.pth").exists():
+            raise RuntimeError(f"{label} {arch}: no checkpoint at iteration {SHORT_ITERS} in {models_dir}")
         del model
 
         resumed = train_pipeline(str(work), args=["--auto_resume", *args,
-                                                  f"train:total_iter={TRAIN_ITERS + RESUME_ITERS}"])
+                                                  f"train:total_iter={SHORT_ITERS + SHORT_RESUME_ITERS}"])
         steps = resumed.optimizer_g.state_dict()["state"][0]["step"].item()
         dtypes = {p.dtype for n in (resumed.net_g, resumed.net_dc) for p in n.parameters()}
         dtypes |= {v.dtype for o in resumed.optimizers for st in o.state.values() for k, v in st.items()
                    if k.startswith("exp_avg")}
-        print(f"{label} {arch} resumed from iteration {TRAIN_ITERS} for {RESUME_ITERS} more: optimizer at step "
+        print(f"{label} {arch} resumed from iteration {SHORT_ITERS} for {SHORT_RESUME_ITERS} more: optimizer at step "
               f"{steps:.0f}, masters and AdamW moments {sorted(str(d) for d in dtypes)}, losses "
               f"{dict(resumed.log_dict)}", flush=True)
-        if steps != TRAIN_ITERS + RESUME_ITERS or dtypes != {torch.float32} or not resumed.mixed_precision:
+        if steps != SHORT_ITERS + SHORT_RESUME_ITERS or dtypes != {torch.float32} or not resumed.mixed_precision:
             raise RuntimeError(f"{label} {arch} resume: optimizer step {steps}, dtypes {dtypes}")
 
         torch.cuda.empty_cache()
@@ -2228,7 +2240,7 @@ def run_mixed_training(force: list[str], archs: list[str], label: str) -> dict:
                 if plain_batch < 8:
                     rates["kernel"] = list(ms_per_step(resumed, MIXED_STEP_ITERS))
                 with plain_path():
-                    rates["plain"] = list(ms_per_step(resumed, 2))
+                    rates["plain"] = list(ms_per_step(resumed, MIXED_STEP_ITERS))
                 break
             except torch.cuda.OutOfMemoryError as e:
                 print(f"{label} {arch} plain bf16 path at batch {plain_batch}: {str(e).splitlines()[0]}", flush=True)
@@ -2251,13 +2263,13 @@ def run_mixed_training(force: list[str], archs: list[str], label: str) -> dict:
             resumed.mixed_precision = mode == "bf16"
             resumed.feed_data(grad_batch(8))
             curve = []
-            for _ in range(5):
+            for _ in range(2):
                 resumed.optimize_parameters(0)
                 curve.append(dict(resumed.log_dict))
             curves[mode] = curve
         resumed.mixed_precision = True
         spread = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(curves["bf16"], curves["fp32"]) for k in b)
-        print(f"{label} {arch} five steps on one batch of 8 from the same weights: bf16 {curves['bf16']}; fp32 "
+        print(f"{label} {arch} two steps on one batch of 8 from the same weights: bf16 {curves['bf16']}; fp32 "
               f"{curves['fp32']}; largest relative loss difference {spread:.3e}", flush=True)
         if not all(np.isfinite(v) for c in curves.values() for d in c for v in d.values()):
             raise RuntimeError(f"{label} {arch}: non-finite losses {curves}")
@@ -2899,7 +2911,8 @@ def main() -> int:
     for name, k in swin.items():
         print(f"[12] {name} per SwinIR forward (128x128, {SWIN_PER_FORWARD} blocks): device {k['ms']:.3f} ms (plain "
               f"{k['plain_ms']:.3f} ms), back-to-back calls {k['call_ms']:.3f} ms (plain {k['plain_call_ms']:.3f} ms), "
-              f"bound {k['bound_ms']:.3f} ms ({k['bound_by']})", flush=True)
+              f"bound {k['bound_ms']:.3f} ms ({k['bound_by']}, 3xTF32 on the tensor cores; SIMT fp32 "
+              f"{k['simt_bound_ms']:.3f} ms)", flush=True)
     k10 = swin["fused_window_attention"]
     print(f"[12] one library call per block on the partitioned windows, per SwinIR forward: nn.TransformerEncoderLayer "
           f"{swin['fused_swin_block']['library_ms']:.3f} ms (K8 {swin['fused_swin_block']['ms']:.3f} ms); "
@@ -3012,7 +3025,8 @@ def main() -> int:
                       **{k: v for k, v in k6.items() if k.startswith("promptir_") and k != "promptir_bound_by"})
     for entry in kernels[5:7]:
         entry.update(launches_per_image=SWIN_PER_FORWARD, call_ms=swin[entry["name"]]["call_ms"],
-                     plain_call_ms=swin[entry["name"]]["plain_call_ms"])
+                     plain_call_ms=swin[entry["name"]]["plain_call_ms"],
+                     simt_bound_ms=swin[entry["name"]]["simt_bound_ms"])
     # library_ms is K10 without its LayerNorm: beside it, the kernel's and the plain version's ms without it
     kernels[6].update(no_ln_ms=k10["no_ln_ms"], no_ln_plain_ms=k10["no_ln_plain_ms"])
     kernels[4].update(launches_per_step=TRANSFORMER_PER_STEP["Restormer"]["mdta_block_bwd"],

@@ -1,5 +1,6 @@
-// Whole SwinIR SwinTransformerBlock forward on Hopper (sm_90a): K8.  SIMT
-// fp32 math, fp32 or bf16 I/O, one block of 256 threads per window.
+// Whole SwinIR SwinTransformerBlock forward on Hopper (sm_90a): K8.  Every
+// product on the tensor cores (mma.sync m16n8k8 TF32, fp32 sums), fp32 or bf16
+// I/O, one block of 256 threads per window.
 //
 // Replaces the TPU kernel dcpt_tpu/ops/window_attention.py::fused_swin_block
 // (_swin_block_pallas / _block_kernel, called from
@@ -15,14 +16,14 @@
 //
 // What bounds it on this card: per token 2 (3C^2 + C^2 + 2 C hidden + 2 N C)
 // flops against 2 C values of I/O, about 560 k flops per 1.4 KB at C = 180:
-// operations, on the SIMT fp32 pipes from shared memory.  The design keeps
-// every intermediate of a window in shared memory, transposed so that one
-// 16-byte load feeds four tokens (204 KB at C = 180, one block per SM), and
-// streams the weights, which all windows share, from the L2 in 32-deep chunks
-// prefetched into registers.  Head width 30, C = 180 and hidden 360 are no
-// multiples of 64: every product masks its ragged columns and depth.  Tensor
-// cores (wgmma, or mma.sync in split TF32 for fp32 accuracy) and TMA are the
-// next steps.
+// operations.  With fp32 I/O every product is three TF32 products (3xTF32,
+// fp32 accuracy), so the bound is a third of the TF32 tensor-core rate.  The
+// design (csrc/swin_window.cuh) keeps a window's maps in shared memory (one
+// block an SM at C = 180), streams the weights, which all windows share, from
+// the L2 by cp.async three chunks ahead of the MMAs, and zero-pads the ragged
+// widths (head 30, C 180, hidden 360) to multiples of 8.  What holds it back
+// now: the rate at which 8 warps an SM issue mma.sync, and the epilogues,
+// LayerNorms and the softmax between the products; wgmma is the next step.
 //
 // Weights come in PyTorch's layout: every Linear as (out, in) row-major.
 
@@ -31,7 +32,7 @@
 namespace {
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kWinThreads)
 swin_block_kernel(const T* __restrict__ x, const T* __restrict__ ln1w, const T* __restrict__ ln1b,
                   const T* __restrict__ wqkv, const T* __restrict__ bqkv, const T* __restrict__ wproj,
                   const T* __restrict__ bproj, const T* __restrict__ ln2w, const T* __restrict__ ln2b,

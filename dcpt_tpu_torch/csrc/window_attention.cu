@@ -1,5 +1,6 @@
-// SwinIR's window attention on Hopper (sm_90a): K10.  SIMT fp32 math, fp32
-// or bf16 I/O, one block of 256 threads per window.
+// SwinIR's window attention on Hopper (sm_90a): K10.  Every product on the
+// tensor cores (mma.sync m16n8k8 TF32, fp32 sums), fp32 or bf16 I/O, one block
+// of 256 threads per window.
 //
 // Replaces the TPU kernel dcpt_tpu/ops/window_attention.py::_wa_pallas /
 // _kernel behind fused_window_attention and fused_window_attention_ln, the
@@ -14,7 +15,9 @@
 // the block's index map (csrc/swin_window.cuh, whose body K8 shares).
 //
 // What bounds it on this card: per token 2 (4 C^2 + 2 N C) flops against
-// 2 C values of I/O: operations, on the SIMT fp32 pipes from shared memory.
+// 2 C values of I/O: operations, at a third of the TF32 tensor-core rate with
+// fp32 I/O (3xTF32).  The design and what holds it back are K8's
+// (csrc/swin_block.cu, csrc/swin_window.cuh).
 //
 // Weights come in PyTorch's layout: every Linear as (out, in) row-major.
 
@@ -23,7 +26,7 @@
 namespace {
 
 template <typename T, bool LN>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kWinThreads)
 window_attention_kernel(const T* __restrict__ x, const T* __restrict__ lnw, const T* __restrict__ lnb,
                         const T* __restrict__ wqkv, const T* __restrict__ bqkv, const T* __restrict__ wproj,
                         const T* __restrict__ bproj, T* __restrict__ out, int H, int W, int C, int heads, int ws,

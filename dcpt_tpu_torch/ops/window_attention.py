@@ -14,8 +14,9 @@ Linear weight (in, out), every norm weight and bias (C,).
 * ``fused_swin_block`` (K8, ``csrc/swin_block.cu``) and
   ``fused_window_attention`` / ``fused_window_attention_ln`` (K10,
   ``csrc/window_attention.cu``): on a CUDA tensor they launch the kernel
-  (fp32 or bf16 I/O, fp32 math) or raise; on a CPU tensor they return the
-  map-level plain version.  The kernels never roll or partition: each reads a
+  (fp32 or bf16 I/O, TF32 tensor-core products split to fp32 accuracy) or
+  raise; on a CPU tensor they return the map-level plain version.  The
+  kernels never roll or partition: each reads a
   window's tokens by index from the map and writes its result back to the
   same pixels, which is the same function.  ``fused_swin_block.launches``
   and ``fused_window_attention.launches`` (for both K10 functions) count the
@@ -43,21 +44,34 @@ from .naf_block import layer_norm_last
 # what one block of the kernels holds in shared memory (csrc/swin_window.cuh, WinLayout)
 MAX_TOKENS = 64
 _MAX_SMEM_BYTES = 232448
-_LDP, _KC, _WLD = 68, 32, 68  # a transposed map's row stride, a weight chunk's depth and row stride
+_BN, _WLD, _STAGES = 192, 24, 4  # a weight product's columns a pass, a weight chunk's row stride, chunks in the ring
+_HID = _BN + 8  # row stride of a hidden chunk
+
+
+def _pad8(n: int) -> int:
+    return (n + 7) // 8 * 8
+
+
+def _ld(n: int) -> int:
+    """Row stride of a token-major map of n columns: padded to 8, and 8 (mod 16)."""
+    return _pad8(n) + (8 if _pad8(n) % 16 == 0 else 0)
 
 
 def smem_bytes(c: int, heads: int) -> int:
     """Dynamic shared memory of one block of K8 or K10 at width C (``WinLayout::floats``)."""
-    hd = c // heads
-    ldv = -(-hd // 64) * 64 + 4
-    floats = _LDP * (2 * c + max(c, 64) + 2 * hd + MAX_TOKENS) + MAX_TOKENS * ldv + _KC * _WLD + 7 * MAX_TOKENS
+    hdp = _pad8(c // heads)
+    group = 2 if heads > 1 and 6 * hdp <= _BN else 1
+    head = 2 * MAX_TOKENS * _ld(hdp) + hdp * _ld(MAX_TOKENS)
+    floats = 2 * MAX_TOKENS * _ld(c) + max(group * head, MAX_TOKENS * _HID) + _STAGES * _BN * _WLD + MAX_TOKENS
     return 4 * floats
 
 
 def kernel_takes(c: int, heads: int, ws: int) -> bool:
-    """Whether K8 and K10 take this block: ws * ws <= 64 tokens a window and the
+    """Whether K8 and K10 take this block: ws * ws <= 64 tokens a window, heads of
+    at most 64 channels (a head's q, k and v in one 192-column product) and the
     window's buffers within a block's 227 KB of shared memory."""
-    return heads >= 1 and c % heads == 0 and 1 <= ws * ws <= MAX_TOKENS and smem_bytes(c, heads) <= _MAX_SMEM_BYTES
+    return (heads >= 1 and c % heads == 0 and c // heads <= 64 and 1 <= ws * ws <= MAX_TOKENS
+            and smem_bytes(c, heads) <= _MAX_SMEM_BYTES)
 
 
 def window_attention_ref(x, wqkv, bqkv, wproj, bproj, num_heads: int, ln: tuple | None = None):
@@ -158,8 +172,9 @@ def _check(name: str, x: torch.Tensor, params: list[torch.Tensor], shapes: list[
         raise TypeError(f"{name}: the kernel takes float32 or bfloat16, got {x.dtype}")
     _, h, w, c = x.shape
     if not kernel_takes(c, heads, ws):
-        raise ValueError(f"{name}: the kernel takes C % heads == 0, ws * ws <= {MAX_TOKENS} and a window within "
-                         f"{_MAX_SMEM_BYTES} bytes of shared memory; got C={c}, heads={heads}, ws={ws}")
+        raise ValueError(f"{name}: the kernel takes C % heads == 0, heads of at most 64 channels, ws * ws <= "
+                         f"{MAX_TOKENS} and a window within {_MAX_SMEM_BYTES} bytes of shared memory; got C={c}, "
+                         f"heads={heads}, ws={ws}")
     if h % ws or w % ws or not 0 <= shift < ws:
         raise ValueError(f"{name}: H={h} and W={w} must be multiples of ws={ws}, and 0 <= shift={shift} < ws")
     for i, (p, shape) in enumerate(zip(params, shapes)):

@@ -7,7 +7,9 @@ become ``emu::Launcher(k, g, b, smem)(...)``, ``extern __shared__`` arrays
 become the block's shared buffer) and compiled with g++ against the headers
 in ``include/``, which run a block's CUDA threads as fibers on the calling
 thread, each as far as its next barrier (``__syncthreads``, or its warp's in
-a shuffle), and poison shared memory with NaN.  The
+a shuffle or an MMA), and poison shared memory with NaN.  A csrc header that
+wraps PTX (``ptx.cuh``: TF32 rounding, ``mma.sync``, ``cp.async``) is replaced
+by its emulation of the same name in ``include/``.  The
 library lands in ``build/cuda_emu/lib<name>.so`` with the same C entry
 points as nvcc's build: load it with ctypes and call an ops wrapper's
 ``_launch(lib, ...)`` on CPU tensors (their data pointers are host memory),
@@ -40,6 +42,8 @@ def build(source: str, out: Path = OUT) -> Path:
     out.mkdir(parents=True, exist_ok=True)
     for f in CSRC.glob("*.cu*"):
         (out / f.name).write_text(rewrite(f.read_text()))
+    for f in INCLUDE.glob("*.cuh"):  # the emulations of csrc's PTX headers
+        (out / f.name).write_text(f.read_text())
     lib = out / f"lib{Path(source).stem}.so"
     cmd = ["g++", "-std=c++20", "-O2", "-shared", "-fPIC", "-pthread", "-w", f"-I{INCLUDE}",
            "-include", "cuda_runtime.h", "-x", "c++", str(out / source), "-o", str(lib)]

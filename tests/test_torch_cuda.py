@@ -447,14 +447,50 @@ def _swin_inputs(b, h, w, c, heads, hidden, seed, device, dtype):
 
 
 # (B, H, W, C, heads, ws, shift), dtype, limit relative to max(1, max|ref|): the
-# shipped width at both shifts, a ragged 15 x 9 window grid, a tiny width with 4 x 4 windows
+# shipped width at both shifts in both dtypes, a ragged 15 x 9 window grid, a tiny
+# width with 4 x 4 windows, 3 heads of 12 (a pass of two heads, then one), and C 30
+# (rows of 60 bf16 bytes: weights staged by plain loads, not cp.async)
 SWIN_CASES = [
     ((1, 64, 64, 180, 6, 8, 0), torch.float32, 1e-4),
     ((1, 64, 64, 180, 6, 8, 4), torch.float32, 1e-4),
     ((2, 120, 72, 180, 6, 8, 4), torch.float32, 1e-4),
     ((1, 8, 12, 12, 2, 4, 2), torch.float32, 1e-4),
+    ((1, 16, 16, 36, 3, 8, 4), torch.float32, 1e-4),
+    ((1, 64, 64, 180, 6, 8, 0), torch.bfloat16, 2e-2),
     ((1, 64, 64, 180, 6, 8, 4), torch.bfloat16, 2e-2),
+    ((1, 16, 8, 30, 3, 8, 4), torch.bfloat16, 2e-2),
 ]
+
+
+def test_ptx_wrappers_on_the_card(cuda):
+    """csrc/ptx.cuh on the card (``csrc/ptx_probe.cu``): one warp's m16n8k8 TF32
+    MMA in the PTX ISA's fragment layout against float64 A B + C on TF32
+    operands (within the fp32 rounding of the card's sums), and cvt.rna's TF32
+    rounding against the emulation's (tools/cuda_emu/include/ptx.cuh), bit for bit."""
+    import ctypes
+
+    from dcpt_tpu_torch.ops.cuda_build import load_library
+
+    lib = load_library("ptx_probe", ["ptx_probe.cu"])
+    lib.ptx_probe.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
+    gen = torch.Generator().manual_seed(34)
+
+    def tf32(t):  # round to nearest, ties away, on the 13 low bits (finite values)
+        return ((t.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+    a, b, c = tf32(torch.randn(16, 8, generator=gen)), tf32(torch.randn(8, 8, generator=gen)), torch.randn(16, 8, generator=gen)
+    bits = torch.randint(0x3F000000, 0x41000000, (32,), generator=gen, dtype=torch.int32)
+    x = torch.cat([torch.randn(64, generator=gen), ((bits & -0x2000) | 0x1000).view(torch.float32)])
+    x = torch.cat([x, -x])
+    dev = [t.to(cuda) for t in (a, b, c)]
+    d, xd = torch.empty(16, 8, device=cuda), x.to(cuda)
+    rounded = torch.empty_like(xd)
+    assert lib.ptx_probe(*(t.data_ptr() for t in dev), d.data_ptr(), xd.data_ptr(), rounded.data_ptr(), x.numel(),
+                         torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(rounded.cpu(), tf32(x))
+    ref = (a.double() @ b.double() + c.double())
+    assert (d.cpu().double() - ref).abs().max().item() <= 1e-6 * max(1.0, ref.abs().max().item())
 
 
 @pytest.mark.parametrize("shape,dtype,tol", SWIN_CASES)
