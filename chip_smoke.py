@@ -19,7 +19,9 @@ Phases, each of which raises on failure (exit code 1):
    it is deterministic;
 6. kernel K3 (``layer_norm_2d``, forward and backward) against its plain
    version and against ``F.layer_norm`` at the classifier's five row shapes
-   of a batch-8 step;
+   of a batch-8 step and at one of rows wider than K3 holds in registers,
+   twice for equal bits, each shape's device time and CUDA-event time beside
+   ``F.layer_norm`` + its backward's;
 7. the training path: the shipped
    ``options/all_in_one/train/train_NAFNet_dcpt_5d.yml`` through the port's
    ``train_pipeline`` at full width, batch 8, gt_size 128, on synthetic
@@ -74,7 +76,8 @@ Phases, each of which raises on failure (exit code 1):
    at 128 x 128 with shift 0 and 4, B = 2 at 120 x 72 with shift 4 and B = 8
    at 128 x 128 with shift 4, fp32, TF32 off, each run twice for equal bits;
    its ms per SwinIR backward (36 calls at B = 2) beside the plain version's
-   and the bound;
+   and the bound (3xTF32 on the tensor cores, and the SIMT fp32 bound); the
+   device time of each of its passes at B = 8 (``tools/swin_ab.py::pass_split``);
 15. the training path of the shipped ``train_SwinIR_dcpt_5d.yml`` through
    ``train_pipeline`` at full width, batch 8, gt_size 128, on the PNGs of [7]:
    4 iterations saving every 2 with one training state kept, the launch
@@ -97,8 +100,9 @@ Phases, each of which raises on failure (exit code 1):
    at the middle block, no K1), a ragged image against the default route
    within 1e-4, the eval rates of both routes;
 18. kernels K2 and K3 in bf16 against their plain versions: K2 at the stage
-   and ragged shapes of [5], K3 at the row shapes of [6], twice for equal
-   bits; K2's ms per backward and K3's per step beside the plain versions';
+   and ragged shapes of [5], K3 at the row shapes of [6] as there, twice for
+   equal bits; K2's ms per backward and K3's per shape and per step beside the
+   plain versions' and ``F.layer_norm``'s;
 19. the mixed-precision training path: ``train_NAFNet_dcpt_5d.yml`` with
    ``train:mixed_precision=true`` through ``train_pipeline`` at full width,
    batch 8, gt_size 128 on the PNGs of [7]: 1 iteration with a checkpoint,
@@ -122,7 +126,8 @@ Phases, each of which raises on failure (exit code 1):
    and moments; every K7 (K9) call of a batch-8 step against its plain
    version; the ms per step and peak memory beside the fp32 step and the
    plain bf16 path; two steps' losses from the same weights on one batch in
-   bf16 and in fp32;
+   bf16 and in fp32 (Restormer and PromptIR also the first step's on the
+   plain bf16 path, from its timed steps);
 22. dcpt_tpu's standalone ops, which no net of dcpt_tpu calls, TF32 off: K11
    (``window_partition_fused`` / ``window_reverse_fused``) on SwinIR's 128 x
    128 x 180 map at B = 1 and 8, shifts 0 and 4, exact; K12
@@ -206,6 +211,9 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 K2_TOL = 1e-3  # relative to max(1, max|ref|): weight gradients sum up to 32 k pixels in another order
 # the classifier's LayerNorms at K3's gate in a batch-8 step: (rows, C) -> calls per step
 K3_SHAPES = {(8192, 512): 4, (2048, 1024): 4, (2048, 512): 2, (512, 1024): 4, (512, 512): 2}
+# rows wider than K3 holds in registers (C > 4096; no shipped net has them): checked and timed
+# beside the step's shapes, with their own device functions and no calls in the step
+K3_WIDE, K3_WIDE_FUNCTIONS = (512, 8192), {"ln2d_fwd_wide_kernel", "ln2d_bwd_wide_kernel", "ln2d_sum_kernel"}
 TRAIN_ITERS, RESUME_ITERS = 4, 2
 # the later training phases [11], [19] and [21] run the same paths, launches and checks at
 # fewer steps: 1 iteration with a checkpoint, a resume for 1
@@ -223,13 +231,13 @@ DEVICE_FUNCTIONS = {
     "naf_block_fused": {"naf_p1_kernel", "naf_sca_kernel", "naf_p2a_kernel", "naf_p2b_kernel", "naf_p2c_kernel"},
     "naf_block_bwd": {"bwd_f1_kernel", "bwd_prod_kernel", "bwd_a_kernel", "bwd_ln_kernel", "bwd_sca_kernel",
                       "bwd_sca_w_kernel", "bwd_d_kernel", "bwd_w_kernel", "colsum_kernel<2>"},
-    "layer_norm_2d": {"ln_fwd_kernel", "ln_bwd_rows_kernel", "ln_bwd_cols_kernel", "colsum_kernel<3>"},
+    "layer_norm_2d": {"ln2d_fwd_kernel", "ln2d_bwd_kernel", "ln2d_sum_kernel"},
     "mdta_block_fused": K6_FUNCTIONS,
     "mdta_block_bwd": K7_FUNCTIONS,
     "fused_swin_block": {"swin_block_kernel"},
     "fused_window_attention": {"window_attention_kernel"},
-    "swin_block_bwd": {"k9_ln_kernel", "k9_prod_kernel", "k9_attn_fwd_kernel", "k9_attn_bwd_kernel",
-                       "ln_bwd_kernel<9>", "wgrad_kernel<9>", "colsum_kernel<9>"},
+    "swin_block_bwd": {"k9_ln_kernel", "tc_gemm_kernel<9>", "k9_attn_fwd_kernel", "k9_attn_bwd_kernel",
+                       "ln_bwd_kernel<9>", "colsum_kernel<9>"},
     "naf_prefix": {"naf_p1_kernel"},
     "naf_ffn": {"naf_p2b_kernel", "naf_p2c_kernel"},
 }
@@ -394,12 +402,13 @@ def k9_work(c: int, hidden: int, tokens: int, pixels: int, io: int = 4) -> tuple
     return pixels * 2 * (12 * c * c + 5 * c * hidden + 6 * tokens * c), io * (3 * pixels * c + 2 * weights)
 
 
-def k3_work(rows: int, c: int) -> tuple[float, float]:
+def k3_work(rows: int, c: int, io: int = 4) -> tuple[float, float]:
     """(flops, bytes) of one LayerNorm forward plus backward, counting the bytes the
-    function needs: x read and out written, then g and x read and gx written;
-    1/sigma per row written and read; w and b read, gw and gb written.  K3's
-    own y residual (rows x C written and read again) is not counted."""
-    return 20 * rows * c, 4 * (5 * rows * c + 2 * rows + 5 * c)
+    function needs: x read and out written, then x and g read and gx written, ``io``
+    bytes an element (4 in fp32, 2 in bf16); the mean and 1/sigma of each row
+    written and read (fp32); w and b read, w read again, gw and gb written.  K3
+    moves these bytes and its column partials (under 1 %)."""
+    return 20 * rows * c, io * (5 * rows * c + 5 * c) + 16 * rows
 
 
 def k4_work(c: int, pixels: int) -> tuple[float, float]:
@@ -457,13 +466,14 @@ def cuda_ms(fn, iters: int = 10) -> float:
 
 
 # device functions shared by several kernels, their first template argument the owner's number
-OWNED = ("colsum_kernel", "ln_bwd_kernel", "wgrad_kernel")
+OWNED = ("colsum_kernel", "ln_bwd_kernel", "wgrad_kernel", "tc_gemm_kernel")
 
 
 def kernel_id(key: str) -> str:
     """A device function's name from a profiler key: ``void (anonymous
     namespace)::wgrad_kernel<7, true>(float const*, ...)`` -> ``wgrad_kernel<7>``;
     template arguments are dropped but for the owner of a shared function (``OWNED``)."""
+    key = key.replace("(anonymous namespace)::", "").replace("tc::", "")
     m = re.search(r"(\w+)(<[^()]*>)?\(", key)
     if m is None:
         return key
@@ -737,28 +747,35 @@ def check_k2() -> dict:
             "bound_by": bound_by, "library_ms": None}
 
 
-def check_k3() -> dict:
-    """K3 forward + backward against the plain versions and F.layer_norm at the
-    classifier's row shapes; per-step totals (16 calls each way) of device time."""
+def k3_shapes(dtype_name: str, gen) -> dict:
+    """K3 forward + backward at the classifier's row shapes (K3_SHAPES) and at
+    K3_WIDE in one dtype against its plain version and F.layer_norm + its
+    backward, each call twice for equal bits; per shape and summed per step (the
+    shape's calls, none for K3_WIDE):
+    device time (``ms``, ``plain_ms``, ``library_ms``; torch.profiler) and CUDA
+    events around back-to-back calls (``call_ms``, ``library_call_ms``), and
+    the bound (bf16: bytes at 2 an element, products at the bf16 peak)."""
     import torch
     import torch.nn.functional as F
 
     from dcpt_tpu_torch.ops import layernorm2d as ln
 
-    gen = torch.Generator().manual_seed(6)
-    totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
-    worst = 0.0
-    print(f"  {'rows':>5} {'C':>5} {'calls':>5} {'rel_err':>10} {'lib_err':>10} {'kernel_ms':>10} {'plain_ms':>10} "
-          f"{'library_ms':>10} {'bound_ms':>10}  (device ms per forward + backward, torch.profiler)")
-    for (rows, c), calls in K3_SHAPES.items():
-        x = (torch.randn(rows, c, generator=gen) * 2 + 0.5).cuda()
-        w, b = torch.randn(c, generator=gen).cuda(), torch.randn(c, generator=gen).cuda()
-        g = torch.randn(rows, c, generator=gen).cuda()
+    dtype = getattr(torch, dtype_name)
+    io, peak = (4, PEAK_FP32_FLOPS) if dtype == torch.float32 else (2, PEAK_BF16_FLOPS)
+    tol = TOL[dtype_name]
+    out = {k: 0.0 for k in ("ms", "plain_ms", "library_ms", "call_ms", "library_call_ms", "max_abs_err")}
+    print(f"  K3 {dtype_name}: {'rows':>5} {'C':>5} {'calls':>5} {'rel_err':>10} {'lib_err':>10} {'kernel_ms':>10} "
+          f"{'plain_ms':>10} {'library_ms':>10} {'call_ms':>10} {'lib_call':>10} {'bound_ms':>10}  (ms per forward + "
+          f"backward: device time by torch.profiler; call, lib_call: CUDA events around back-to-back calls)")
+    for (rows, c), calls in {**K3_SHAPES, K3_WIDE: 0}.items():
+        x = (torch.randn(rows, c, generator=gen) * 2 + 0.5).to("cuda", dtype)
+        w, b = (torch.randn(c, generator=gen).to("cuda", dtype) for _ in range(2))
+        g = torch.randn(rows, c, generator=gen).to("cuda", dtype)
         lib = ln._lib()
 
         def kernel():
-            out, y, rsig = ln._launch_fwd(lib, x, w, b, 1e-6, ln._stream(), residuals=True)
-            return (out, *ln._launch_bwd(lib, g, y, rsig, w, ln._stream()))
+            out, mean, rsig = ln._launch_fwd(lib, x, w, b, 1e-6, ln._stream(), residuals=True)
+            return (out, *ln._launch_bwd(lib, x, mean, rsig, g, w, ln._stream()))
 
         def plain():
             out, y, rsig = ln.layer_norm_2d_ref(x, w, b, 1e-6)
@@ -767,29 +784,43 @@ def check_k3() -> dict:
         xl, wl, bl = (t.clone().requires_grad_() for t in (x, w, b))
 
         def library():
-            return (F.layer_norm(xl, (c,), wl, bl, 1e-6), *torch.autograd.grad(
-                F.layer_norm(xl, (c,), wl, bl, 1e-6), (xl, wl, bl), g))
+            out = F.layer_norm(xl, (c,), wl, bl, 1e-6)
+            return (out, *torch.autograd.grad(out, (xl, wl, bl), g))
 
-        got, ref, lib_out = kernel(), plain(), library()
+        got, again, ref, lib_out = kernel(), kernel(), plain(), library()
         torch.cuda.synchronize()
-        rel = max((a - r).abs().max().item() / max(1.0, r.abs().max().item()) for a, r in zip(got, ref))
-        lib_rel = max((a - r).abs().max().item() / max(1.0, r.abs().max().item()) for a, r in zip(got, lib_out))
-        if rel > 1e-4 or lib_rel > 1e-4:
-            raise RuntimeError(f"K3 ({rows}, {c}): error {rel:.3e} against plain, {lib_rel:.3e} against F.layer_norm")
-        # device time only: each call is a few microseconds of work behind tens of host overhead
-        k_funcs = device_ms_by_function(kernel, 20)[0]
-        if set(k_funcs) != DEVICE_FUNCTIONS["layer_norm_2d"]:
-            raise RuntimeError(f"K3's profile shows {sorted(k_funcs)}, expected {sorted(DEVICE_FUNCTIONS['layer_norm_2d'])}")
-        times = {"ms": sum(k_funcs.values()), "plain_ms": sum(device_ms_by_function(plain, 20)[0].values()),
-                 "library_ms": sum(device_ms_by_function(library, 20)[0].values())}
-        print(f"  {rows:>5} {c:>5} {calls:>5} {rel:>10.3e} {lib_rel:>10.3e} {times['ms']:>10.4f} "
-              f"{times['plain_ms']:>10.4f} {times['library_ms']:>10.4f} {bound([(1, *k3_work(rows, c))])[0]:>10.4f}",
-              flush=True)
+        if not all(a.dtype == dtype and torch.isfinite(a).all() and torch.equal(a, r) for a, r in zip(got, again)):
+            raise RuntimeError(f"K3 {dtype_name} ({rows}, {c}): not {dtype_name}, not finite, or two runs differ")
+        rel = max(_rel_errs(got, ref))
+        lib_rel = max(_rel_errs(got, lib_out))
+        if rel > tol or lib_rel > tol:
+            raise RuntimeError(f"K3 {dtype_name} ({rows}, {c}): error {rel:.3e} against plain, {lib_rel:.3e} against "
+                               f"F.layer_norm, limit {tol:.0e}")
+        funcs = device_ms_by_function(kernel, 20)[0]
+        want = K3_WIDE_FUNCTIONS if (rows, c) == K3_WIDE else DEVICE_FUNCTIONS["layer_norm_2d"]
+        if set(funcs) != want:
+            raise RuntimeError(f"K3's profile shows {sorted(funcs)}, expected {sorted(want)}")
+        times = {"ms": sum(funcs.values()), "plain_ms": sum(device_ms_by_function(plain, 20)[0].values()),
+                 "library_ms": sum(device_ms_by_function(library, 20)[0].values()),
+                 "call_ms": cuda_ms(kernel, 50), "library_call_ms": cuda_ms(library, 50)}
+        b_ms = bound([(1, *k3_work(rows, c, io))], peak)[0]
+        print(f"  {' ' * len(dtype_name)}    {rows:>5} {c:>5} {calls:>5} {rel:>10.3e} {lib_rel:>10.3e} "
+              + " ".join(f"{times[k]:>10.4f}" for k in ("ms", "plain_ms", "library_ms", "call_ms", "library_call_ms"))
+              + f" {b_ms:>10.4f}", flush=True)
         for k, v in times.items():
-            totals[k] += calls * v
-        worst = max(worst, max((a - r).abs().max().item() for a, r in zip(got, ref)))
-    bound_ms, bound_by = bound([(n, *k3_work(rows, c)) for (rows, c), n in K3_SHAPES.items()])
-    return dict(totals, max_abs_err=worst, bound_ms=bound_ms, bound_by=bound_by)
+            out[k] += calls * v
+        out["max_abs_err"] = max(out["max_abs_err"], max((a.float() - r.float()).abs().max().item()
+                                                         for a, r in zip(got, ref)))
+    out["bound_ms"], out["bound_by"] = bound([(n, *k3_work(rows, c, io)) for (rows, c), n in K3_SHAPES.items()], peak)
+    return out
+
+
+def check_k3() -> dict:
+    """K3 forward + backward in fp32 against the plain versions and F.layer_norm at
+    the classifier's row shapes; per-step totals (16 calls each way)."""
+    import torch
+
+    return k3_shapes("float32", torch.Generator().manual_seed(6))
 
 
 def write_train_sets(root: Path, n: int = 8, size: int = 160) -> list[str]:
@@ -865,11 +896,11 @@ def smooth_switches(model):
     return stack
 
 
-def grad_batch(batch_size: int) -> dict:
+def grad_batch(batch_size: int, seed: int = 8) -> dict:
     """A seeded DCPT batch of batch_size 128 x 128 images on the host."""
     import torch
 
-    gen = torch.Generator().manual_seed(8)
+    gen = torch.Generator().manual_seed(seed)
     gt = torch.rand(batch_size, 3, 128, 128, generator=gen)
     return {"gt": gt, "lq": (0.7 * gt + 0.15 + 0.05 * torch.randn(gt.shape, generator=gen)).clamp(0, 1),
             "dataset_idx": torch.arange(batch_size) % 5}
@@ -936,9 +967,7 @@ def check_step_gradients(model, label: str = "[7]", batch_size: int = 8, float64
     torch.cuda.empty_cache()
 
     batch = grad_batch(float64_batch)
-    with plain_path():
-        ref, ref_losses = grad_check.step_grads(model, batch, torch.float64)
-        sens = grad_check.rounding_sensitivity(grad_check.run_errors(model, batch, ref)[0])
+    ref, ref_losses, sens = float64_reference(model, batch)
     kernel_errs, kernel_losses = grad_check.run_errors(model, batch, ref)
     model.feed_data(batch)
     report = grad_check.compare(grad_check.path_error(kernel_errs), kernel_losses, ref, ref_losses, sens)
@@ -957,6 +986,20 @@ def check_step_gradients(model, label: str = "[7]", batch_size: int = 8, float64
     if not report["ok"]:
         raise RuntimeError(f"{label} kernel path against float64: {grad_check.describe(report)}")
     return dict(report, sens_median=srel[len(srel) // 2], sens_max=srel[-1], as_is_ratio=as_is["worst_ratio"])
+
+
+def float64_reference(model, batch: dict) -> tuple[dict, dict, dict]:
+    """The plain path's step on ``batch`` in float64: its gradients and losses, and
+    each tensor's rounding sensitivity from five plain fp32 runs
+    (``dcpt_tpu_torch.tools.grad_check``)."""
+    import torch
+
+    from dcpt_tpu_torch.tools import grad_check
+
+    with plain_path():
+        ref, ref_losses = grad_check.step_grads(model, batch, torch.float64)
+        sens = grad_check.rounding_sensitivity(grad_check.run_errors(model, batch, ref)[0])
+    return ref, ref_losses, sens
 
 
 def check_bwd_in_step(model, label: str, function, ref, tol: float, calls: int | None = None,
@@ -998,12 +1041,15 @@ def check_bwd_in_step(model, label: str, function, ref, tol: float, calls: int |
     return worst
 
 
-def ms_per_step(model, iters: int) -> tuple[float, float]:
+def ms_per_step(model, iters: int, first: list | None = None) -> tuple[float, float]:
     """Host clock around ``iters`` optimizer steps ended by a synchronize, after one
-    warm-up step; and the peak device memory of those steps in MiB."""
+    warm-up step (its losses appended to ``first`` when given); and the peak
+    device memory of those steps in MiB."""
     import torch
 
     model.optimize_parameters(0)
+    if first is not None:
+        first.append(dict(model.log_dict))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1704,16 +1750,20 @@ def check_k9() -> dict:
     windows, hidden 360), fp32, each call twice for equal bits; per SwinIR
     backward at 128 x 128, B = 2 (18 calls at each shift): device time (``ms``,
     ``plain_ms``), CUDA events around back-to-back calls (``call_ms``,
-    ``plain_call_ms``) and the bound; one call at B = 8 (``b8_*``)."""
+    ``plain_call_ms``) and the bound on the tensor cores (3xTF32 at a third of the
+    TF32 peak), beside the SIMT fp32 bound (``simt_bound_ms``); one call at B = 8
+    (``b8_*``) and its device time by pass (``swin_ab.pass_split``)."""
     import torch
 
     from dcpt_tpu_torch.ops.swin_block_bwd import swin_block_bwd, swin_block_bwd_ref
+    from dcpt_tpu_torch.tools.swin_ab import pass_split, print_split
 
     gen = torch.Generator().manual_seed(14)
     heads, ws, worst, times = SWIN_HEADS, SWIN_WS, 0.0, {}
     print(f"  {'B':>2} {'H':>4} {'W':>4} {'shift':>5} {'max_abs':>10} {'rel':>10} {'worst of':>8} {'kernel_ms':>10} "
-          f"{'plain_ms':>10} {'call_ms':>10} {'plain_call':>10} {'bound_ms':>10}  (kernel_ms, plain_ms: device time per "
-          f"call, torch.profiler; call_ms: CUDA events around back-to-back calls)")
+          f"{'plain_ms':>10} {'call_ms':>10} {'plain_call':>10} {'bound_ms':>10} {'simt_bound':>10}  (kernel_ms, plain_ms: "
+          f"device time per call, torch.profiler; call_ms: CUDA events around back-to-back calls; bound_ms: 3xTF32 on "
+          f"the tensor cores; simt_bound: fp32 outside them)")
     for b, h, w, shift in K9_CASES:
         x = torch.randn(b, h, w, SWIN_C, generator=gen).cuda()
         dz = torch.randn(b, h, w, SWIN_C, generator=gen).cuda()
@@ -1740,22 +1790,33 @@ def check_k9() -> dict:
             raise RuntimeError(f"K9's profile shows {sorted(funcs)}, expected {DEVICE_FUNCTIONS['swin_block_bwd']}")
         k_ms, p_ms = sum(funcs.values()), sum(device_ms_by_function(plain, 5)[0].values())
         k_call, p_call = cuda_ms(kernel, 5), cuda_ms(plain, 5)
-        b_ms = bound([(1, *k9_work(SWIN_C, SWIN_HIDDEN, ws * ws, b * h * w))])[0]
+        work = k9_work(SWIN_C, SWIN_HIDDEN, ws * ws, b * h * w)
+        b_ms, simt_ms = bound([(1, *work)], PEAK_TF32_FLOPS / 3)[0], bound([(1, *work)])[0]
         err = (got[i] - ref[i]).abs().max().item()
         print(f"  {b:>2} {h:>4} {w:>4} {shift:>5} {err:>10.3e} {errs[i]:>10.3e} {i:>8} {k_ms:>10.4f} {p_ms:>10.4f} "
-              f"{k_call:>10.4f} {p_call:>10.4f} {b_ms:>10.4f}", flush=True)
+              f"{k_call:>10.4f} {p_call:>10.4f} {b_ms:>10.4f} {simt_ms:>10.4f}", flush=True)
         worst = max(worst, err)
-        times[(b, h, w, shift)] = (k_ms, p_ms, k_call, p_call, b_ms)
+        times[(b, h, w, shift)] = (k_ms, p_ms, k_call, p_call, b_ms, simt_ms)
+        if b == 8:
+            split = pass_split(kernel)
+            print_split(f"  K9 at B=8, {h}x{w}, shift {shift}, fp32, by pass", split)
+            if not split:
+                raise NoDeviceTime("torch.profiler recorded no device time for K9's passes")
+        del got, again, ref
+        torch.cuda.empty_cache()
     print("  K9 twice on the same inputs: equal bit for bit at every shape", flush=True)
 
     def per_backward(i):
         return SWIN_PER_FORWARD // 2 * (times[(2, 128, 128, 0)][i] + times[(2, 128, 128, 4)][i])
 
-    bound_ms, bound_by = bound([(SWIN_PER_FORWARD, *k9_work(SWIN_C, SWIN_HIDDEN, ws * ws, 2 * 128 * 128))])
+    work = k9_work(SWIN_C, SWIN_HIDDEN, ws * ws, 2 * 128 * 128)
+    bound_ms, bound_by = bound([(SWIN_PER_FORWARD, *work)], PEAK_TF32_FLOPS / 3)
     b8 = times[(8, 128, 128, 4)]
     return {"max_abs_err": worst, "ms": per_backward(0), "plain_ms": per_backward(1), "call_ms": per_backward(2),
-            "plain_call_ms": per_backward(3), "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "b8_ms": b8[0], "b8_plain_ms": b8[1], "b8_bound_ms": b8[4]}
+            "plain_call_ms": per_backward(3), "bound_ms": bound_ms, "bound_by": bound_by,
+            "simt_bound_ms": bound([(SWIN_PER_FORWARD, *work)])[0], "library_ms": None, "b8_ms": b8[0],
+            "b8_plain_ms": b8[1], "b8_call_ms": b8[2], "b8_bound_ms": b8[4], "b8_simt_bound_ms": b8[5],
+            "b8_split": split}
 
 
 def run_swinir_training(force: list[str]) -> dict:
@@ -1865,6 +1926,62 @@ def run_swinir_training(force: list[str]) -> dict:
 
     return {"launches": launches, "step_ms": step_ms, "peak_mib": peak, "plain_batch": plain_batch, "rates": rates,
             "profile": profile, "grad64": grad64}
+
+
+def float64_states(states: int) -> dict:
+    """Not a phase of the run: [15]'s float64 check of the SwinIR DCPT step on
+    ``states`` trained states, each on three routes through the Swin blocks, to
+    tell whether K8 or K9 makes it fail where it does.
+
+        python3 chip_smoke.py --phase float64_states '[12]'
+
+    The shipped SwinIR DCPT yml trains TRAIN_ITERS steps at batch 8 on the PNGs
+    of [7]; state k is that model after 2 k more steps on seeded batches.  On
+    each, the check of ``check_step_gradients`` at SWIN_FLOAT64_BATCH (the same
+    batch, float64 reference and sensitivities for every route): K8 forward
+    with K9 backward (the shipped route), the plain forward with K9, and K8
+    with the plain backward.  Prints each state's report and each route's
+    pass count."""
+    import shutil
+    from contextlib import nullcontext
+
+    from dcpt_tpu_torch.ops import swin_block_bwd as sbb
+    from dcpt_tpu_torch.ops import window_attention as wa
+    from dcpt_tpu_torch.tools import grad_check
+    from dcpt_tpu_torch.train import train_pipeline
+
+    def plain_forward(x, params, heads, ws, shift, eps):
+        return wa.swin_block_map_ref(x, *params, heads, ws, shift, eps)
+
+    routes = {"K8 + K9": nullcontext,
+              "plain forward + K9": lambda: mock.patch.object(wa, "_kernel_block", plain_forward),
+              "K8 + plain backward": lambda: mock.patch.object(sbb, "swin_block_bwd", sbb.swin_block_bwd_ref)}
+    work = ROOT / "build" / "chip_smoke_float64_states"
+    shutil.rmtree(work, ignore_errors=True)
+    force = write_train_sets(work / "data")
+    model = train_pipeline(str(work), args=["-opt", str(SWIN_TRAIN_YML), "--force_yml", *force,
+                                            "datasets:train:datasets:d3_dehaze:suffix=.png",
+                                            "logger:use_tb_logger=false", f"train:total_iter={TRAIN_ITERS}"])
+    batch = grad_batch(SWIN_FLOAT64_BATCH)
+    passed = {route: 0 for route in routes}
+    ratios = {route: [] for route in routes}
+    for state in range(states):
+        for k in range(2 if state else 0):
+            model.feed_data(grad_batch(8, seed=100 + 2 * state + k))
+            model.optimize_parameters(0)
+        ref, ref_losses, sens = float64_reference(model, batch)
+        for route, ctx in routes.items():
+            with ctx():
+                errs, losses = grad_check.run_errors(model, batch, ref)
+            report = grad_check.compare(grad_check.path_error(errs), losses, ref, ref_losses, sens)
+            passed[route] += report["ok"]
+            ratios[route].append(report["worst_ratio"])
+            print(f"[float64 states] state {state} ({TRAIN_ITERS + 2 * state} steps), {route}: "
+                  f"{'pass' if report['ok'] else 'FAIL'}; {grad_check.describe(report)}", flush=True)
+    for route in routes:
+        print(f"[float64 states] {route}: passed {passed[route]} of {states}; worst share of a limit by state "
+              + ", ".join(f"{r:.3f}" for r in ratios[route]), flush=True)
+    return {"states": states, "passed": passed, "ratios": ratios}
 
 
 def _k45_library(x, p):
@@ -2023,12 +2140,10 @@ def check_bf16_k2_k3() -> dict:
     """K2 and K3 in bf16 against their plain versions (fp32 math on the same bf16
     inputs, each cotangent cast to its primal's dtype): K2 at the five stage
     shapes (B = 2) and the ragged ones, K3 at the classifier's row shapes of a
-    batch-8 step; each run twice for equal bits.  K2 per backward (CUDA events)
-    and K3 per step (device time) beside the plain versions'."""
+    batch-8 step (``k3_shapes``); each run twice for equal bits.  K2 per backward
+    (CUDA events) and K3 per step beside the plain versions' and F.layer_norm's."""
     import torch
-    import torch.nn.functional as F
 
-    from dcpt_tpu_torch.ops import layernorm2d as ln
     from dcpt_tpu_torch.ops.naf_block import _kernel_forward
     from dcpt_tpu_torch.ops.naf_block_bwd import naf_block_bwd, naf_block_bwd_ref
 
@@ -2062,44 +2177,7 @@ def check_bf16_k2_k3() -> dict:
     k2.update(ms=sum(n * per_block[(c, s, s)][0] for c, s, n in STAGES),
               plain_ms=sum(n * per_block[(c, s, s)][1] for c, s, n in STAGES))
 
-    k3 = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
-    print(f"  K3 bf16: {'rows':>5} {'C':>5} {'calls':>5} {'rel':>10} {'kernel_ms':>10} {'plain_ms':>10} {'library_ms':>10}"
-          f"  (device ms per forward + backward, torch.profiler)")
-    for (rows, c), calls in K3_SHAPES.items():
-        x = (torch.randn(rows, c, generator=gen) * 2 + 0.5).to("cuda", torch.bfloat16)
-        w, b = (torch.randn(c, generator=gen).to("cuda", torch.bfloat16) for _ in range(2))
-        g = torch.randn(rows, c, generator=gen).to("cuda", torch.bfloat16)
-        lib = ln._lib()
-
-        def kernel():
-            out, y, rsig = ln._launch_fwd(lib, x, w, b, 1e-6, ln._stream(), residuals=True)
-            return (out, *ln._launch_bwd(lib, g, y, rsig, w, ln._stream()))
-
-        def plain():
-            out, y, rsig = ln.layer_norm_2d_ref(x, w, b, 1e-6)
-            return (out, *ln.layer_norm_2d_bwd_ref(g, y, rsig, w))
-
-        xl, wl, bl = (t.clone().requires_grad_() for t in (x, w, b))
-
-        def library():
-            out = F.layer_norm(xl, (c,), wl, bl, 1e-6)
-            return (out, *torch.autograd.grad(out, (xl, wl, bl), g))
-
-        got, again, ref = kernel(), kernel(), plain()
-        torch.cuda.synchronize()
-        if not all(a.dtype == torch.bfloat16 and torch.equal(a, r) for a, r in zip(got, again)):
-            raise RuntimeError(f"K3 bf16 ({rows}, {c}): not bf16, or two runs differ")
-        rel = max((a.float() - r.float()).abs().max().item() / max(1.0, r.float().abs().max().item())
-                  for a, r in zip(got, ref))
-        if rel > tol:
-            raise RuntimeError(f"K3 bf16 ({rows}, {c}): error {rel:.3e} against plain")
-        k3["max_abs_err"] = max(k3["max_abs_err"], max((a.float() - r.float()).abs().max().item()
-                                                       for a, r in zip(got, ref)))
-        times = [sum(device_ms_by_function(f, 20)[0].values()) for f in (kernel, plain, library)]
-        for key, v in zip(("ms", "plain_ms", "library_ms"), times):
-            k3[key] += calls * v
-        print(f"           {rows:>5} {c:>5} {calls:>5} {rel:>10.3e} " + " ".join(f"{v:>10.4f}" for v in times),
-              flush=True)
+    k3 = k3_shapes("bfloat16", gen)
     return {"naf_block_bwd": k2, "layer_norm_2d": k3}
 
 
@@ -2227,20 +2305,26 @@ def run_mixed_training(force: list[str], archs: list[str], label: str) -> dict:
         bwd_worst = check_bwd_in_step(resumed, f"{label} {arch} bf16", net["function"], net["ref"], TOL["bfloat16"],
                                       net["per_step"][bwd.__name__], **net["check"])
         torch.cuda.empty_cache()
+        # the transformer nets' plain bf16 path (cuBLAS / cuDNN, no K6 / K7) times its first step
+        # from the weights the loss curves start from: whether a departure of bf16 from fp32 is
+        # the kernels' or the recipe's own rounding
+        snap = _snapshot(resumed) if arch in TRANSFORMER_TRAIN_YMLS else None
         resumed.feed_data(grad_batch(8))
         step_ms, peak = ms_per_step(resumed, MIXED_STEP_ITERS)
         resumed.mixed_precision = False
         fp32_ms, fp32_peak = ms_per_step(resumed, MIXED_STEP_ITERS)
         resumed.mixed_precision = True
         torch.cuda.empty_cache()
-        rates = {}
+        rates, plain_first = {}, []
         for plain_batch in (8, 4, 2):
             resumed.feed_data(grad_batch(plain_batch))
             try:
                 if plain_batch < 8:
                     rates["kernel"] = list(ms_per_step(resumed, MIXED_STEP_ITERS))
+                elif snap is not None:
+                    _restore(resumed, snap)
                 with plain_path():
-                    rates["plain"] = list(ms_per_step(resumed, MIXED_STEP_ITERS))
+                    rates["plain"] = list(ms_per_step(resumed, MIXED_STEP_ITERS, plain_first))
                 break
             except torch.cuda.OutOfMemoryError as e:
                 print(f"{label} {arch} plain bf16 path at batch {plain_batch}: {str(e).splitlines()[0]}", flush=True)
@@ -2256,7 +2340,8 @@ def run_mixed_training(force: list[str], archs: list[str], label: str) -> dict:
               + f"the plain bf16 path {rates['plain'][0]:.2f} ms/step (peak {rates['plain'][1]:.0f} MiB)", flush=True)
 
         torch.cuda.empty_cache()
-        snap = _snapshot(resumed)
+        if snap is None:
+            snap = _snapshot(resumed)
         curves = {}
         for mode in ("bf16", "fp32"):
             _restore(resumed, snap)
@@ -2268,9 +2353,17 @@ def run_mixed_training(force: list[str], archs: list[str], label: str) -> dict:
                 curve.append(dict(resumed.log_dict))
             curves[mode] = curve
         resumed.mixed_precision = True
-        spread = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(curves["bf16"], curves["fp32"]) for k in b)
-        print(f"{label} {arch} two steps on one batch of 8 from the same weights: bf16 {curves['bf16']}; fp32 "
-              f"{curves['fp32']}; largest relative loss difference {spread:.3e}", flush=True)
+        if arch in TRANSFORMER_TRAIN_YMLS and plain_batch == 8:
+            curves["plain bf16"] = plain_first
+
+        def spread_of(mode):
+            return max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(curves[mode], curves["fp32"]) for k in b)
+
+        spread = spread_of("bf16")
+        print(f"{label} {arch} two steps on one batch of 8 from the same weights: "
+              + "; ".join(f"{mode} {curve}" for mode, curve in curves.items())
+              + f"; largest relative loss difference from fp32: bf16 kernels {spread:.3e}"
+              + (f", plain bf16 {spread_of('plain bf16'):.3e}" if "plain bf16" in curves else ""), flush=True)
         if not all(np.isfinite(v) for c in curves.values() for d in c for v in d.values()):
             raise RuntimeError(f"{label} {arch}: non-finite losses {curves}")
         out[arch] = {"launches": launches, "step_ms": step_ms, "peak_mib": peak, "fp32_step_ms": fp32_ms,
@@ -2872,9 +2965,10 @@ def main() -> int:
 
     print("[6] K3 layer_norm_2d forward + backward vs plain and F.layer_norm, fp32, limit 1e-4", flush=True)
     k3 = run_phase(check_k3)
-    print(f"[6] K3 per DCPT step ({K3_PER_STEP} calls each way at batch 8): kernel {k3['ms']:.3f} ms, plain "
-          f"{k3['plain_ms']:.3f} ms, F.layer_norm {k3['library_ms']:.3f} ms, bound {k3['bound_ms']:.3f} ms "
-          f"({k3['bound_by']})", flush=True)
+    print(f"[6] K3 per DCPT step ({K3_PER_STEP} calls each way at batch 8): device {k3['ms']:.3f} ms (plain "
+          f"{k3['plain_ms']:.3f} ms, F.layer_norm + backward {k3['library_ms']:.3f} ms), back-to-back calls "
+          f"{k3['call_ms']:.3f} ms (F.layer_norm + backward {k3['library_call_ms']:.3f} ms), bound {k3['bound_ms']:.3f} "
+          f"ms ({k3['bound_by']})", flush=True)
 
     train = run_phase(run_training)
     # [7] drives the yml's loader with its four spawned workers; the later training phases load
@@ -2926,9 +3020,10 @@ def main() -> int:
     k9 = run_phase(check_k9)
     print(f"[14] K9 per SwinIR backward (B=2, 128x128, {SWIN_PER_FORWARD} blocks): device {k9['ms']:.3f} ms (plain "
           f"{k9['plain_ms']:.3f} ms), back-to-back calls {k9['call_ms']:.3f} ms (plain {k9['plain_call_ms']:.3f} ms), "
-          f"bound {k9['bound_ms']:.3f} ms ({k9['bound_by']}); one call at B=8: {k9['b8_ms']:.3f} ms (plain "
-          f"{k9['b8_plain_ms']:.3f} ms, bound {k9['b8_bound_ms']:.3f} ms); library: none (no PyTorch call computes "
-          f"the block's backward)", flush=True)
+          f"bound {k9['bound_ms']:.3f} ms ({k9['bound_by']}, 3xTF32 on the tensor cores; SIMT fp32 "
+          f"{k9['simt_bound_ms']:.3f} ms); one call at B=8: {k9['b8_ms']:.3f} ms (plain {k9['b8_plain_ms']:.3f} ms, "
+          f"bound {k9['b8_bound_ms']:.3f} ms, SIMT fp32 {k9['b8_simt_bound_ms']:.3f} ms); library: none (no PyTorch "
+          f"call computes the block's backward)", flush=True)
 
     swin_train = run_phase(run_swinir_training, in_process)
 
@@ -2949,8 +3044,11 @@ def main() -> int:
     bf16 = run_phase(check_bf16_k2_k3)
     print(f"[18] K2 bf16 per NAFNet-w64 backward (B=2, 128x128, 36 blocks): kernel {bf16['naf_block_bwd']['ms']:.3f} "
           f"ms, plain {bf16['naf_block_bwd']['plain_ms']:.3f} ms; K3 bf16 per DCPT step ({K3_PER_STEP} calls each "
-          f"way): kernel {bf16['layer_norm_2d']['ms']:.3f} ms, plain {bf16['layer_norm_2d']['plain_ms']:.3f} ms, "
-          f"F.layer_norm {bf16['layer_norm_2d']['library_ms']:.3f} ms", flush=True)
+          f"way): device {bf16['layer_norm_2d']['ms']:.3f} ms (plain {bf16['layer_norm_2d']['plain_ms']:.3f} ms, "
+          f"F.layer_norm + backward {bf16['layer_norm_2d']['library_ms']:.3f} ms), back-to-back calls "
+          f"{bf16['layer_norm_2d']['call_ms']:.3f} ms (F.layer_norm + backward "
+          f"{bf16['layer_norm_2d']['library_call_ms']:.3f} ms), bf16 bound {bf16['layer_norm_2d']['bound_ms']:.3f} ms",
+          flush=True)
 
     mixed = run_phase(run_mixed_training, in_process, ["NAFNet"], "[19]", profiles=False)["NAFNet"]
 
@@ -3033,14 +3131,16 @@ def main() -> int:
                       launches_promptir=transformer_train["PromptIR"]["launches"]["mdta_block_bwd"],
                       call_ms=k7["call_ms"],
                       **{k: v for k, v in k7.items() if k.startswith("promptir_") and k != "promptir_bound_by"})
-    kernels[7].update(launches_per_step=SWIN_PER_STEP["swin_block_bwd"], call_ms=k9["call_ms"],
-                      plain_call_ms=k9["plain_call_ms"], b8_ms=k9["b8_ms"], b8_plain_ms=k9["b8_plain_ms"],
-                      b8_bound_ms=k9["b8_bound_ms"])
+    kernels[7].update(launches_per_step=SWIN_PER_STEP["swin_block_bwd"],
+                      **{k: k9[k] for k in ("call_ms", "plain_call_ms", "simt_bound_ms", "b8_ms", "b8_plain_ms",
+                                            "b8_call_ms", "b8_bound_ms", "b8_simt_bound_ms")})
     for entry, name in ((kernels[1], "naf_block_bwd"), (kernels[2], "layer_norm_2d")):
         b = bf16[name]
         entry.update(bf16_ms=b["ms"], bf16_plain_ms=b["plain_ms"], bf16_max_abs_err=b["max_abs_err"],
                      bf16_launches=mixed["launches"][name])
-    kernels[2]["bf16_library_ms"] = bf16["layer_norm_2d"]["library_ms"]
+    kernels[2].update(call_ms=k3["call_ms"], library_call_ms=k3["library_call_ms"],
+                      **{"bf16_" + k: bf16["layer_norm_2d"][k]
+                         for k in ("library_ms", "call_ms", "library_call_ms", "bound_ms")})
     for entry, name, arch in ((kernels[4], "mdta_block_bwd", "Restormer"), (kernels[7], "swin_block_bwd", "SwinIR")):
         b = bwd16[name]
         entry.update(bf16_ms=b["ms"], bf16_plain_ms=b["plain_ms"], bf16_max_abs_err=b["max_abs_err"],

@@ -22,7 +22,8 @@
 //   R  recompute: xn = LN1(x); qkv = xn . Wqkv^T + b (q times hd^-0.5);
 //      acc = per window and head softmax(q k^T) v; y = x + acc . Wproj^T + b;
 //      yn = LN2(y); pre1 = yn . Wfc1^T + b and g = GELU(pre1)
-//   B  dpre1 = (dz . Wfc2) GELU'(pre1) (in pre1's place); dyn = dpre1 . Wfc1;
+//   B  dpre1 = (dz . Wfc2) GELU'(pre1) (in g's place, once dWfc2 has read g);
+//      dyn = dpre1 . Wfc1;
 //      dy = dz + LN2 backward; dacc = dy . Wproj; per window and head (A)
 //      P = softmax(q k^T) again, dattn = dacc_h v_h^T, dv_h = P^T dacc_h,
 //      dS = P (dattn - rowsum(dattn P)), dq_h = dS k_h hd^-0.5, dk_h = dS^T q_h
@@ -32,13 +33,23 @@
 //      as per-chunk partials over tokens, the biases and LayerNorm affines as
 //      column sums, all added by colsum<9> in a fixed order: the same bits
 //      from run to run.
-// The token-wide products are gemm.cuh's gemm_masked (64 tokens x 64 output
-// columns a block, ragged widths masked: head 30, C 180, hidden 360).
+// Every product runs on the tensor cores, mma.sync m16n8k8 TF32 with fp32
+// sums (csrc/ptx.cuh), each fp32 operand split into a high and a low TF32
+// part and three products summed (3xTF32, fp32 accuracy; two where one
+// operand is bf16).  The token-wide products (qkv, proj and fc1 of the
+// recompute; fc2^T, fc1^T, proj^T and qkv^T of the backward) and the four
+// weight gradients, with their bias sums read from the same staged chunks,
+// are tc_gemm.cuh's 96 x 96 tiles (a weight gradient cut into token chunks).
+// The two window passes run one block of four warps a window and head, the
+// scores, the softmax and P in registers.
 //
-// What bounds it on this card: per token the recomputed forward (4 C^2 + 2 C
-// hidden + 2 N C multiply-adds, N tokens a window) and the backward (twice
-// that), about 3 x K8's work, on the SIMT fp32 pipes from shared memory:
-// operations.  wgmma/TMA tiles and a window-resident recompute are the next steps.
+// What bounds it on this card: operations, 12 C^2 + 5 C hidden + 6 N C
+// multiply-adds a token, 91 % of them in the token-wide products: 1.24 ms a
+// call at batch 8, 128 x 128, with three TF32 products a multiply-add at the
+// TF32 peak (chip_smoke.py::k9_work; 3.06 ms at the SIMT fp32 peak).
+// mma.sync reaches a fraction of that peak; wgmma with TMA-fed tiles is the
+// next step.  The LayerNorm passes and the column sums move the rest: about
+// 4 GB of workspace traffic a call at batch 8.
 //
 // Weights come and gradients go in PyTorch's layout: every Linear as (out, in).
 //
@@ -52,18 +63,11 @@
 #include <algorithm>
 
 #include "common.cuh"
-#include "gemm.cuh"
+#include "mma_frag.cuh"
+#include "tc_gemm.cuh"
 #include "token_bwd.cuh"
 
 namespace {
-
-constexpr int kWin = 64;      // tokens a window holds: ws * ws <= kWin
-constexpr int kLP = 65;       // row stride of a window's probabilities and dS
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int m = 16; m > 0; m >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, m));
-  return v;
-}
 
 // out = LN(in) w + b over the C channels of each token, one token a warp (biased
 // variance); the same sums in the same order as ln_bwd_kernel's statistics.
@@ -87,176 +91,305 @@ k9_ln_kernel(const TI* __restrict__ in, const TW* __restrict__ w, const TW* __re
   for (int c = lane; c < C; c += 32) o[c] = (ld(r[c]) - mu) * rs * ld(w[c]) + ld(b[c]);
 }
 
-// The epilogues of k9_prod_kernel.
+// The epilogues of the token-wide products (tc::gemm), on pairs of columns.
 enum Epi { kQKV, kProj, kFc1, kGeluBwd, kPlain };
 
-// out (T, N) = a (T, K) . W^T with W (N, K) row-major (PyTorch's (out, in), the
-// forward's products), or with WT a . W, W (K, N) (the same weight read
-// transposed, the backward's), then E:
+// out (T, N) gets the product's (p, n), then E:
 //   kQKV      + bias[n], times scale for n < C (q)
 //   kProj     + bias[n] + res[p][n]                (y = x + proj)
 //   kFc1      + bias[n] into out, its GELU into out2 (pre1 and g)
-//   kGeluBwd  times GELU'(out[p][n]) in place       (out holds pre1, becomes dpre1)
+//   kGeluBwd  times GELU'(src[p][n])                (src holds pre1, out gets dpre1)
 //   kPlain    as it is
-// grid (token tiles of 16 RM, column blocks of kNB).  a is fp32 or (dz) the I/O
-// type TIO of the weights, the biases and res (x).
-template <int RM, bool WT, int E, typename TA, typename TIO>
-__global__ void __launch_bounds__(kThreads)
-k9_prod_kernel(const TA* __restrict__ a, const TIO* __restrict__ w, const TIO* __restrict__ bias,
-               const TIO* __restrict__ res, float* out, float* __restrict__ out2, int T, int K, int N, int C,
-               float scale) {
-  constexpr int P = 16 * RM;
-  extern __shared__ float smem[];
-  const int p0 = blockIdx.x * P, n0 = blockIdx.y * kNB, np = min(P, T - p0);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const TA* ab = a + (size_t)p0 * K;
-  float acc[RM][4];
-  gemm_masked<RM, WT>(smem, w, WT ? N : K, N, n0, 0, K, [&](int p, int k) {
-    return p < np ? ld(ab[(size_t)p * K + k]) : 0.f;
-  }, acc);
-#pragma unroll
-  for (int r = 0; r < RM; ++r)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int p = ty + 16 * r, n = n0 + tx + 16 * i;
-      if (p >= np || n >= N) continue;
-      const size_t q = (size_t)(p0 + p) * N + n;
-      float v = acc[r][i];
-      if (E == kQKV) v = (v + ld(bias[n])) * (n < C ? scale : 1.f);
-      if (E == kProj) v = ld(res[q]) + (v + ld(bias[n]));
-      if (E == kFc1) {
-        v += ld(bias[n]);
-        out2[q] = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
-      }
-      if (E == kGeluBwd) {
-        const float x = out[q];
-        v *= 0.5f * (1.f + erff(x * 0.70710678118654752f)) + x * 0.3989422804014327f * expf(-0.5f * x * x);
-      }
-      out[q] = v;
+// bias and res (x) in the I/O type TIO.  res and src are read through the
+// read-only path (__ldg): no store of the product touches them, so a thread's
+// loads need not wait for its stores.
+template <int E, typename TIO>
+struct ProdEpi {
+  float* out;
+  float* out2;
+  const TIO* bias;
+  const TIO* res;
+  const float* src;
+  int N, C;
+  float scale;
+  __device__ __forceinline__ void one(int p, int n, float v) const {
+    const size_t q = (size_t)p * N + n;
+    if (E == kQKV) v = (v + ld(bias[n])) * (n < C ? scale : 1.f);
+    if (E == kProj) v = ld(__ldg(res + q)) + (v + ld(bias[n]));
+    if (E == kFc1) {
+      v += ld(bias[n]);
+      out2[q] = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
     }
-}
-
-// One window's attention for head blockIdx.z: block (blockIdx.x = wy (W / ws) +
-// wx, blockIdx.y = b).  Shared memory (floats): q, k, v, the output cotangent
-// of the head (row stride hd + 1), the probabilities P and dattn / dS (row
-// stride kLP), the token pixels.  q is read as stored (scaled).
-struct AttnSmem {
-  int ld;
-  float *q, *k, *v, *d, *p, *s;
-  int* pix;
-  __device__ AttnSmem(float* smem, int hd) : ld(hd + 1) {
-    q = smem;
-    k = q + kWin * ld;
-    v = k + kWin * ld;
-    d = v + kWin * ld;
-    p = d + kWin * ld;
-    s = p + kWin * kLP;
-    pix = reinterpret_cast<int*>(s + kWin * kLP);
+    if (E == kGeluBwd) {
+      const float x = __ldg(src + q);
+      v *= 0.5f * (1.f + erff(x * 0.70710678118654752f)) + x * 0.3989422804014327f * expf(-0.5f * x * x);
+    }
+    out[q] = v;
+  }
+  __device__ __forceinline__ void operator()(int, int p, int n, float v0, float v1) const {
+    one(p, n, v0);
+    if (n + 1 < N) one(p, n + 1, v1);
   }
 };
 
-inline int attn_smem_floats(int hd) { return 4 * kWin * (hd + 1) + 2 * kWin * kLP + kWin; }
+// A weight gradient's chunk z: part[z] (M, N) gets its share of dW.
+struct PartEpi {
+  float* part;
+  int M, N;
+  __device__ __forceinline__ void operator()(int z, int m, int n, float v0, float v1) const {
+    float* d = part + ((size_t)z * M + m) * N + n;
+    d[0] = v0;
+    if (n + 1 < N) d[1] = v1;
+  }
+};
 
-// Gather the window's pixels and its q, k, v (and with BWD the cotangent of the
-// heads' output, dacc) of head h into S; then P = softmax(q k^T) over its N keys,
-// one row a warp (the maximum subtracted, sums in a fixed order).
-template <bool BWD>
-__device__ __forceinline__ void attn_probs(const AttnSmem& S, const float* __restrict__ qkv,
-                                           const float* __restrict__ dacc, int H, int W, int C, int hd, int ws,
-                                           int shift, int N) {
+// The two window passes, one block of 4 warps a window and head: grid (wy (W /
+// ws) + wx, b, head).  The block gathers the window's tokens of q, k and v
+// (and in the backward dacc) of its head into shared memory, token-major with
+// rows kTLD = 8 HDT + 4 floats apart (4 (mod 32)), zero past the tokens and
+// the head's width; warp w takes query rows 16 w + [0, 16).  Every product is
+// mma.sync m16n8k8 TF32 with each fp32 operand split into a high and a low
+// TF32 part (3xTF32).  The scores, the softmax and P stay in the warp's
+// registers: a score fragment of key tile j is the A fragment of the next
+// product's depth step j, its depth slots t and t + 4 taken as the keys 2t
+// and 2t + 1 (the other operand's rows read to match).  The backward stores P
+// and dS (row stride kPLD = 68, 4 (mod 32)) for dk = dS^T q and dv = P^T
+// dacc, which run over the key rows.  q is read as stored (scaled).
+constexpr int kWin = 64;           // tokens a window holds: ws * ws <= kWin
+constexpr int kAttnThreads = 128;  // 4 warps of 16 query (or key) rows
+constexpr int kPLD = kWin + 4;     // row stride of P and dS
+
+struct FragA {
+  float h[4], l[4];
+  __device__ __forceinline__ FragA(float a0, float a1, float a2, float a3) {
+    split(a0, h[0], l[0]);
+    split(a1, h[1], l[1]);
+    split(a2, h[2], l[2]);
+    split(a3, h[3], l[3]);
+  }
+};
+struct FragB {
+  float h[2], l[2];
+  __device__ __forceinline__ FragB(float b0, float b1) {
+    split(b0, h[0], l[0]);
+    split(b1, h[1], l[1]);
+  }
+};
+
+// d += a . b in 3xTF32, the small terms first
+__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a, const FragB& b) {
+  mma_tf32(d, a.l, b.h);
+  mma_tf32(d, a.h, b.l);
+  mma_tf32(d, a.h, b.h);
+}
+
+template <int HDT>  // 8-wide tiles of the head's padded width: 4 (hd <= 32) or 8 (hd <= 64)
+struct AttnSmem {
+  static constexpr int kTLD = 8 * HDT + 4;
+  float *q, *k, *v, *d, *p, *s;
+  int* pix;
+  __device__ AttnSmem(float* smem, bool bwd) {
+    q = smem;
+    k = q + kWin * kTLD;
+    v = k + kWin * kTLD;
+    d = v + kWin * kTLD;
+    p = bwd ? d + kWin * kTLD : nullptr;
+    s = bwd ? p + kWin * kPLD : nullptr;
+    pix = reinterpret_cast<int*>(bwd ? s + kWin * kPLD : d);
+  }
+  // floats of dynamic shared memory (ops/swin_block_bwd.py::attn_smem_bytes / 4)
+  static int floats(bool bwd) { return (bwd ? 4 : 3) * kWin * kTLD + (bwd ? 2 * kWin * kPLD : 0) + kWin; }
+};
+
+inline int head_tiles(int hd) { return (hd + 7) / 8 <= 4 ? 4 : 8; }
+
+// The window's pixels, then its tokens of q, k, v (and dacc) of head blockIdx.z into S.
+template <int HDT>
+__device__ __forceinline__ void attn_gather(const AttnSmem<HDT>& S, const float* __restrict__ qkv,
+                                            const float* __restrict__ dacc, int H, int W, int C, int hd, int ws,
+                                            int shift, int N) {
+  constexpr int kTLD = AttnSmem<HDT>::kTLD;
   const int nwx = W / ws, wy = blockIdx.x / nwx, wx = blockIdx.x % nwx, b = blockIdx.y, h = blockIdx.z;
-  const int ld = S.ld;
-  if (threadIdx.x < N) {
+  if (threadIdx.x < kWin) {
     const int t = threadIdx.x;
     const int yy = (wy * ws + t / ws + shift) % H, xx = (wx * ws + t % ws + shift) % W;
-    S.pix[t] = (b * H + yy) * W + xx;
+    S.pix[t] = t < N ? (b * H + yy) * W + xx : 0;
   }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < N * hd; idx += kThreads) {
-    const int t = idx / hd, e = idx % hd;
-    const float* src = qkv + (size_t)S.pix[t] * 3 * C + h * hd + e;
-    S.q[t * ld + e] = src[0];
-    S.k[t * ld + e] = src[C];
-    S.v[t * ld + e] = src[2 * C];
-    if (BWD) S.d[t * ld + e] = dacc[(size_t)S.pix[t] * C + h * hd + e];
+  // kGroup rows of loads in flight before their stores
+  constexpr int kIters = kWin * 8 * HDT / kAttnThreads, kGroup = 4;
+  for (int i0 = 0; i0 < kIters; i0 += kGroup) {
+    float v[kGroup][4];
+#pragma unroll
+    for (int i = 0; i < kGroup; ++i) {
+      const int idx = threadIdx.x + (i0 + i) * kAttnThreads, t = idx / (8 * HDT), e = idx % (8 * HDT);
+      const bool live = t < N && e < hd;
+      const float* src = qkv + (size_t)S.pix[t] * 3 * C + h * hd + e;
+      v[i][0] = live ? src[0] : 0.f;
+      v[i][1] = live ? src[C] : 0.f;
+      v[i][2] = live ? src[2 * C] : 0.f;
+      v[i][3] = live && dacc ? dacc[(size_t)S.pix[t] * C + h * hd + e] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < kGroup; ++i) {
+      const int idx = threadIdx.x + (i0 + i) * kAttnThreads, t = idx / (8 * HDT), e = idx % (8 * HDT);
+      S.q[t * kTLD + e] = v[i][0];
+      S.k[t * kTLD + e] = v[i][1];
+      S.v[t * kTLD + e] = v[i][2];
+      if (dacc) S.d[t * kTLD + e] = v[i][3];
+    }
   }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < N * N; idx += kThreads) {
-    const int i = idx / N, j = idx % N;
-    float s = 0.f;
-    for (int e = 0; e < hd; ++e) s = fmaf(S.q[i * ld + e], S.k[j * ld + e], s);
-    S.p[i * kLP + j] = s;
+}
+
+// o[j] = (a . b^T) of the warp's rows 16 w + [0, 16) of a against every token j of b
+// (64 x 64), over the head's padded width: o[j][e] at rows 16 w + g (e < 2) and
+// + 8, columns 8 j + 2t + e % 2.  a and b token-major.
+template <int HDT>
+__device__ __forceinline__ void rows_by_tokens(const float* a, const float* b, int hdp, float (&o)[8][4]) {
+  constexpr int kTLD = AttnSmem<HDT>::kTLD;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3, r0 = 16 * (threadIdx.x >> 5);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  for (int d0 = 0; d0 < hdp; d0 += 8) {
+    const float* pa = a + (r0 + g) * kTLD + d0 + t;
+    const FragA fa(pa[0], pa[8 * kTLD], pa[4], pa[8 * kTLD + 4]);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float* pb = b + (8 * j + g) * kTLD + d0 + t;
+      mma3(o[j], fa, FragB(pb[0], pb[4]));
+    }
   }
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int i = warp; i < N; i += kThreads / 32) {
-    float* r = S.p + i * kLP;
-    const float s0 = lane < N ? r[lane] : -INFINITY, s1 = lane + 32 < N ? r[lane + 32] : -INFINITY;
-    const float mx = warp_max(fmaxf(s0, s1));
-    const float e0 = lane < N ? expf(s0 - mx) : 0.f, e1 = lane + 32 < N ? expf(s1 - mx) : 0.f;
-    const float inv = 1.f / warp_sum(e0 + e1);
-    if (lane < N) r[lane] = e0 * inv;
-    if (lane + 32 < N) r[lane + 32] = e1 * inv;
+}
+
+// o[nt] += m . x for the warp's rows, m (16 rows x 64 tokens) in registers as
+// rows_by_tokens leaves it, x token-major: columns 8 nt + 2t (+1) of the head;
+// key tiles at or past N skipped (m is zero there).
+template <int HDT>
+__device__ __forceinline__ void regs_by_map(const float (&m)[8][4], const float* x, int N, float (&o)[HDT][4]) {
+  constexpr int kTLD = AttnSmem<HDT>::kTLD;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    if (8 * j >= N) continue;
+    const FragA fa(m[j][0], m[j][2], m[j][1], m[j][3]);
+    const float* pb = x + (8 * j + 2 * t) * kTLD + g;
+#pragma unroll
+    for (int nt = 0; nt < HDT; ++nt) mma3(o[nt], fa, FragB(pb[8 * nt], pb[8 * nt + kTLD]));
   }
-  __syncthreads();
+}
+
+// o[nt] += m^T . x for the warp's key rows 16 w + [0, 16): m (64 queries x 64
+// keys, row stride kPLD) read transposed, x token-major over the queries;
+// query steps at or past N skipped (m's or x's rows are zero there).
+template <int HDT>
+__device__ __forceinline__ void mapT_by_map(const float* m, const float* x, int N, float (&o)[HDT][4]) {
+  constexpr int kTLD = AttnSmem<HDT>::kTLD;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3, j0 = 16 * (threadIdx.x >> 5);
+  for (int i0 = 0; i0 < N; i0 += 8) {
+    const float* pa = m + (i0 + 2 * t) * kPLD + j0 + g;
+    const FragA fa(pa[0], pa[8], pa[kPLD], pa[kPLD + 8]);
+    const float* pb = x + (i0 + 2 * t) * kTLD + g;
+#pragma unroll
+    for (int nt = 0; nt < HDT; ++nt) mma3(o[nt], fa, FragB(pb[8 * nt], pb[8 * nt + kTLD]));
+  }
+}
+
+// p = softmax over the keys below N of the scores in p (rows_by_tokens' layout,
+// mma_frag.cuh's softmax_frags), normalised.
+__device__ __forceinline__ void softmax_rows(float (&p)[8][4], int N) {
+  float inv0, inv1;
+  softmax_frags(p, N, inv0, inv1);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    p[j][0] *= inv0;
+    p[j][1] *= inv0;
+    p[j][2] *= inv1;
+    p[j][3] *= inv1;
+  }
+}
+
+// Store o (rows r (+ 8) of the warp, columns 8 nt + 2t (+1)) at dst[pix[r] * ld + col] times
+// scale, for rows below N and columns below hd.
+template <int HDT>
+__device__ __forceinline__ void store_rows(const float (&o)[HDT][4], const int* pix, int r, float* dst, size_t ld,
+                                           int hd, int N, float scale) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int nt = 0; nt < HDT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = r + 8 * (e / 2), col = 8 * nt + 2 * t + e % 2;
+      if (row < N && col < hd) dst[(size_t)pix[row] * ld + col] = o[nt][e] * scale;
+    }
 }
 
 // R: acc's columns of head h = P v for the window's tokens.
-__global__ void __launch_bounds__(kThreads)
+template <int HDT>
+__global__ void __launch_bounds__(kAttnThreads)
 k9_attn_fwd_kernel(const float* __restrict__ qkv, float* __restrict__ acc, int H, int W, int C, int hd, int ws,
                    int shift) {
   extern __shared__ float smem[];
-  const AttnSmem S(smem, hd);
-  const int N = ws * ws, ld = S.ld;
-  attn_probs<false>(S, qkv, nullptr, H, W, C, hd, ws, shift, N);
-  for (int idx = threadIdx.x; idx < N * hd; idx += kThreads) {
-    const int i = idx / hd, e = idx % hd;
-    float o = 0.f;
-    for (int j = 0; j < N; ++j) o = fmaf(S.p[i * kLP + j], S.v[j * ld + e], o);
-    acc[(size_t)S.pix[i] * C + blockIdx.z * hd + e] = o;
-  }
+  const AttnSmem<HDT> S(smem, false);
+  const int N = ws * ws, hdp = (hd + 7) / 8 * 8, g = (threadIdx.x & 31) >> 2, r0 = 16 * (threadIdx.x >> 5);
+  attn_gather(S, qkv, nullptr, H, W, C, hd, ws, shift, N);
+  float p[8][4], o[HDT][4] = {};
+  rows_by_tokens<HDT>(S.q, S.k, hdp, p);
+  softmax_rows(p, N);
+  regs_by_map<HDT>(p, S.v, N, o);
+  store_rows<HDT>(o, S.pix, r0 + g, acc + blockIdx.z * hd, C, hd, N, 1.f);
 }
 
-// A: head h's columns of dqkv (q's, k's and v's) for the window's tokens.
-__global__ void __launch_bounds__(kThreads)
+// A: head h's columns of dqkv (q's, k's and v's) for the window's tokens:
+// dattn = dacc v^T, dS = P (dattn - rowsum(dattn P)), dq = dS k scale,
+// dk = dS^T q, dv = P^T dacc.
+template <int HDT>
+__global__ void __launch_bounds__(kAttnThreads)
 k9_attn_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ dacc, float* __restrict__ dqkv, int H,
                    int W, int C, int hd, int ws, int shift, float scale) {
   extern __shared__ float smem[];
-  const AttnSmem S(smem, hd);
-  const int N = ws * ws, ld = S.ld, h = blockIdx.z;
-  attn_probs<true>(S, qkv, dacc, H, W, C, hd, ws, shift, N);
-  // dattn = dacc_h v_h^T
-  for (int idx = threadIdx.x; idx < N * N; idx += kThreads) {
-    const int i = idx / N, j = idx % N;
-    float s = 0.f;
-    for (int e = 0; e < hd; ++e) s = fmaf(S.d[i * ld + e], S.v[j * ld + e], s);
-    S.s[i * kLP + j] = s;
+  const AttnSmem<HDT> S(smem, true);
+  const int N = ws * ws, hdp = (hd + 7) / 8 * 8, h = blockIdx.z;
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3, r0 = 16 * (threadIdx.x >> 5);
+  attn_gather(S, qkv, dacc, H, W, C, hd, ws, shift, N);
+  float p[8][4], ds[8][4];
+  rows_by_tokens<HDT>(S.q, S.k, hdp, p);
+  softmax_rows(p, N);
+  rows_by_tokens<HDT>(S.d, S.v, hdp, ds);  // dattn
+  float dot0 = 0.f, dot1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    dot0 = fmaf(ds[j][0], p[j][0], fmaf(ds[j][1], p[j][1], dot0));
+    dot1 = fmaf(ds[j][2], p[j][2], fmaf(ds[j][3], p[j][3], dot1));
   }
-  __syncthreads();
-  // dS = P (dattn - rowsum(dattn P)), one row a warp
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int i = warp; i < N; i += kThreads / 32) {
-    float* pr = S.p + i * kLP;
-    float* sr = S.s + i * kLP;
-    float dot = 0.f;
-    for (int j = lane; j < N; j += 32) dot = fmaf(sr[j], pr[j], dot);
-    dot = warp_sum(dot);
-    for (int j = lane; j < N; j += 32) sr[j] = pr[j] * (sr[j] - dot);
+  dot0 += __shfl_xor_sync(0xffffffffu, dot0, 1);
+  dot1 += __shfl_xor_sync(0xffffffffu, dot1, 1);
+  dot0 += __shfl_xor_sync(0xffffffffu, dot0, 2);
+  dot1 += __shfl_xor_sync(0xffffffffu, dot1, 2);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    ds[j][0] = p[j][0] * (ds[j][0] - dot0);
+    ds[j][1] = p[j][1] * (ds[j][1] - dot0);
+    ds[j][2] = p[j][2] * (ds[j][2] - dot1);
+    ds[j][3] = p[j][3] * (ds[j][3] - dot1);
+    float* pr = S.p + (r0 + g) * kPLD + 8 * j + 2 * t;
+    float* sr = S.s + (r0 + g) * kPLD + 8 * j + 2 * t;
+    pr[0] = p[j][0], pr[1] = p[j][1], pr[8 * kPLD] = p[j][2], pr[8 * kPLD + 1] = p[j][3];
+    sr[0] = ds[j][0], sr[1] = ds[j][1], sr[8 * kPLD] = ds[j][2], sr[8 * kPLD + 1] = ds[j][3];
   }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < N * hd; idx += kThreads) {
-    const int i = idx / hd, e = idx % hd;
-    float dq = 0.f, dk = 0.f, dv = 0.f;
-    for (int j = 0; j < N; ++j) {
-      dq = fmaf(S.s[i * kLP + j], S.k[j * ld + e], dq);  // dS k
-      dk = fmaf(S.s[j * kLP + i], S.q[j * ld + e], dk);  // dS^T q
-      dv = fmaf(S.p[j * kLP + i], S.d[j * ld + e], dv);  // P^T dacc
-    }
-    float* dst = dqkv + (size_t)S.pix[i] * 3 * C + h * hd + e;
-    dst[0] = dq * scale;
-    dst[C] = dk;
-    dst[2 * C] = dv;
-  }
+  float* out = dqkv + h * hd;
+  float o[HDT][4] = {};
+  regs_by_map<HDT>(ds, S.k, N, o);  // dq
+  store_rows<HDT>(o, S.pix, r0 + g, out, 3 * (size_t)C, hd, N, scale);
+  __syncthreads();  // P and dS are in
+  float o2[HDT][4] = {};
+  mapT_by_map<HDT>(S.s, S.q, N, o2);  // dk
+  store_rows<HDT>(o2, S.pix, r0 + g, out + C, 3 * (size_t)C, hd, N, 1.f);
+  float o3[HDT][4] = {};
+  mapT_by_map<HDT>(S.p, S.d, N, o3);  // dv
+  store_rows<HDT>(o3, S.pix, r0 + g, out + 2 * C, 3 * (size_t)C, hd, N, 1.f);
 }
 
 // The 12 parameter gradients' lengths in floats, in the entry's order (dln1_w,
@@ -272,8 +405,8 @@ void param_lengths(int C, int hidden, long long* len) {
 // The workspace: the recomputed forward, the cotangent maps, every partial sum,
 // colsum's scratch, and in a bf16 call the fp32 staging of the parameter gradients.
 struct Plan {
-  int B, H, W, C, heads, hd, hidden, T, rm, nrb;
-  size_t xn, qkv, acc, y, yn, pre, g, dm, dy, dqkv, stats, prow, pw, sum, stage, total;
+  int B, H, W, C, heads, hd, hidden, T, nrb;
+  size_t xn, qkv, acc, y, yn, pre, g, dm, dy, dqkv, stats, prow, pw, pb, sum, stage, total;
 };
 
 Plan make_plan(int B, int H, int W, int C, int heads, int hidden, bool bf16) {
@@ -281,7 +414,6 @@ Plan make_plan(int B, int H, int W, int C, int heads, int hidden, bool bf16) {
   pl.B = B; pl.H = H; pl.W = W; pl.C = C; pl.heads = heads; pl.hidden = hidden;
   pl.hd = C / heads;
   pl.T = B * H * W;
-  pl.rm = pl.T >= 8192 ? 4 : (pl.T >= 2048 ? 2 : 1);  // token tiles that fill the card
   pl.nrb = (pl.T + kRP - 1) / kRP;
   const size_t n = pl.T;
   size_t off = 0;
@@ -295,23 +427,24 @@ Plan make_plan(int B, int H, int W, int C, int heads, int hidden, bool bf16) {
   pl.acc = take(n * C);
   pl.y = take(n * C);
   pl.yn = take(n * C);
-  pl.pre = take(n * hidden);  // pre1, then dpre1
-  pl.g = take(n * hidden);
+  pl.pre = take(n * hidden);  // pre1
+  pl.g = take(n * hidden);    // g, then dpre1
   pl.dm = take(n * C);        // dyn, then dacc, then dxn
   pl.dy = take(n * C);
   pl.dqkv = take(n * 3 * C);
   pl.stats = take(2 * n);
   pl.prow = take((size_t)pl.nrb * 2 * C);
-  size_t pw = 0, sum = 0;
+  size_t pw = 0, pb = 0, sum = 0;
   const int shapes[4][2] = {{C, hidden}, {hidden, C}, {C, C}, {3 * C, C}};
   for (const auto& s : shapes) {
     int len;
-    const int nch = w_chunks(s[0], s[1], pl.T, &len);
+    const int nch = tc::depth_chunks(s[0], s[1], pl.T, &len);
     pw = std::max(pw, (size_t)nch * s[0] * s[1]);
+    pb = std::max(pb, (size_t)nch * s[0]);
     sum = std::max(sum, colsum_scratch(1, nch, s[0] * s[1]));
   }
   pl.pw = take(pw);
-  for (int width : {C, hidden, 3 * C}) sum = std::max(sum, colsum_scratch(1, pl.T, width));
+  pl.pb = take(pb);
   sum = std::max(sum, colsum_scratch(1, pl.nrb, C));
   pl.sum = take(sum);
   long long len[kParams], staged = 0;
@@ -337,21 +470,14 @@ struct Grads {
 #define CHECK(call) \
   if ((err = (call)) != cudaSuccess) return err;
 
-template <int RM, bool WT, int E, typename TA, typename TIO>
-cudaError_t launch_prod(const Plan& pl, const TA* a, const TIO* w, const TIO* bias, const TIO* res, float* out,
-                        float* out2, int K, int N, float scale, cudaStream_t stream) {
-  const int smem = gemm_smem_floats(RM) * (int)sizeof(float);
-  k9_prod_kernel<RM, WT, E, TA, TIO><<<dim3((pl.T + 16 * RM - 1) / (16 * RM), (N + kNB - 1) / kNB), kThreads, smem,
-                                       stream>>>(a, w, bias, res, out, out2, pl.T, K, N, pl.C, scale);
-  return cudaGetLastError();
-}
-
+// out (T, N) = a (T, K) . W^T with W (N, K) as stored (PyTorch's (out, in), the
+// forward's products), or with WT a . W, W (K, N) (the same weight read the
+// other way, the backward's), then the epilogue E
 template <bool WT, int E, typename TA, typename TIO>
 cudaError_t prod(const Plan& pl, const TA* a, const TIO* w, const TIO* bias, const TIO* res, float* out,
-                 float* out2, int K, int N, cudaStream_t s, float scale = 1.f) {
-  return pl.rm == 4   ? launch_prod<4, WT, E>(pl, a, w, bias, res, out, out2, K, N, scale, s)
-         : pl.rm == 2 ? launch_prod<2, WT, E>(pl, a, w, bias, res, out, out2, K, N, scale, s)
-                      : launch_prod<1, WT, E>(pl, a, w, bias, res, out, out2, K, N, scale, s);
+                 float* out2, int K, int N, cudaStream_t s, float scale = 1.f, const float* src = nullptr) {
+  const ProdEpi<E, TIO> epi{out, out2, bias, res, src, N, pl.C, scale};
+  return tc::gemm<9>(tc::operand<true>(a, K, pl.T), tc::operand<!WT>(w, WT ? N : K, N), K, 1, K, epi, nullptr, s);
 }
 
 template <typename TI, typename TW>
@@ -363,21 +489,28 @@ cudaError_t layer_norm(const Plan& pl, const TI* in, const TW* w, const TW* b, f
 }
 
 // A window pass (BWD: the attention backward) over every window and head.
-template <bool BWD>
-cudaError_t attention(const Plan& pl, const float* qkv, const float* dacc, float* out, int ws, int shift,
-                      cudaStream_t stream) {
-  const int smem = attn_smem_floats(pl.hd) * (int)sizeof(float);
+template <bool BWD, int HDT>
+cudaError_t attention_pass(const Plan& pl, const float* qkv, const float* dacc, float* out, int ws, int shift,
+                           cudaStream_t stream) {
+  const int smem = AttnSmem<HDT>::floats(BWD) * (int)sizeof(float);
   const dim3 grid((pl.H / ws) * (pl.W / ws), pl.B, pl.heads);
   cudaError_t err;
   if (BWD) {
-    CHECK(cudaFuncSetAttribute(k9_attn_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
-    k9_attn_bwd_kernel<<<grid, kThreads, smem, stream>>>(qkv, dacc, out, pl.H, pl.W, pl.C, pl.hd, ws, shift,
-                                                         1.f / sqrtf((float)pl.hd));
+    CHECK(cudaFuncSetAttribute(k9_attn_bwd_kernel<HDT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+    k9_attn_bwd_kernel<HDT><<<grid, kAttnThreads, smem, stream>>>(qkv, dacc, out, pl.H, pl.W, pl.C, pl.hd, ws, shift,
+                                                                 1.f / sqrtf((float)pl.hd));
   } else {
-    CHECK(cudaFuncSetAttribute(k9_attn_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
-    k9_attn_fwd_kernel<<<grid, kThreads, smem, stream>>>(qkv, out, pl.H, pl.W, pl.C, pl.hd, ws, shift);
+    CHECK(cudaFuncSetAttribute(k9_attn_fwd_kernel<HDT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+    k9_attn_fwd_kernel<HDT><<<grid, kAttnThreads, smem, stream>>>(qkv, out, pl.H, pl.W, pl.C, pl.hd, ws, shift);
   }
   return cudaGetLastError();
+}
+
+template <bool BWD>
+cudaError_t attention(const Plan& pl, const float* qkv, const float* dacc, float* out, int ws, int shift,
+                      cudaStream_t stream) {
+  return head_tiles(pl.hd) == 4 ? attention_pass<BWD, 4>(pl, qkv, dacc, out, ws, shift, stream)
+                                : attention_pass<BWD, 8>(pl, qkv, dacc, out, ws, shift, stream);
 }
 
 // LN backward: out = res + the backward through LN(v), and the weight and bias gradients
@@ -393,20 +526,18 @@ cudaError_t ln_bwd(const Plan& pl, float* ws, const TV* v, const float* dln, con
   return colsum<9>(ws + pl.prow + C, 1, pl.nrb, C, 2 * C, db, ws + pl.sum, stream);
 }
 
-// W: out (M, N) = sum over tokens of a (T, M) x bm (T, N); bias (M,) = the column sums of a
+// W: out (M, N) = sum over tokens of a (T, M) x bm (T, N), bias (M,) = the
+// column sums of a: per-chunk partials over tokens, added by colsum in order
 template <typename TA>
 cudaError_t wgrad(const Plan& pl, float* ws, const TA* a, int M, const float* bm, int N, float* out, float* bias,
                   cudaStream_t stream) {
   int len;
-  const int nch = w_chunks(M, N, pl.T, &len);
-  const float* none = nullptr;
-  wgrad_kernel<9, false, TA, float, float><<<dim3((N + kNB - 1) / kNB, (M + kNB - 1) / kNB, nch), kThreads,
-                                             2 * kKC * kWS * sizeof(float), stream>>>(
-      a, M, bm, N, nullptr, none, none, 0, ws + pl.pw, pl.T, M, N, len);
+  const int nch = tc::depth_chunks(M, N, pl.T, &len);
   cudaError_t err;
-  CHECK(cudaGetLastError());
+  CHECK(tc::gemm<9>(tc::operand<false>(a, M, M), tc::operand<false>(bm, N, N), pl.T, nch, len,
+                    PartEpi{ws + pl.pw, M, N}, ws + pl.pb, stream));
   CHECK(colsum<9>(ws + pl.pw, 1, nch, M * N, M * N, out, ws + pl.sum, stream));
-  return colsum<9>(a, 1, pl.T, M, M, bias, ws + pl.sum, stream);
+  return colsum<9>(ws + pl.pb, 1, nch, M, M, bias, ws + pl.sum, stream);
 }
 
 template <typename T>
@@ -426,10 +557,10 @@ int swin_block_bwd(const T* x, const T* dz, const Weights<T>& wt, const Grads<T>
   CHECK(layer_norm(pl, static_cast<const float*>(y), wt.ln2w, wt.ln2b, yn, eps, stream));
   CHECK((prod<false, kFc1>(pl, static_cast<const float*>(yn), wt.wfc1, wt.bfc1, none, pre, g, C, hidden, stream)));
   // B and W: the MLP and LN2
-  CHECK((prod<true, kGeluBwd>(pl, dz, wt.wfc2, none, none, pre, nullptr, C, hidden, stream)));
-  CHECK(wgrad(pl, ws, dz, C, g, hidden, gr.dwfc2, gr.dbfc2, stream));
-  CHECK((prod<true, kPlain>(pl, static_cast<const float*>(pre), wt.wfc1, none, none, dm, nullptr, hidden, C, stream)));
-  CHECK(wgrad(pl, ws, static_cast<const float*>(pre), hidden, yn, C, gr.dwfc1, gr.dbfc1, stream));
+  CHECK(wgrad(pl, ws, dz, C, g, hidden, gr.dwfc2, gr.dbfc2, stream));  // before dpre1 takes g's place
+  CHECK((prod<true, kGeluBwd>(pl, dz, wt.wfc2, none, none, g, nullptr, C, hidden, stream, 1.f, pre)));
+  CHECK((prod<true, kPlain>(pl, static_cast<const float*>(g), wt.wfc1, none, none, dm, nullptr, hidden, C, stream)));
+  CHECK(wgrad(pl, ws, static_cast<const float*>(g), hidden, yn, C, gr.dwfc1, gr.dbfc1, stream));
   CHECK(ln_bwd(pl, ws, static_cast<const float*>(y), dm, dz, wt.ln2w, dy, gr.dln2w, gr.dln2b, eps, stream));
   // proj, the attention, qkv and LN1
   CHECK((prod<true, kPlain>(pl, static_cast<const float*>(dy), wt.wproj, none, none, dm, nullptr, C, C, stream)));

@@ -60,6 +60,7 @@
 #pragma once
 
 #include "common.cuh"
+#include "mma_frag.cuh"
 #include "ptx.cuh"
 
 namespace {
@@ -105,12 +106,6 @@ __device__ __forceinline__ void st2(float* p, float a, float b) {
   v.x = a;
   v.y = b;
   *reinterpret_cast<float2*>(p) = v;
-}
-
-// a = hi + lo, both TF32
-__device__ __forceinline__ void split(float a, float& hi, float& lo) {
-  hi = tf32_round(a);
-  lo = tf32_round(a - hi);
 }
 
 // This thread's place in the fragments of a weight product: warp 4 wm + wn
@@ -343,37 +338,9 @@ __device__ __forceinline__ void win_attention(const float* sR, float* sO, const 
     for (int j = 0; j < 8; ++j)
       if (8 * j < ntok) mma_tf32(s[j], ahi, bhi[j]);
   }
-  // softmax over the keys below ntok, the row maximum subtracted; a row's four lanes
-  // combine their maxima and sums by shuffles, each ending with the same bits
-  float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e)
-      if (8 * j + 2 * f.t + e < ntok) {
-        mx0 = fmaxf(mx0, s[j][e]);
-        mx1 = fmaxf(mx1, s[j][2 + e]);
-      }
-  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-  float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const bool live = 8 * j + 2 * f.t + e < ntok;
-      s[j][e] = live ? expf(s[j][e] - mx0) : 0.f;
-      s[j][2 + e] = live ? expf(s[j][2 + e] - mx1) : 0.f;
-      sum0 += s[j][e];
-      sum1 += s[j][2 + e];
-    }
-  sum0 += __shfl_xor_sync(0xffffffffu, sum0, 1);
-  sum1 += __shfl_xor_sync(0xffffffffu, sum1, 1);
-  sum0 += __shfl_xor_sync(0xffffffffu, sum0, 2);
-  sum1 += __shfl_xor_sync(0xffffffffu, sum1, 2);
-  const float inv0 = 1.f / sum0, inv1 = 1.f / sum1;
+  // softmax over the keys below ntok, the row maximum subtracted
+  float inv0, inv1;
+  softmax_frags(s, ntok, inv0, inv1);
   // out = attn . v: the probabilities of key tile j are the A fragment of depth step j
   float o[8][4];
 #pragma unroll

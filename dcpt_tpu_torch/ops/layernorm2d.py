@@ -8,13 +8,15 @@ biased variance, with the analytic backward
 
 * ``layer_norm_2d_ref`` / ``layer_norm_2d_bwd_ref``: plain PyTorch.
 * ``layer_norm_2d``: on a CUDA tensor the kernels of ``csrc/layernorm2d.cu``
-  (fp32 or bf16 I/O, fp32 statistics), or it raises; on a CPU tensor the plain
-  versions.  In bf16 the residuals y and 1/sigma stay fp32 and the weight
-  gradients are summed in fp32, each cast once to its primal's dtype.  Under autograd it
-  runs as ``LayerNorm2dFunction``, whose forward saves y and 1/sigma; without
-  a gradient the forward writes only the output, as dcpt_tpu's primal call.
-  ``layer_norm_2d.launches`` and ``layer_norm_2d.bwd_launches`` count the
-  calls that launched the forward and the backward kernel.
+  (fp32 or bf16 I/O, fp32 statistics, any C), or it raises; on a CPU
+  tensor the plain versions.  In bf16 the statistics stay fp32 and the
+  weight gradients are summed in fp32, each cast once to its primal's dtype.
+  Under autograd it runs as ``LayerNorm2dFunction``, whose forward saves x,
+  the mean and 1/sigma of each row (as ``F.layer_norm`` does; the backward
+  recomputes y from them); without a gradient the forward writes only the
+  output, as dcpt_tpu's primal call.  ``layer_norm_2d.launches`` and
+  ``layer_norm_2d.bwd_launches`` count the calls that launched the forward
+  and the backward kernels.
 """
 
 from __future__ import annotations
@@ -66,7 +68,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     for suffix in _SUFFIX.values():
         fwd, bwd = getattr(lib, "ln_fwd_" + suffix), getattr(lib, "ln_bwd_" + suffix)
         fwd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p]
-        bwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        bwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
         fwd.restype = bwd.restype = ctypes.c_int
     lib.ln_bwd_workspace_floats.argtypes = [ctypes.c_int] * 2
     lib.ln_bwd_workspace_floats.restype = ctypes.c_longlong
@@ -77,6 +79,8 @@ def _check(x, weight, bias) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"layer_norm_2d: no kernel for device {x.device}")
     c = x.shape[-1]
+    if c < 1:
+        raise ValueError("layer_norm_2d: the kernel takes at least 1 channel, got 0")
     if x.dtype not in _SUFFIX:
         raise TypeError(f"layer_norm_2d: the kernel takes float32 or bfloat16, got {x.dtype}")
     for name, t in (("weight", weight), ("bias", bias)):
@@ -91,24 +95,26 @@ def _stream() -> int:
 
 
 def _launch_fwd(lib, x, weight, bias, eps: float, stream: int, residuals: bool):
-    """out, or (out, y, rsig) with ``residuals``; x (..., C)."""
+    """out, or (out, mean, rsig) with ``residuals`` (each (rows,) fp32); x (..., C)."""
     c = x.shape[-1]
     x2 = x.contiguous().view(-1, c)
     out = torch.empty_like(x2)
-    y = torch.empty(x2.shape, dtype=torch.float32, device=x.device) if residuals else None
-    rsig = torch.empty(x2.shape[0], dtype=torch.float32, device=x.device) if residuals else None
+    mean, rsig = (torch.empty(x2.shape[0], dtype=torch.float32, device=x.device) if residuals else None
+                  for _ in range(2))
     fwd = getattr(lib, "ln_fwd_" + _SUFFIX[x.dtype])
     err = fwd(x2.data_ptr(), weight.contiguous().data_ptr(), bias.contiguous().data_ptr(), out.data_ptr(),
-              y.data_ptr() if residuals else None, rsig.data_ptr() if residuals else None, x2.shape[0], c, eps, stream)
+              mean.data_ptr() if residuals else None, rsig.data_ptr() if residuals else None, x2.shape[0], c, eps,
+              stream)
     if err != 0:
         raise RuntimeError(f"layer_norm_2d forward kernel launch failed with CUDA error {err}")
     out = out.view(x.shape)
-    return (out, y, rsig) if residuals else out
+    return (out, mean, rsig) if residuals else out
 
 
-def _launch_bwd(lib, g, y, rsig, weight, stream: int):
-    """(gx, gw, gb) in weight's dtype; g (..., C), y (rows, C) and rsig (rows,) fp32."""
+def _launch_bwd(lib, x, mean, rsig, g, weight, stream: int):
+    """(gx, gw, gb) in weight's dtype; x and g (..., C), mean and rsig (rows,) fp32."""
     c = g.shape[-1]
+    x2 = x.contiguous().view(-1, c)
     g2 = g.to(weight.dtype).contiguous().view(-1, c)
     rows = g2.shape[0]
     gx = torch.empty_like(g2)
@@ -116,38 +122,40 @@ def _launch_bwd(lib, g, y, rsig, weight, stream: int):
     gb = torch.empty_like(gw)
     ws = torch.empty(lib.ln_bwd_workspace_floats(rows, c), dtype=torch.float32, device=g.device)
     bwd = getattr(lib, "ln_bwd_" + _SUFFIX[weight.dtype])
-    err = bwd(g2.data_ptr(), y.data_ptr(), rsig.data_ptr(), weight.contiguous().data_ptr(), gx.data_ptr(),
-              gw.data_ptr(), gb.data_ptr(), ws.data_ptr(), rows, c, stream)
+    err = bwd(x2.data_ptr(), mean.data_ptr(), rsig.data_ptr(), g2.data_ptr(), weight.contiguous().data_ptr(),
+              gx.data_ptr(), gw.data_ptr(), gb.data_ptr(), ws.data_ptr(), rows, c, stream)
     if err != 0:
         raise RuntimeError(f"layer_norm_2d backward kernel launch failed with CUDA error {err}")
     return gx.view(g.shape), gw, gb
 
 
 class LayerNorm2dFunction(torch.autograd.Function):
-    """``apply(x, weight, bias, eps)``: K3's forward saving y and 1/sigma, and its
-    analytic backward; the plain versions on a CPU tensor."""
+    """``apply(x, weight, bias, eps)``: K3's forward saving x, the mean and 1/sigma,
+    and its analytic backward, which recomputes y from them; the plain versions
+    on a CPU tensor."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, eps):
         if x.device.type == "cpu":
-            out, y, rsig = layer_norm_2d_ref(x, weight, bias, eps)
+            out, _, rsig = layer_norm_2d_ref(x, weight, bias, eps)
+            mean = _wide(x).mean(-1, keepdim=True)
         else:
             _check(x, weight, bias)
             layer_norm_2d.launches += 1
             with torch.cuda.device(x.device):
-                out, y, rsig = _launch_fwd(_lib(), x, weight, bias, eps, _stream(), residuals=True)
-        ctx.save_for_backward(y, rsig, weight)
+                out, mean, rsig = _launch_fwd(_lib(), x, weight, bias, eps, _stream(), residuals=True)
+        ctx.save_for_backward(x, mean, rsig, weight)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        y, rsig, weight = ctx.saved_tensors
+        x, mean, rsig, weight = ctx.saved_tensors
         if g.device.type == "cpu":
-            gx, gw, gb = layer_norm_2d_bwd_ref(g, y, rsig, weight)
+            gx, gw, gb = layer_norm_2d_bwd_ref(g, (_wide(x) - mean) * rsig, rsig, weight)
         else:
             layer_norm_2d.bwd_launches += 1
             with torch.cuda.device(g.device):
-                gx, gw, gb = _launch_bwd(_lib(), g, y, rsig, weight, _stream())
+                gx, gw, gb = _launch_bwd(_lib(), x, mean, rsig, g, weight, _stream())
         return gx, gw, gb, None
 
 

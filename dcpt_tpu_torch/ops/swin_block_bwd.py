@@ -11,7 +11,8 @@ the op's layouts (every Linear weight (in, out), every norm weight and bias (C,)
   then the MLP, LN2, proj, per-head attention, qkv and LN1 backward), not as
   autograd of the plain forward.
 * ``swin_block_bwd``: on a CUDA tensor it launches ``csrc/swin_block_bwd.cu``
-  (fp32 or bf16 x, dz and parameters, fp32 math), which recomputes the
+  (fp32 or bf16 x, dz and parameters, fp32 sums; every product on the TF32
+  tensor cores, fp32 operands as three TF32 products), which recomputes the
   forward from x alone, or raises; on a CPU tensor it returns
   ``swin_block_bwd_ref``.  ``swin_block_bwd.launches`` counts the calls that
   launched the kernel.
@@ -33,14 +34,16 @@ from .mdta_block import _wide
 from .mdta_block_bwd import _ln_bwd, _ln_fwd
 from .window_attention import _MAX_SMEM_BYTES, MAX_TOKENS, _block_shapes, _check, window_partition, window_reverse
 
-_LP = 65  # row stride of a window's probabilities in the attention kernels (csrc/swin_block_bwd.cu)
+_PLD = MAX_TOKENS + 4  # row stride of P and dS in the attention backward (csrc/swin_block_bwd.cu)
 
 
 def attn_smem_bytes(c: int, heads: int) -> int:
-    """Dynamic shared memory of one block of K9's attention backward at width C
-    (q, k, v and the head's output cotangent, the probabilities, dS, the token pixels)."""
-    hd = c // heads
-    return 4 * (4 * MAX_TOKENS * (hd + 1) + 2 * MAX_TOKENS * _LP + MAX_TOKENS)
+    """Dynamic shared memory of one block of K9's attention backward at width C:
+    the window's q, k, v and head output cotangent token-major (rows 8 HDT + 4
+    floats apart, HDT = 4 8-wide tiles of the head for a head of at most 32, else
+    8), P and dS, the token pixels."""
+    hdt = 4 if (c // heads + 7) // 8 <= 4 else 8
+    return 4 * (4 * MAX_TOKENS * (8 * hdt + 4) + 2 * MAX_TOKENS * _PLD + MAX_TOKENS)
 
 
 def _windows(t: torch.Tensor, ws: int, shift: int) -> torch.Tensor:

@@ -28,8 +28,11 @@ struct dim3 {
 };
 struct alignas(8) float2 { float x, y; };
 struct alignas(16) float4 { float x, y, z, w; };
+inline float2 make_float2(float x, float y) { return float2{x, y}; }
+template <class T> inline T __ldg(const T* p) { return *p; }
 typedef int cudaError_t;
 constexpr int cudaSuccess = 0;
+constexpr int cudaErrorInvalidValue = 1;
 typedef void* cudaStream_t;
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 template <class F> inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int v) { return v > 232448 ? 1 : 0; }

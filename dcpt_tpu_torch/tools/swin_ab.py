@@ -1,24 +1,30 @@
-"""Time K8 and K10 built from several copies of ``csrc`` side by side on one card.
+"""Time the Swin block kernels built from several copies of ``csrc`` side by side on one card.
 
-    python -m dcpt_tpu_torch.tools.swin_ab [NAME=CSRC_DIR ...]
+    python -m dcpt_tpu_torch.tools.swin_ab [--k9] [NAME=CSRC_DIR ...]
 
-Builds ``swin_block.cu`` and ``window_attention.cu`` from the package's own
-``csrc`` (named ``tree``) and from each other directory given (a parent
-commit's ``dcpt_tpu_torch/csrc`` unpacked with ``git archive``, or a copy with
-one change), all with nvcc's flags of ``ops/cuda_build.py``, into
-``build/swin_ab/<name>``.  Then, at SwinIR's shipped width (C 180, 6 heads,
-8 x 8 windows, hidden 360) on a 128 x 128 map at B = 1 shifted by 4, in fp32
-(TF32 off) and bf16: each version's K8 and K10 (without its LayerNorm)
-against the plain version, and its ms a call by CUDA events over 20
-back-to-back calls, in turns (every version, then every version in reverse
-order), beside ``nn.TransformerEncoderLayer`` and
-``F.multi_head_attention_forward`` on the same inputs.  Prints the card's name
-and power limit first.  Needs the card and nvcc.
+Builds the kernels from the package's own ``csrc`` (named ``tree``) and from
+each other directory given (a parent commit's ``dcpt_tpu_torch/csrc``
+unpacked with ``git archive``, or a copy with one change), all with nvcc's
+flags of ``ops/cuda_build.py``, into ``build/swin_ab/<name>``.  Then, at
+SwinIR's shipped width (C 180, 6 heads, 8 x 8 windows, hidden 360) on 128 x
+128 maps shifted by 4, in fp32 (TF32 off) and bf16: each version against the
+plain version and against the tree's output bit for bit, and its ms a call
+by CUDA events over back-to-back calls, in turns (every version, then every
+version in reverse order).  Prints the card's name and power limit first.
+Needs the card and nvcc.
+
+* without ``--k9``: K8 and K10 (``swin_block.cu``, ``window_attention.cu``;
+  K10 without its LayerNorm) at B = 1, beside ``nn.TransformerEncoderLayer``
+  and ``F.multi_head_attention_forward`` on the same inputs;
+* with ``--k9``: K9 (``swin_block_bwd.cu``) at B = 2 and B = 8, and at B = 8
+  its device time by pass (``pass_split``: each launch of one call in order,
+  torch.profiler).
 """
 
 from __future__ import annotations
 
 import ctypes
+import re
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -28,17 +34,22 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import cuda_build
+from ..ops import swin_block_bwd as sbb
 from ..ops import window_attention as wa
 
 C, HEADS, WS, HIDDEN, SHIFT = 180, 6, 8, 360, 4
 OUT = Path(__file__).resolve().parents[2] / "build" / "swin_ab"
+# the kernels of each mode: label -> (source, binder)
+FORWARD = {"K8": ("swin_block", wa._bind_block), "K10": ("window_attention", wa._bind_attn)}
+BACKWARD = {"K9": ("swin_block_bwd", sbb._bind)}
 
 
-def _build(name: str, csrc: Path) -> dict:
+def _build(name: str, csrc: Path, kernels: dict) -> dict:
+    """{label: bound library} of ``kernels`` built from ``csrc`` (one nvcc a source, in parallel)."""
     out = OUT / name
     out.mkdir(parents=True, exist_ok=True)
 
-    def one(src: str) -> ctypes.CDLL:
+    def one(src: str, bind) -> ctypes.CDLL:
         lib = out / f"lib{src}.so"
         proc = subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(lib), str(csrc / f"{src}.cu")],
                               capture_output=True, text=True)
@@ -46,12 +57,10 @@ def _build(name: str, csrc: Path) -> dict:
             raise RuntimeError(f"nvcc failed on {name}/{src}.cu:\n{proc.stderr[-3000:]}")
         report = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines() if "registers" in ln or "spill" in ln]
         print(f"{name} {src}: " + "; ".join(report), flush=True)
-        bind = wa._bind_block if src == "swin_block" else wa._bind_attn
         return bind(ctypes.CDLL(str(lib)))
 
-    with ThreadPoolExecutor(2) as pool:
-        block, attn = pool.map(one, ("swin_block", "window_attention"))
-    return {"K8": block, "K10": attn}
+    with ThreadPoolExecutor(len(kernels)) as pool:
+        return dict(zip(kernels, pool.map(lambda item: one(*item), kernels.values())))
 
 
 def _ms(fn, iters: int = 20) -> float:
@@ -66,6 +75,51 @@ def _ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _short(name: str) -> str:
+    """A kernel's name without its namespaces, return type and argument list."""
+    name = name.replace("(anonymous namespace)::", "").replace("tc::", "").replace("void ", "")
+    depth, cut = 0, len(name)
+    for i, ch in enumerate(name):  # the argument list starts at the first '(' outside the template arguments
+        depth += ch == "<"
+        depth -= ch == ">"
+        if ch == "(" and depth == 0:
+            cut = i
+            break
+    return re.sub(r"\s+", " ", name[:cut])
+
+
+def pass_split(fn, iters: int = 1) -> list[tuple[str, float]]:
+    """Device ms of each launch of one call of ``fn`` in launch order, averaged over
+    ``iters`` calls (torch.profiler, after a warm-up call): [(kernel, ms)].  Empty
+    when the profiler records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    launches = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                      key=lambda e: e.time_range.start)
+    if not launches or len(launches) % iters:
+        return []
+    per = len(launches) // iters
+    return [(_short(launches[i].name), sum(launches[i + k * per].time_range.elapsed_us() for k in range(iters))
+             / iters / 1e3) for i in range(per)]
+
+
+def print_split(label: str, split: list[tuple[str, float]]) -> None:
+    total = sum(ms for _, ms in split)
+    if not split:
+        print(f"{label}: the profiler recorded no device time", flush=True)
+        return
+    print(f"{label}: {len(split)} launches, {total:.4f} ms of device time", flush=True)
+    for name, ms in split:
+        print(f"  {ms:>9.4f} ms {100 * ms / total:>5.1f} %  {name}", flush=True)
+
+
 def _params(gen, dtype):
     def r(*shape, scale=0.3, shift=0.0):
         return (torch.randn(*shape, generator=gen) * scale + shift).to("cuda", dtype)
@@ -75,37 +129,50 @@ def _params(gen, dtype):
             r(C)]
 
 
-def main(argv: list[str]) -> int:
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    print(card, flush=True)
-    dirs = {"tree": cuda_build.CSRC, **{a.split("=", 1)[0]: Path(a.split("=", 1)[1]) for a in argv}}
-    libs = {name: _build(name, path) for name, path in dirs.items()}
-    torch.backends.cuda.matmul.allow_tf32 = False
+def _compare(label: str, calls: dict, refs: dict) -> None:
+    """Run each (version, kernel) call once: its worst error relative to max(1,
+    max|ref|) against the plain version, and whether it has the tree's bits."""
+    outs = {}
+    for (name, kernel), fn in calls.items():
+        got = fn()
+        got = got if isinstance(got, (tuple, list)) else (got,)
+        torch.cuda.synchronize()
+        ref = refs[kernel]
+        err = max((g.float() - r.float()).abs().max().item() / max(1.0, r.float().abs().max().item())
+                  for g, r in zip(got, ref))
+        tree = outs.setdefault(kernel, got)
+        same = all(torch.equal(a, b) for a, b in zip(got, tree))
+        print(f"{label} {name} {kernel}: worst error {err:.3e} relative to max(1, max|ref|); "
+              f"{'the' if same else 'not the'} tree's bits", flush=True)
+
+
+def _turns(label: str, calls: dict, iters: int) -> None:
+    times = {key: [] for key in calls}
+    for key in [*calls, *reversed(list(calls))]:
+        times[key].append(_ms(calls[key], iters))
+    for (name, kernel), ms in times.items():
+        print(f"{label} {name} {kernel}: " + " / ".join(f"{t:.4f}" for t in ms) + " ms a call", flush=True)
+
+
+def forward_ab(libs: dict) -> None:
+    """K8 and K10 of every build at B = 1, beside the library calls."""
     gen = torch.Generator().manual_seed(13)
+    stream = torch.cuda.current_stream().cuda_stream
     with torch.no_grad():
         for dname in ("float32", "bfloat16"):
             dtype = getattr(torch, dname)
             x = torch.randn(1, 128, 128, C, generator=gen).to("cuda", dtype)
             p = _params(gen, dtype)
             pf = [t.float() for t in p]
-            refs = {"K8": wa.swin_block_map_ref(x.float(), *pf, HEADS, WS, SHIFT),
-                    "K10": wa.window_attention_map_ref(x.float(), *pf[2:6], HEADS, WS, SHIFT)}
-            stream = torch.cuda.current_stream().cuda_stream
+            refs = {"K8": (wa.swin_block_map_ref(x.float(), *pf, HEADS, WS, SHIFT),),
+                    "K10": (wa.window_attention_map_ref(x.float(), *pf[2:6], HEADS, WS, SHIFT),)}
             calls = {}
             for name, lib in libs.items():
                 calls[(name, "K8")] = (lambda lib=lib: wa._launch_block(lib["K8"], x, p, HEADS, WS, SHIFT, 1e-5, stream))
                 calls[(name, "K10")] = (lambda lib=lib: wa._launch_attn(lib["K10"], x, p[2:6], HEADS, WS, SHIFT, None,
                                                                         stream))
-            for (name, kernel), fn in calls.items():
-                z = fn()
-                torch.cuda.synchronize()
-                ref = refs[kernel]
-                err = (z.float() - ref).abs().max().item() / max(1.0, ref.abs().max().item())
-                print(f"{dname} {name} {kernel}: error {err:.3e} relative to max(1, max|ref|)", flush=True)
-            times = {key: [] for key in calls}
-            for key in [*calls, *reversed(list(calls))]:
-                times[key].append(_ms(calls[key]))
+            _compare(dname, calls, refs)
+            _turns(dname, calls, 20)
             win = wa.window_partition(torch.roll(x, (-SHIFT, -SHIFT), dims=(1, 2)), WS)
             layer = torch.nn.TransformerEncoderLayer(C, HEADS, HIDDEN, dropout=0.0, activation="gelu",
                                                      batch_first=True, norm_first=True).to("cuda", dtype).eval()
@@ -114,10 +181,44 @@ def main(argv: list[str]) -> int:
                        "F.multi_head_attention_forward": lambda: F.multi_head_attention_forward(
                            win_t, win_t, win_t, C, HEADS, p[2].t(), p[3], None, None, False, 0.0, p[4].t(), p[5],
                            training=False, need_weights=False)}
-            for (name, kernel), ms in times.items():
-                print(f"{dname} {name} {kernel}: " + " / ".join(f"{t:.4f}" for t in ms) + " ms a call", flush=True)
             for name, fn in library.items():
                 print(f"{dname} {name}: {_ms(fn):.4f} ms a call", flush=True)
+
+
+def backward_ab(libs: dict) -> None:
+    """K9 of every build at B = 2 and B = 8, and its passes at B = 8."""
+    gen = torch.Generator().manual_seed(14)
+    stream = torch.cuda.current_stream().cuda_stream
+    for batch in (2, 8):
+        for dname in ("float32", "bfloat16"):
+            dtype = getattr(torch, dname)
+            x = torch.randn(batch, 128, 128, C, generator=gen).to("cuda", dtype)
+            dz = torch.randn(batch, 128, 128, C, generator=gen).to("cuda", dtype)
+            p = _params(gen, dtype)
+            refs = {"K9": sbb.swin_block_bwd_ref(x, *p, dz, HEADS, WS, SHIFT)}
+            calls = {(name, "K9"): (lambda lib=lib: sbb._launch(lib["K9"], x, p, dz, HEADS, WS, SHIFT, 1e-5, stream))
+                     for name, lib in libs.items()}
+            label = f"B={batch} {dname}"
+            _compare(label, calls, refs)
+            del refs
+            _turns(label, calls, 10 if batch == 2 else 4)
+            if batch == 8:
+                for (name, _), fn in calls.items():
+                    print_split(f"{label} {name} by pass", pass_split(fn))
+            torch.cuda.empty_cache()
+
+
+def main(argv: list[str]) -> int:
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    k9 = "--k9" in argv
+    dirs = {"tree": cuda_build.CSRC,
+            **{a.split("=", 1)[0]: Path(a.split("=", 1)[1]) for a in argv if a != "--k9"}}
+    with ThreadPoolExecutor(len(dirs)) as pool:
+        libs = dict(zip(dirs, pool.map(lambda item: _build(*item, BACKWARD if k9 else FORWARD), dirs.items())))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    (backward_ab if k9 else forward_ab)(libs)
     return 0
 
 

@@ -25,6 +25,7 @@ import torch
 
 import jax.numpy as jnp
 
+import _torch_threads  # noqa: F401
 from dcpt_tpu.ops.mdta_block import _block_pallas as jax_block_pallas
 from dcpt_tpu.ops.mdta_block_bwd import mdta_block_bwd as jax_mdta_block_bwd
 from dcpt_tpu.ops.swin_block_bwd import pick_bwd_tile
@@ -33,7 +34,7 @@ from dcpt_tpu_torch.ops import mdta_block as mb
 from dcpt_tpu_torch.ops import mdta_block_bwd as mbb
 from dcpt_tpu_torch.ops import swin_block_bwd as sbb
 from dcpt_tpu_torch.tools.cuda_emu import build as emu
-from test_torch_cuda_emu import _block_inputs
+from test_torch_mdta_emu import _block_inputs
 from test_torch_mdta_block import FLAVOURS, HEADS, block_inputs
 from test_torch_swin_block_bwd import C, HIDDEN, WS, _inputs, _unwindow, _windows
 

@@ -9,6 +9,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import _torch_threads  # noqa: F401
 from dcpt_tpu.archs import degrad_classify_arch as jdc
 from dcpt_tpu_torch.archs import degrad_classify_arch as tdc
 from dcpt_tpu_torch.convert.jax_params import params_to_state_dict

@@ -175,34 +175,47 @@ def test_k2_is_deterministic(cuda):
 
 @pytest.mark.parametrize("rows,c,dtype,tol", [(8192, 512, torch.float32, 1e-4), (2048, 1024, torch.float32, 1e-4),
                                               (512, 512, torch.float32, 1e-4), (37, 640, torch.float32, 1e-4),
-                                              (8192, 512, torch.bfloat16, 2e-2), (37, 640, torch.bfloat16, 2e-2)])
+                                              (8192, 512, torch.bfloat16, 2e-2), (37, 640, torch.bfloat16, 2e-2),
+                                              (45, 1100, torch.float32, 1e-4), (45, 61, torch.bfloat16, 2e-2),
+                                              (300, 8192, torch.float32, 1e-4), (270, 4100, torch.bfloat16, 2e-2)])
 def test_k3_matches_plain(cuda, rows, c, dtype, tol):
     """K3 forward and backward against the plain versions within ``tol`` relative
-    to max(1, max|ref|); in bf16 the outputs and gradients are bf16, y and
-    1/sigma fp32."""
+    to max(1, max|ref|), equal bits twice; in bf16 the outputs and gradients are
+    bf16, the mean and 1/sigma fp32."""
     gen = torch.Generator().manual_seed(rows + c)
     x = (torch.randn(rows, c, generator=gen) * 3 + 1).to(cuda, dtype)
     w, b = torch.randn(c, generator=gen).to(cuda, dtype), torch.randn(c, generator=gen).to(cuda, dtype)
     g = torch.randn(rows, c, generator=gen).to(cuda, dtype)
-    out, y, rsig = tln._launch_fwd(tln._lib(), x, w, b, 1e-6, tln._stream(), residuals=True)
-    gx, gw, gb = tln._launch_bwd(tln._lib(), g, y, rsig, w, tln._stream())
+    out, mean, rsig = tln._launch_fwd(tln._lib(), x, w, b, 1e-6, tln._stream(), residuals=True)
+    gx, gw, gb = tln._launch_bwd(tln._lib(), x, mean, rsig, g, w, tln._stream())
+    again = tln._launch_bwd(tln._lib(), x, mean, rsig, g, w, tln._stream())
     ref_out, ref_y, ref_rsig = tln.layer_norm_2d_ref(x, w, b, 1e-6)
     ref_gx, ref_gw, ref_gb = tln.layer_norm_2d_bwd_ref(g, ref_y, ref_rsig, w)
     torch.cuda.synchronize()
-    assert {t.dtype for t in (out, gx, gw, gb)} == {dtype} and y.dtype == torch.float32
-    for a, r in [(out, ref_out), (y, ref_y), (gx, ref_gx), (gw, ref_gw), (gb, ref_gb)]:
+    assert {t.dtype for t in (out, gx, gw, gb)} == {dtype} and mean.dtype == rsig.dtype == torch.float32
+    assert all(torch.equal(a, r) for a, r in zip((gx, gw, gb), again))
+    for a, r in [(out, ref_out), (rsig, ref_rsig[:, 0]), (gx, ref_gx), (gw, ref_gw), (gb, ref_gb)]:
         assert _rel(a.float(), r.float()) <= tol, _rel(a.float(), r.float())
 
 
-def test_k3_function_counts_launches(cuda):
-    x = torch.randn(2, 4, 4, 512, device=cuda, requires_grad=True)
-    w = torch.randn(512, device=cuda, requires_grad=True)
-    b = torch.randn(512, device=cuda, requires_grad=True)
+@pytest.mark.parametrize("c", [512, 8192])
+def test_k3_function_counts_launches(cuda, c):
+    """LayerNorm2d at dcpt_tpu's gate runs K3 both ways, rows wider than a
+    block's registers too."""
+    from dcpt_tpu_torch.archs.arch_util import LayerNorm2d
+
+    x = torch.randn(2, 4, 4, c, device=cuda, requires_grad=True)
+    w = torch.randn(c, device=cuda, requires_grad=True)
+    b = torch.randn(c, device=cuda, requires_grad=True)
     fwd, bwd = tln.layer_norm_2d.launches, tln.layer_norm_2d.bwd_launches
     tln.layer_norm_2d(x, w, b).square().sum().backward()
     assert (tln.layer_norm_2d.launches, tln.layer_norm_2d.bwd_launches) == (fwd + 1, bwd + 1)
-    ref = torch.nn.functional.layer_norm(x.detach(), (512,), w.detach(), b.detach(), 1e-6)
+    ref = torch.nn.functional.layer_norm(x.detach(), (c,), w.detach(), b.detach(), 1e-6)
     assert _rel(tln.layer_norm_2d(x.detach(), w.detach(), b.detach()), ref) <= 1e-4
+    norm = LayerNorm2d(c).to(cuda)
+    fwd, bwd = tln.layer_norm_2d.launches, tln.layer_norm_2d.bwd_launches
+    norm(x.detach().permute(0, 3, 1, 2).requires_grad_()).sum().backward()
+    assert (tln.layer_norm_2d.launches, tln.layer_norm_2d.bwd_launches) == (fwd + 1, bwd + 1)
 
 
 def test_network_gradients_match_plain_path(cuda):
@@ -491,6 +504,29 @@ def test_ptx_wrappers_on_the_card(cuda):
     assert torch.equal(rounded.cpu(), tf32(x))
     ref = (a.double() @ b.double() + c.double())
     assert (d.cpu().double() - ref).abs().max().item() <= 1e-6 * max(1.0, ref.abs().max().item())
+
+
+@pytest.mark.parametrize("t,k,n,wt,w_dtype", [(1000, 180, 540, False, torch.float32), (1000, 360, 180, True, torch.float32),
+                                             (1000, 180, 540, False, torch.bfloat16), (333, 21, 30, True, torch.float32)])
+def test_tc_gemm_product_on_the_card(cuda, t, k, n, wt, w_dtype):
+    """csrc/tc_gemm.cuh's product on the card (``csrc/tc_gemm_probe.cu``): out = a . W^T
+    (W (N, K)) or a . W (W (K, N)) against float64, within 1e-5 of max(1, max|ref|)
+    (3xTF32, or two TF32 products for bf16 weights)."""
+    import ctypes
+
+    from dcpt_tpu_torch.ops.cuda_build import load_library
+
+    lib = load_library("tc_gemm_probe", ["tc_gemm_probe.cu"])
+    lib.tc_gemm_probe.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    gen = torch.Generator().manual_seed(t + k + n)
+    a = torch.randn(t, k, generator=gen)
+    w = torch.randn((k, n) if wt else (n, k), generator=gen).to(w_dtype)
+    out = torch.empty(t, n, device=cuda)
+    assert lib.tc_gemm_probe(a.to(cuda).data_ptr(), w.to(cuda).data_ptr(), out.data_ptr(), t, k, n, int(wt),
+                             int(w_dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    ref = a.double() @ (w.double() if wt else w.double().t())
+    assert (out.cpu().double() - ref).abs().max().item() <= 1e-5 * max(1.0, ref.abs().max().item())
 
 
 @pytest.mark.parametrize("shape,dtype,tol", SWIN_CASES)

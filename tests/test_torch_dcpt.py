@@ -18,6 +18,8 @@ import torch
 
 import jax
 
+import _torch_threads  # noqa: F401
+from _torch_threads import default_threads  # noqa: F401  (a fixture)
 from dcpt_tpu.models import build_model as jax_build_model
 from dcpt_tpu_torch.convert.jax_params import params_to_state_dict
 from dcpt_tpu_torch.models import build_model
@@ -75,7 +77,7 @@ def _batches(n=3, b=2, hw=32):
 
 
 @pytest.mark.parametrize("model_type", ["DCPTModel", "DCTModel"])
-def test_three_steps_match_dcpt_tpu(tmp_path, model_type):
+def test_three_steps_match_dcpt_tpu(tmp_path, model_type, default_threads):
     """Losses at every step within rtol 1e-4, and every parameter afterwards
     within rtol 1e-4 of dcpt_tpu's, with the shipped yml's AdamW (lr 1e-4,
     weight decay 1e-4).  atol is 1e-5, a tenth of one step: where a gradient is

@@ -8,6 +8,7 @@ PromptIR_NoImg_DC probe start from the same weights in both packages and take
 the same three batches.  Two bf16 implementations round at other places (the
 port's NAFBlock twin and LayerNorm round once at their end, XLA's ops one by
 one), so the bar comes from dcpt_tpu itself: the port's bf16 step may depart
+import _torch_threads  # noqa: F401
 from dcpt_tpu's bf16 step by at most twice as much as dcpt_tpu's bf16 step
 departs from its own fp32 step on those batches (``three_mixed_steps``, which
 ``test_torch_dcpt_mixed_restormer.py``, ``..._promptir.py`` and

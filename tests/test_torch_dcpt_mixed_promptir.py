@@ -10,6 +10,7 @@ blocks and the noise-level blocks run in bf16 as in dcpt_tpu.  The shipped
 yml's step runs on the card (``chip_smoke.py`` [21]).
 """
 
+import _torch_threads  # noqa: F401
 from test_torch_dcpt_mixed import three_mixed_steps
 from test_torch_dcpt_promptir import NETWORK_DC, NETWORK_G
 

@@ -10,6 +10,7 @@ plain version (fp32 math on the bf16 inputs) as its backward; the shipped
 yml's step runs on the card (``chip_smoke.py`` [21]).
 """
 
+import _torch_threads  # noqa: F401
 from test_torch_dcpt_mixed import three_mixed_steps
 from test_torch_dcpt_swinir import NETWORK_DC, NETWORK_G
 

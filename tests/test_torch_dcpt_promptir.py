@@ -12,6 +12,7 @@ yml runs through ``train_pipeline`` at full width on the card
 (``chip_smoke.py`` [11]).
 """
 
+import _torch_threads  # noqa: F401
 from test_torch_dcpt import three_transformer_steps
 
 NETWORK_G = {"type": "PromptIR", "dim": 8, "num_blocks": [1, 2, 1, 1], "num_refinement_blocks": 1,

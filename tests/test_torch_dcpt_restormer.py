@@ -17,6 +17,7 @@ kernel and ``jax.vjp`` in ``test_torch_mdta_block_bwd.py``, and inside the
 shipped yml's step on the card (``chip_smoke.py`` [11]).
 """
 
+import _torch_threads  # noqa: F401
 from test_torch_dcpt import three_transformer_steps
 
 NETWORK_G = {"type": "Restormer", "dim": 8, "num_blocks": [1, 1, 1, 1], "num_refinement_blocks": 1,

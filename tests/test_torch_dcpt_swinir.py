@@ -16,6 +16,7 @@ import os
 
 import pytest
 
+import _torch_threads  # noqa: F401
 from dcpt_tpu_torch.ops import window_attention as wa
 from dcpt_tpu_torch.train import train_pipeline
 from test_torch_dcpt import _write_train_sets, three_transformer_steps

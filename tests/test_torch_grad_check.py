@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401
 from dcpt_tpu_torch import test as test_entry
 from dcpt_tpu_torch import train as train_entry
 from dcpt_tpu_torch.models import build_model

@@ -11,6 +11,7 @@ import torch.nn.functional as F
 import jax
 import jax.numpy as jnp
 
+import _torch_threads  # noqa: F401
 from dcpt_tpu.archs.arch_util import LayerNorm2d as JaxLayerNorm2d
 from dcpt_tpu.ops.layernorm2d import layer_norm_2d as jax_layer_norm_2d
 from dcpt_tpu_torch.archs.arch_util import LayerNorm2d
@@ -50,11 +51,12 @@ def test_plain_versions_match_jax_kernel_and_f_layer_norm(shape):
     torch.testing.assert_close(gb, bt.grad, atol=1e-4, rtol=1e-4)
 
 
-@pytest.mark.parametrize("channels,through_function", [(512, True), (256, False)])
+@pytest.mark.parametrize("channels,through_function", [(512, True), (8192, True), (256, False)])
 def test_module_routes_at_the_gate_and_matches_jax(channels, through_function):
-    """LayerNorm2d at C = 512 runs layer_norm_2d's Function (on the CPU its plain
-    versions), at C = 256 plain PyTorch; both give dcpt_tpu's output and
-    gradients within 1e-5 / 1e-4."""
+    """LayerNorm2d at C = 512 and at C = 8192 (wider than K3 holds a row of in
+    registers) runs layer_norm_2d's Function (on the CPU its plain versions), at
+    C = 256 plain PyTorch; each gives dcpt_tpu's output and gradients within
+    1e-5 / 1e-4."""
     x, w, b, g = _inputs((2, 3, 4, channels), seed=channels + 1)
     ln = LayerNorm2d(channels)
     assert ln.use_kernel == through_function
@@ -84,3 +86,25 @@ def test_cpu_launches_nothing_and_other_devices_raise():
     assert torch.equal(out, tln.layer_norm_2d_ref(*map(torch.from_numpy, (x, w, b)), 1e-6)[0])
     with pytest.raises(ValueError, match="no kernel"):
         tln.layer_norm_2d(*(torch.from_numpy(a).to("meta") for a in (x, w, b)))
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 5, 512), (4, 2, 1024)])
+def test_function_saves_stats_and_matches_jax_kernel(shape):
+    """LayerNorm2dFunction keeps x, the mean and 1/sigma of each row and the
+    weight, as F.layer_norm does (no y); the gradients it recomputes from them
+    are dcpt_tpu's kernel's (interpret mode) within 1e-5 / 1e-4."""
+    x, w, b, g = _inputs(shape, seed=shape[-1] + 7)
+    xt, wt, bt = (torch.from_numpy(a).requires_grad_() for a in (x, w, b))
+    out = tln.LayerNorm2dFunction.apply(xt, wt, bt, 1e-6)
+    saved = out.grad_fn.saved_tensors
+    assert [tuple(t.shape) for t in saved] == [shape, (*shape[:-1], 1), (*shape[:-1], 1), (shape[-1],)]
+    assert torch.equal(saved[0], xt) and torch.equal(saved[3], wt)
+    out.backward(torch.from_numpy(g))
+
+    jout, vjp = jax.vjp(lambda *a: jax_layer_norm_2d(*a, 1e-6, True), jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    jgx, jgw, jgb = vjp(jnp.asarray(g))
+    np.testing.assert_allclose(saved[1][..., 0].numpy(), x.mean(-1), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(jgx), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(wt.grad.numpy(), np.asarray(jgw), atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(bt.grad.numpy(), np.asarray(jgb), atol=1e-4, rtol=1e-4)

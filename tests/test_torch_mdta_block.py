@@ -3,7 +3,7 @@ against dcpt_tpu's whole-TransformerBlock op, on the same seeded numpy inputs.
 
 On the CPU the port's wrapper runs its plain version; the CUDA kernel itself is
 held against that version in tests/test_torch_cuda.py (on the card) and, built
-by the CPU emulation of the CUDA runtime, in tests/test_torch_cuda_emu.py.  The
+by the CPU emulation of the CUDA runtime, in tests/test_torch_mdta_emu.py.  The
 wrapper's checks and launch counting are in tests/test_torch_mdta_block_wrapper.py.
 """
 
@@ -14,6 +14,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import _torch_threads  # noqa: F401
 from dcpt_tpu.ops.mdta_block import _attn_from_stats as jax_attn_from_stats
 from dcpt_tpu.ops.mdta_block import _block_pallas as jax_block_pallas
 from dcpt_tpu.ops.mdta_block import mdta_block_ref as jax_mdta_block_ref

@@ -3,7 +3,7 @@ against dcpt_tpu's analytic TransformerBlock backward, on the same seeded numpy 
 
 ``mdta_block_bwd_ref`` is the plain version the CUDA kernel is held to on the
 card (tests/test_torch_cuda.py) and in the CPU emulation
-(tests/test_torch_cuda_emu.py); here it is held to dcpt_tpu's Pallas backward
+(tests/test_torch_mdta_emu.py); here it is held to dcpt_tpu's Pallas backward
 run in interpret mode (given the residuals of its forward kernel) and to
 ``jax.vjp`` of dcpt_tpu's twin, on all 12 cotangents, with the tolerance of
 dcpt_tpu's own test (atol = rtol = 2e-4, tests/test_ops.py:800-803).
@@ -16,6 +16,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import _torch_threads  # noqa: F401
 from dcpt_tpu.ops.mdta_block import _block_pallas as jax_block_pallas
 from dcpt_tpu.ops.mdta_block import mdta_block_ref as jax_mdta_block_ref
 from dcpt_tpu.ops.mdta_block_bwd import mdta_block_bwd as jax_mdta_block_bwd

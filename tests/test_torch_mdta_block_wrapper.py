@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401
 from test_torch_mdta_block import HEADS, _torch, block_inputs
 
 from dcpt_tpu_torch.ops import mdta_block as tmb

@@ -4,6 +4,7 @@ OpenCV's Gaussian window there, separable 1-D passes here)."""
 import numpy as np
 import pytest
 
+import _torch_threads  # noqa: F401
 from dcpt_tpu.metrics import calculate_metric as jax_calculate_metric
 from dcpt_tpu_torch.metrics import calculate_metric
 

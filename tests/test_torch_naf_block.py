@@ -11,6 +11,7 @@ import torch
 
 import jax.numpy as jnp
 
+import _torch_threads  # noqa: F401
 from dcpt_tpu.ops.naf_block import naf_block_fused as jax_naf_block_fused
 from dcpt_tpu.ops.naf_block import naf_block_ref as jax_naf_block_ref
 from dcpt_tpu_torch.ops import naf_block as tnb

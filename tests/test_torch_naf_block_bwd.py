@@ -15,6 +15,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import _torch_threads  # noqa: F401
 from dcpt_tpu.ops.naf_block import naf_block_ref as jax_naf_block_ref
 from dcpt_tpu.ops.naf_block_bwd import naf_block_bwd as jax_naf_block_bwd
 from dcpt_tpu_torch.ops import naf_block as tnb

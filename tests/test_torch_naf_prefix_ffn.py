@@ -20,6 +20,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import _torch_threads  # noqa: F401
 import dcpt_tpu.ops as jax_ops
 import dcpt_tpu.ops.layernorm2d as jax_ln
 import dcpt_tpu.ops.naf_ffn as jax_ffn

@@ -8,6 +8,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import _torch_threads  # noqa: F401
 from dcpt_tpu.archs.arch_util import LayerNorm2d as JaxLayerNorm2d
 from dcpt_tpu.archs.nafnet_arch import NAFNetBaseline as JaxNAFNet
 from dcpt_tpu.archs.nafnet_arch import torch_key_map

@@ -9,6 +9,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import _torch_threads  # noqa: F401
 from dcpt_tpu.models.base_model import BaseModel as JaxBaseModel
 from dcpt_tpu_torch.models import build_model
 from dcpt_tpu_torch.models.base_model import BaseModel

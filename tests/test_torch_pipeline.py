@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401
 from dcpt_tpu.data import build_dataset as jax_build_dataset
 from dcpt_tpu.test import test_pipeline as jax_test_pipeline
 from dcpt_tpu_torch.archs import build_network

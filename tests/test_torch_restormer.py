@@ -16,6 +16,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import _torch_threads  # noqa: F401
 from dcpt_tpu.archs.promptir_arch import PromptIR as JaxPromptIR
 from dcpt_tpu.archs.restormer_arch import Restormer as JaxRestormer
 from dcpt_tpu.archs.restormer_arch import Restormer_origin as JaxRestormerOrigin

@@ -12,6 +12,7 @@ import torch
 
 import jax
 import jax.numpy as jnp
+import _torch_threads  # noqa: F401
 from test_torch_restormer import TINY, _rel_close, seeded_params
 
 from dcpt_tpu.archs.arch_util import pixel_shuffle as jax_pixel_shuffle

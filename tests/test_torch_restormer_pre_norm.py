@@ -24,6 +24,7 @@ import jax
 import jax.numpy as jnp
 
 import chip_smoke
+import _torch_threads  # noqa: F401
 import dcpt_tpu.ops.ln_proj as jax_lp
 from dcpt_tpu.archs.restormer_arch import GDFN as JaxGDFN
 from dcpt_tpu.archs.restormer_arch import MDTA as JaxMDTA

@@ -14,6 +14,7 @@ import shutil
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401
 from dcpt_tpu_torch.ops import fused_act as fa
 from dcpt_tpu_torch.ops import ln_proj as lp
 from dcpt_tpu_torch.ops import mdta as md

@@ -25,6 +25,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import _torch_threads  # noqa: F401
 from dcpt_tpu.archs.swinir_arch import window_partition as jax_window_partition
 from dcpt_tpu.ops import fused_act as jax_fa
 from dcpt_tpu.ops import ln_proj as jax_lp

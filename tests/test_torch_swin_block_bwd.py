@@ -18,6 +18,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import _torch_threads  # noqa: F401
 from dcpt_tpu.archs.swinir_arch import window_partition as jax_partition
 from dcpt_tpu.archs.swinir_arch import window_reverse as jax_reverse
 from dcpt_tpu.ops import window_attention as jwa
@@ -132,16 +133,24 @@ def k9_lib(tmp_path_factory):
 
 
 # (B, H, W, heads, ws, shift): the 8 x 8 map across the seam; two images of 8 x 16 with 3
-# heads in one 8 x 8 window a row, shifted by 4
-@pytest.mark.parametrize("b,h,w,heads,ws,shift", [(1, 8, 8, 2, 4, 2), (2, 8, 16, 3, 8, 4)])
-def test_k9_emulated_vs_plain(k9_lib, b, h, w, heads, ws, shift):
+# heads in one 8 x 8 window a row, shifted by 4; 8 x 20 = 160 tokens, two token tiles of the
+# tensor-core products (96 tokens), the second ragged; and that map with bf16 I/O
+@pytest.mark.parametrize("b,h,w,heads,ws,shift,dtype", [(1, 8, 8, 2, 4, 2, torch.float32),
+                                                        (2, 8, 16, 3, 8, 4, torch.float32),
+                                                        (1, 8, 20, 2, 4, 2, torch.float32),
+                                                        (1, 8, 20, 2, 4, 2, torch.bfloat16)])
+def test_k9_emulated_vs_plain(k9_lib, b, h, w, heads, ws, shift, dtype):
     """K9's CUDA source (``csrc/swin_block_bwd.cu``) built for the CPU by the
-    port's CUDA emulation: all 13 cotangents within 1e-5 of the plain version."""
+    port's CUDA emulation: all 13 cotangents within 1e-5 (fp32) or 2e-2 (bf16 x,
+    dz and parameters, bf16 cotangents) of max(1, max|ref|) of the plain version."""
     x, dz, params = _inputs(45 + shift, shape=(b, h, w, C))
-    tx, tdz, tp = torch.from_numpy(x), torch.from_numpy(dz), list(map(torch.from_numpy, params))
+    tx, tdz, tp = (torch.from_numpy(x).to(dtype), torch.from_numpy(dz).to(dtype),
+                   [torch.from_numpy(p).to(dtype) for p in params])
     got = sbb._launch(k9_lib, tx, tp, tdz, heads, ws, shift, 1e-5, 0)
     want = sbb.swin_block_bwd_ref(tx, *tp, tdz, heads, ws, shift)
-    _assert_cotangents([g.numpy() for g in got], [t.numpy() for t in want], 1e-5)
+    assert all(g.dtype == dtype for g in got)
+    _assert_cotangents([g.float().numpy() for g in got], [t.float().numpy() for t in want],
+                       1e-5 if dtype == torch.float32 else 2e-2)
 
 
 @pytest.mark.parametrize("block_kernel", [True, False])

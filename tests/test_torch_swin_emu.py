@@ -4,7 +4,8 @@ against their map-level plain versions: runs the window index map, the
 shifted windows across the seam, the zero-padded ragged widths and the
 tensor-core products here, before a chip call; and the emulated PTX
 (``csrc/ptx.cuh``: TF32 rounding, the m16n8k8 MMA) against numpy.  (Beside
-``tests/test_torch_cuda_emu.py``, which checks K3, K6 and K7 the same way.)"""
+``tests/test_torch_cuda_emu.py`` and ``tests/test_torch_mdta_emu.py``, which check K3, K6
+and K7 the same way.)"""
 
 import ctypes
 import shutil
@@ -13,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401
+from dcpt_tpu_torch.ops import swin_block_bwd as tsbb
 from dcpt_tpu_torch.ops import window_attention as twa
 from dcpt_tpu_torch.tools.cuda_emu import build as emu
 
@@ -126,3 +129,18 @@ def test_swin_block_emulated_bf16(swin_libs):
     err = (got.float() - ref).abs().max().item()
     assert err <= 2e-2 * scale
     assert err <= 2 * 2.0 ** -8 * ref.abs().max().item()
+
+
+def test_k9_emulated_wide_heads(tmp_path):
+    """K9 (``csrc/swin_block_bwd.cu``) with two heads of 40 (C 80, hidden 96):
+    the window passes' layout for heads of 33 to 64 channels (eight 8-wide
+    tiles a head), on an 8 x 16 map shifted by 4, fp32; all 13 cotangents within
+    1e-5 of max(1, max|ref|) of the plain version."""
+    lib = tsbb._bind(ctypes.CDLL(str(emu.build("swin_block_bwd.cu", tmp_path))))
+    x, params = _swin_case(np.random.default_rng(35), 1, 8, 16, 80, 96)
+    dz = torch.from_numpy(np.random.default_rng(36).standard_normal(x.shape).astype(np.float32))
+    got = tsbb._launch(lib, x, params, dz, 2, 8, 4, 1e-5, 0)
+    for i, (g, r) in enumerate(zip(got, tsbb.swin_block_bwd_ref(x, *params, dz, 2, 8, 4))):
+        assert g.shape == r.shape, i
+        torch.testing.assert_close(g, r, atol=1e-5 * max(1.0, r.abs().max().item()), rtol=0, msg=f"cotangent {i}")
+

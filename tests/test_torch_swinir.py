@@ -20,6 +20,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import _torch_threads  # noqa: F401
 from dcpt_tpu.archs.swinir_arch import SwinIR as JaxSwinIR
 from dcpt_tpu.archs.swinir_arch import torch_key_map
 from dcpt_tpu.archs.swinir_arch import window_partition as jax_partition

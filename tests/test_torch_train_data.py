@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_threads  # noqa: F401
 from dcpt_tpu.data import build_dataset as jax_build_dataset
 from dcpt_tpu.data.concat_dataset import ConcatDataset as JaxConcat
 from dcpt_tpu.data.data_sampler import EnlargedSampler as JaxSampler
