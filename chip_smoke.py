@@ -14,9 +14,13 @@ Phases, each of which raises on failure (exit code 1):
    through the port's ``test_pipeline`` at full NAFNet-w64 width, on
    synthetic PNGs and seeded random weights, with the kernel's launch count
    checked and one image's output held against the plain path on the card;
-5. kernel K2 (``naf_block_bwd``, the NAFBlock backward) against its plain
-   version at the same stage and ragged shapes, fp32, and run twice to show
-   it is deterministic;
+5. kernel K2 (``naf_block_bwd``, the NAFBlock backward, its products and
+   weight gradients on the tensor cores) against its plain version at the
+   same stage and ragged shapes and at the train yml's B = 8 at C = 64, 128 x
+   128, fp32, each run twice to show it is deterministic; its ms per
+   backward beside the plain version's and the bound (3xTF32 on the tensor
+   cores, and the SIMT fp32 bound); the device time of each of its passes at
+   B = 8 (``tools/swin_ab.py::pass_split``);
 6. kernel K3 (``layer_norm_2d``, forward and backward) against its plain
    version and against ``F.layer_norm`` at the classifier's five row shapes
    of a batch-8 step and at one of rows wider than K3 holds in registers,
@@ -47,7 +51,10 @@ Phases, each of which raises on failure (exit code 1):
    shapes of a 128 x 128 input (B = 2) in both flavours, PromptIR's three
    noise-level shapes, two ragged shapes and the two 128 x 128 stages at the
    train ymls' B = 8, fp32, TF32 off, each run twice for equal bits; its ms
-   per Restormer and per PromptIR backward beside the plain version's and the bound;
+   per Restormer and per PromptIR backward beside the plain version's and the
+   bound (3xTF32 on the tensor cores, where its 1x1 products and weight
+   gradients run, and the SIMT fp32 bound); the device time of each of its
+   passes at B = 8;
 11. the training paths of the shipped ``train_Restormer_dcpt_5d.yml`` and
    ``train_PromptIR_dcpt_5d.yml`` through ``train_pipeline`` at full width,
    batch 8, gt_size 128, on the PNGs of [7]: 1 iteration with a checkpoint,
@@ -154,7 +161,8 @@ workers' start.
 On the H100 machines torch.profiler at times stops recording device time for
 the rest of a process.  A phase whose profile records none then runs once more
 in a fresh process on the same card, as do the later phases that take a
-profile (``run_phase``); a profile there that records none fails the script.
+profile (``run_phase``); one whose profile records none there too runs in one
+more fresh process, and a profile there that records none fails the script.
 
 The line before the last is a JSON object with each kernel's launches, error,
 times and bound; the last line is ``{"ok": true, "device": {...}}``.  Without a
@@ -197,8 +205,8 @@ KERNELS = {
     "mdta_attention": ("dcpt_tpu_torch/csrc/mdta.cu", "dcpt_tpu/ops/mdta.py:158"),
 }
 # the card's peaks (NVIDIA's H100 SXM data sheet): fp32 outside the tensor cores, TF32 and
-# bf16 on the tensor cores (dense), HBM3.  K8 and K10 compute fp32 products as three TF32
-# products (3xTF32), so their fp32 bound takes PEAK_TF32_FLOPS / 3.
+# bf16 on the tensor cores (dense), HBM3.  K2, K7, K8, K9 and K10 compute fp32 products as
+# three TF32 products (3xTF32), so their fp32 bound takes PEAK_TF32_FLOPS / 3.
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
@@ -208,7 +216,8 @@ PEAK_BYTES_PER_S = 3.35e12
 STAGES = [(64, 128, 2), (128, 64, 2), (256, 32, 2), (512, 16, 29), (1024, 8, 1)]
 RAGGED = [(64, 24, 40), (1024, 1, 1)]
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
-K2_TOL = 1e-3  # relative to max(1, max|ref|): weight gradients sum up to 32 k pixels in another order
+K2_TOL = 1e-3  # relative to max(1, max|ref|): weight gradients sum up to 131 k pixels in another order
+K2_BATCH8 = (8, 64, 128, 128)  # (B, C, H, W): the train yml's batch at NAFNet-w64's first stage
 # the classifier's LayerNorms at K3's gate in a batch-8 step: (rows, C) -> calls per step
 K3_SHAPES = {(8192, 512): 4, (2048, 1024): 4, (2048, 512): 2, (512, 1024): 4, (512, 512): 2}
 # rows wider than K3 holds in registers (C > 4096; no shipped net has them): checked and timed
@@ -223,14 +232,14 @@ SHORT_ITERS, SHORT_RESUME_ITERS = 1, 1
 K1_PER_STEP, K2_PER_STEP, K3_PER_STEP = 72, 71, sum(K3_SHAPES.values())
 K6_FUNCTIONS = {"mdta_qkv_kernel", "mdta_dw_kernel", "mdta_gram_kernel", "colsum_kernel<6>", "mdta_attn_kernel",
                 "mdta_av_kernel", "mdta_proj_kernel", "mdta_ffn_in_kernel", "mdta_gate_kernel", "mdta_ffn_out_kernel"}
-K7_FUNCTIONS = {"k7_gate_kernel", "k7_prod_kernel", "k7_dw_bwd_kernel", "ln_bwd_kernel<7>", "k7_dattn_kernel",
-                "k7_cspace_kernel", "k7_dqkv_kernel", "wgrad_kernel<7>", "colsum_kernel<7>"}
+K7_FUNCTIONS = {"k7_pad_kernel", "tc_gemm_kernel<7>", "k7_gate_bwd_kernel", "k7_dw_bwd_kernel", "ln_bwd_kernel<7>",
+                "k7_dattn_kernel", "k7_cspace_kernel", "k7_dqkv_kernel", "colsum_kernel<7>"}
 # each kernel's device functions by name (``colsum_kernel<N>``, ``ln_bwd_kernel<N>`` and
-# ``wgrad_kernel<N>`` are the shared passes as kernel N launches them)
+# ``tc_gemm_kernel<N>`` are the shared passes as kernel N launches them)
 DEVICE_FUNCTIONS = {
     "naf_block_fused": {"naf_p1_kernel", "naf_sca_kernel", "naf_p2a_kernel", "naf_p2b_kernel", "naf_p2c_kernel"},
-    "naf_block_bwd": {"bwd_f1_kernel", "bwd_prod_kernel", "bwd_a_kernel", "bwd_ln_kernel", "bwd_sca_kernel",
-                      "bwd_sca_w_kernel", "bwd_d_kernel", "bwd_w_kernel", "colsum_kernel<2>"},
+    "naf_block_bwd": {"bwd_scale_kernel", "tc_gemm_kernel<2>", "bwd_f1_gate_kernel", "bwd_ln_kernel",
+                      "bwd_a_scale_kernel", "bwd_sca_kernel", "bwd_sca_w_kernel", "bwd_d_kernel", "colsum_kernel<2>"},
     "layer_norm_2d": {"ln2d_fwd_kernel", "ln2d_bwd_kernel", "ln2d_sum_kernel"},
     "mdta_block_fused": K6_FUNCTIONS,
     "mdta_block_bwd": K7_FUNCTIONS,
@@ -466,12 +475,12 @@ def cuda_ms(fn, iters: int = 10) -> float:
 
 
 # device functions shared by several kernels, their first template argument the owner's number
-OWNED = ("colsum_kernel", "ln_bwd_kernel", "wgrad_kernel", "tc_gemm_kernel")
+OWNED = ("colsum_kernel", "ln_bwd_kernel", "tc_gemm_kernel")
 
 
 def kernel_id(key: str) -> str:
     """A device function's name from a profiler key: ``void (anonymous
-    namespace)::wgrad_kernel<7, true>(float const*, ...)`` -> ``wgrad_kernel<7>``;
+    namespace)::tc::tc_gemm_kernel<7, float, true, ...>(...)`` -> ``tc_gemm_kernel<7>``;
     template arguments are dropped but for the owner of a shared function (``OWNED``)."""
     key = key.replace("(anonymous namespace)::", "").replace("tc::", "")
     m = re.search(r"(\w+)(<[^()]*>)?\(", key)
@@ -707,17 +716,22 @@ def run_slice() -> list[str]:
 
 def check_k2() -> dict:
     """K2 against its plain version at the stage and ragged shapes (B = 2, fp32),
-    from K1's residuals; K2 run twice gives the same bits; per-backward totals."""
+    from K1's residuals, and at the train yml's B = 8 at C = 64, 128 x 128; K2
+    run twice gives the same bits; per-backward totals (CUDA events) beside the
+    bound on the tensor cores (3xTF32 at a third of the TF32 peak) and the SIMT
+    fp32 bound (``simt_bound_ms``); the call at B = 8 (``b8_*``) and its device
+    time by pass (``swin_ab.pass_split``)."""
     import torch
 
     from dcpt_tpu_torch.ops.naf_block import _kernel_forward
     from dcpt_tpu_torch.ops.naf_block_bwd import naf_block_bwd, naf_block_bwd_ref
+    from dcpt_tpu_torch.tools.swin_ab import pass_split, print_split
 
     gen = torch.Generator().manual_seed(5)
     per_block, worst = {}, 0.0
-    print(f"  {'C':>5} {'H':>4} {'W':>4} {'max_abs':>10} {'rel':>10} {'kernel_ms':>10} {'plain_ms':>10}")
-    for c, h, w in [(c, s, s) for c, s, _ in STAGES] + RAGGED:
-        x = torch.randn(2, h, w, c, generator=gen).cuda()
+    print(f"  {'B':>2} {'C':>5} {'H':>4} {'W':>4} {'max_abs':>10} {'rel':>10} {'kernel_ms':>10} {'plain_ms':>10}")
+    for batch, c, h, w in [(2, c, s, s) for c, s, _ in STAGES] + [(2, *r) for r in RAGGED] + [K2_BATCH8]:
+        x = torch.randn(batch, h, w, c, generator=gen).cuda()
         params = random_block_params(c, gen, torch.float32, "cuda")
         dz = torch.randn(x.shape, generator=gen).cuda()
         _, res = _kernel_forward(x, params, 1e-6, residuals=True)
@@ -728,23 +742,34 @@ def check_k2() -> dict:
         errs = [(a - b).abs().max().item() for a, b in zip(got, ref)]
         rels = [e / max(1.0, b.abs().max().item()) for e, b in zip(errs, ref)]
         if not all(torch.isfinite(a).all() for a in got) or max(rels) > K2_TOL:
-            raise RuntimeError(f"K2 C={c} {h}x{w}: cotangent {rels.index(max(rels))} error {max(rels):.3e} "
-                               f"above {K2_TOL:.0e}")
-        if (c, h, w) == (256, 32, 32):
-            again = naf_block_bwd(x, *params, pooled, att, dz, maps)
-            if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                raise RuntimeError("K2 is not deterministic: two runs on the same inputs differ")
+            raise RuntimeError(f"K2 B={batch} C={c} {h}x{w}: cotangent {rels.index(max(rels))} error "
+                               f"{max(rels):.3e} above {K2_TOL:.0e}")
+        again = naf_block_bwd(x, *params, pooled, att, dz, maps)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise RuntimeError(f"K2 B={batch} C={c} {h}x{w}: two runs on the same inputs differ")
         k_ms = cuda_ms(lambda: naf_block_bwd(x, *params, pooled, att, dz, maps))
         p_ms = cuda_ms(lambda: naf_block_bwd_ref(x, *params, pooled, att, dz))
-        print(f"  {c:>5} {h:>4} {w:>4} {max(errs):>10.3e} {max(rels):>10.3e} {k_ms:>10.4f} {p_ms:>10.4f}", flush=True)
+        print(f"  {batch:>2} {c:>5} {h:>4} {w:>4} {max(errs):>10.3e} {max(rels):>10.3e} {k_ms:>10.4f} {p_ms:>10.4f}",
+              flush=True)
         worst = max(worst, max(errs))
-        per_block[(c, h, w)] = (k_ms, p_ms)
-    print("  K2 at C=256 32x32 twice: equal bit for bit", flush=True)
+        per_block[(batch, c, h, w)] = (k_ms, p_ms)
+        if (batch, c, h, w) == K2_BATCH8:
+            split = pass_split(lambda: naf_block_bwd(x, *params, pooled, att, dz, maps))
+            print_split(f"  K2 at B={batch}, C={c}, {h}x{w}, fp32, by pass", split)
+            if not split:
+                raise NoDeviceTime("torch.profiler recorded no device time for K2's passes")
+        del got, again, ref
+    print("  K2 twice on the same inputs: equal bit for bit at every shape", flush=True)
     # one backward through NAFNet-w64's 36 blocks at B = 2, 128 x 128
-    bound_ms, bound_by = bound([(n, *k2_work(c, 2 * s * s)) for c, s, n in STAGES])
-    return {"max_abs_err": worst, "ms": sum(n * per_block[(c, s, s)][0] for c, s, n in STAGES),
-            "plain_ms": sum(n * per_block[(c, s, s)][1] for c, s, n in STAGES), "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+    work = [(n, *k2_work(c, 2 * s * s)) for c, s, n in STAGES]
+    bound_ms, bound_by = bound(work, PEAK_TF32_FLOPS / 3)
+    b8_work = [(1, *k2_work(K2_BATCH8[1], K2_BATCH8[0] * K2_BATCH8[2] * K2_BATCH8[3]))]
+    return {"max_abs_err": worst, "ms": sum(n * per_block[(2, c, s, s)][0] for c, s, n in STAGES),
+            "plain_ms": sum(n * per_block[(2, c, s, s)][1] for c, s, n in STAGES), "bound_ms": bound_ms,
+            "bound_by": bound_by, "simt_bound_ms": bound(work)[0], "library_ms": None,
+            "b8_ms": per_block[K2_BATCH8][0], "b8_plain_ms": per_block[K2_BATCH8][1],
+            "b8_bound_ms": bound(b8_work, PEAK_TF32_FLOPS / 3)[0], "b8_simt_bound_ms": bound(b8_work)[0],
+            "b8_split": split}
 
 
 def k3_shapes(dtype_name: str, gen) -> dict:
@@ -935,7 +960,8 @@ def check_step_gradients(model, label: str = "[7]", batch_size: int = 8, float64
     * the network as it is, at ``float64_batch``: the kernel path's fp32
       gradients against the plain path in float64, each tensor within
       ``max(1e-3 of its max|ref|, K x its rounding sensitivity)``, the median
-      within 2e-2 and the losses within 1e-5
+      within 2e-2 and each loss within ``max(1e-5, K x the plain fp32 runs'
+      own departure from float64)``
       (``dcpt_tpu_torch.tools.grad_check``: the sensitivity is the largest
       departure from float64 of the plain fp32 step run as it is and on
       parameters and inputs moved by one ulp, large where sums cancel or ReLU
@@ -967,11 +993,12 @@ def check_step_gradients(model, label: str = "[7]", batch_size: int = 8, float64
     torch.cuda.empty_cache()
 
     batch = grad_batch(float64_batch)
-    ref, ref_losses, sens = float64_reference(model, batch)
+    ref, ref_losses, sens, plain_loss = float64_reference(model, batch)
     kernel_errs, kernel_losses = grad_check.run_errors(model, batch, ref)
     model.feed_data(batch)
-    report = grad_check.compare(grad_check.path_error(kernel_errs), kernel_losses, ref, ref_losses, sens)
-    as_is = grad_check.compare(kernel_errs[0], kernel_losses, ref, ref_losses, sens)
+    report = grad_check.compare(grad_check.path_error(kernel_errs), kernel_losses, ref, ref_losses, sens,
+                                plain_loss=plain_loss)
+    as_is = grad_check.compare(kernel_errs[0], kernel_losses, ref, ref_losses, sens, plain_loss=plain_loss)
     srel = sorted(sens[n] / max(g.abs().max().item(), 1e-30) for n, g in ref.items())
     runs = len(kernel_errs)
     print(f"{label} the network as it is, batch {float64_batch}, {len(ref)} gradients against the plain path in "
@@ -979,27 +1006,36 @@ def check_step_gradients(model, label: str = "[7]", batch_size: int = 8, float64
           f"as it is and on one-ulp perturbations, median {srel[len(srel) // 2]:.3e} and largest {srel[-1]:.3e} of "
           f"max|ref|): kernel path, the median of its {runs} runs: {grad_check.describe(report)}; its run as it is "
           f"alone: worst {as_is['worst_rel']:.3e} ({as_is['worst']}), {as_is['worst_ratio']:.3f} of its limit; losses "
-          f"kernel {kernel_losses}, float64 {ref_losses}", flush=True)
+          f"kernel {kernel_losses}, float64 {ref_losses}; the plain fp32 runs' own loss departures from float64 "
+          f"{_fmt(plain_loss)} (each loss's limit max({grad_check.LOSS_TOL:.0e}, K x its departure))", flush=True)
     if not ks[ks_name] <= 1:
         raise RuntimeError(f"gradient {ks_name} through the kernels differs from the plain path by {rel[ks_name]:.3e} "
                            f"of its max|ref|, {ks[ks_name]:.3f} of its limit")
     if not report["ok"]:
         raise RuntimeError(f"{label} kernel path against float64: {grad_check.describe(report)}")
-    return dict(report, sens_median=srel[len(srel) // 2], sens_max=srel[-1], as_is_ratio=as_is["worst_ratio"])
+    return dict(report, sens_median=srel[len(srel) // 2], sens_max=srel[-1], as_is_ratio=as_is["worst_ratio"],
+                plain_loss=plain_loss)
 
 
-def float64_reference(model, batch: dict) -> tuple[dict, dict, dict]:
-    """The plain path's step on ``batch`` in float64: its gradients and losses, and
+def _fmt(values: dict) -> str:
+    return ", ".join(f"{k} {v:.3e}" for k, v in values.items())
+
+
+def float64_reference(model, batch: dict) -> tuple[dict, dict, dict, dict]:
+    """The plain path's step on ``batch`` in float64: its gradients and losses,
     each tensor's rounding sensitivity from five plain fp32 runs
-    (``dcpt_tpu_torch.tools.grad_check``)."""
+    (``dcpt_tpu_torch.tools.grad_check``), and each loss's largest departure
+    in those runs from float64, which sets that loss's limit
+    (``grad_check.compare``)."""
     import torch
 
     from dcpt_tpu_torch.tools import grad_check
 
+    runs_losses = []
     with plain_path():
         ref, ref_losses = grad_check.step_grads(model, batch, torch.float64)
-        sens = grad_check.rounding_sensitivity(grad_check.run_errors(model, batch, ref)[0])
-    return ref, ref_losses, sens
+        sens = grad_check.rounding_sensitivity(grad_check.run_errors(model, batch, ref, runs_losses=runs_losses)[0])
+    return ref, ref_losses, sens, grad_check.loss_departure(runs_losses, ref_losses)
 
 
 def check_bwd_in_step(model, label: str, function, ref, tol: float, calls: int | None = None,
@@ -1355,11 +1391,15 @@ def check_k7() -> dict:
     and ragged shapes, and at B = 8 at the 128 x 128 stages, each call twice for
     equal bits; totals (from the B = 2 calls) per Restormer and
     per PromptIR backward at 128 x 128: device time (``ms``, ``plain_ms``) and
-    CUDA events around back-to-back calls (``call_ms``)."""
+    CUDA events around back-to-back calls (``call_ms``) beside the bound on the
+    tensor cores (3xTF32 at a third of the TF32 peak) and the SIMT fp32 bound
+    (``simt_bound_ms``); each B = 8 call's device time by pass
+    (``swin_ab.pass_split``; ``b8_split`` the Restormer flavour's at C = 48)."""
     import torch
 
     from dcpt_tpu_torch.ops.mdta_block import _kernel_forward
     from dcpt_tpu_torch.ops.mdta_block_bwd import mdta_block_bwd, mdta_block_bwd_ref
+    from dcpt_tpu_torch.tools.swin_ab import pass_split, print_split
 
     gen = torch.Generator().manual_seed(12)
     names = {RESTORMER_FLAVOUR: "relu", PROMPTIR_FLAVOUR: "softmax"}
@@ -1367,10 +1407,11 @@ def check_k7() -> dict:
     cases += [(s, s, c, heads, PROMPTIR_FLAVOUR) for c, s, heads in K6_NOISE]
     cases += [(h, w, c, heads, fl) for h, w, c, heads in K7_RAGGED for fl in names]
     cases = [(2, *case) for case in cases] + [(8, s, s, c, heads, fl) for c, s, heads in K7_BATCH8 for fl in names]
-    times, worst = {}, 0.0
+    times, worst, splits = {}, 0.0, {}
     print(f"  {'B':>2} {'C':>4} {'H':>4} {'W':>4} {'heads':>5} {'act':>7} {'max_abs':>10} {'rel':>10} {'kernel_ms':>10} "
-          f"{'plain_ms':>10} {'call_ms':>10} {'plain_call':>10} {'bound_ms':>10}  (kernel_ms, plain_ms: device time "
-          f"per call, torch.profiler; call_ms: CUDA events around back-to-back calls)")
+          f"{'plain_ms':>10} {'call_ms':>10} {'plain_call':>10} {'bound_ms':>10} {'simt_bound':>10}  (kernel_ms, "
+          f"plain_ms: device time per call, torch.profiler; call_ms: CUDA events around back-to-back calls; bound_ms: "
+          f"3xTF32 on the tensor cores; simt_bound: fp32 outside them)")
     for batch, h, w, c, heads, flavour in cases:
         x = torch.randn(batch, h, w, c, generator=gen).cuda()
         params = mdta_params(c, heads, gen, torch.float32, "cuda")
@@ -1393,28 +1434,39 @@ def check_k7() -> dict:
             raise RuntimeError(f"K7's profile shows {sorted(k_funcs)}, expected {sorted(K7_FUNCTIONS)}")
         k_ms, p_ms = sum(k_funcs.values()), sum(device_ms_by_function(plain, 10)[0].values())
         k_call, p_call = cuda_ms(kernel), cuda_ms(plain)
-        b_ms = bound([(1, *k7_work(c, int(2.66 * c), c // heads, batch * h * w, batch))])[0]
+        work = [(1, *k7_work(c, int(2.66 * c), c // heads, batch * h * w, batch))]
+        b_ms, simt_ms = bound(work, PEAK_TF32_FLOPS / 3)[0], bound(work)[0]
         print(f"  {batch:>2} {c:>4} {h:>4} {w:>4} {heads:>5} {names[flavour]:>7} {max(errs):>10.3e} {max(rels):>10.3e} "
-              f"{k_ms:>10.4f} {p_ms:>10.4f} {k_call:>10.4f} {p_call:>10.4f} {b_ms:>10.4f}", flush=True)
+              f"{k_ms:>10.4f} {p_ms:>10.4f} {k_call:>10.4f} {p_call:>10.4f} {b_ms:>10.4f} {simt_ms:>10.4f}", flush=True)
         if max(rels) > K7_TOL:
             raise RuntimeError(f"K7 B={batch} C={c} {h}x{w} {names[flavour]}: cotangent {rels.index(max(rels))} "
                                f"error {max(rels):.3e} above {K7_TOL:.0e}")
         worst = max(worst, max(errs))
         if h == w and batch == 2:
             times[(c, h, heads, flavour)] = (k_ms, p_ms, k_call, p_call)
+        if batch == 8:
+            times[(8, c, flavour)] = (k_ms, p_ms, k_call, p_call, b_ms, simt_ms)
+            splits[(c, flavour)] = pass_split(kernel)
+            print_split(f"  K7 at B=8, C={c}, {h}x{w}, {names[flavour]}, fp32, by pass", splits[(c, flavour)])
+            if not splits[(c, flavour)]:
+                raise NoDeviceTime("torch.profiler recorded no device time for K7's passes")
+        del got, again, ref
     print("  K7 twice on the same inputs: equal bit for bit at every shape", flush=True)
     per_net = {"Restormer": [(n, key, RESTORMER_FLAVOUR) for key, n in K6_BODY.items()],
                "PromptIR": [(n, key, PROMPTIR_FLAVOUR) for key, n in [*K6_BODY.items(), *K6_NOISE.items()]]}
-    out = {"max_abs_err": worst, "library_ms": None}
+    c8 = K7_BATCH8[0][0]
+    b8 = times[(8, c8, RESTORMER_FLAVOUR)]
+    out = {"max_abs_err": worst, "library_ms": None, "b8_ms": b8[0], "b8_plain_ms": b8[1], "b8_call_ms": b8[2],
+           "b8_bound_ms": b8[4], "b8_simt_bound_ms": b8[5], "b8_split": splits[(c8, RESTORMER_FLAVOUR)]}
     for net, blocks in per_net.items():
-        bound_ms, bound_by = bound([(n, *k7_work(c, int(2.66 * c), c // heads, 2 * s * s, 2))
-                                    for n, (c, s, heads), _ in blocks])
+        work = [(n, *k7_work(c, int(2.66 * c), c // heads, 2 * s * s, 2)) for n, (c, s, heads), _ in blocks]
+        bound_ms, bound_by = bound(work, PEAK_TF32_FLOPS / 3)
         ms, plain_ms, call_ms, plain_call_ms = (sum(n * times[(*key, fl)][i] for n, key, fl in blocks)
                                                 for i in range(4))
         prefix = "" if net == "Restormer" else "promptir_"
         out.update({f"{prefix}ms": ms, f"{prefix}plain_ms": plain_ms, f"{prefix}call_ms": call_ms,
                     f"{prefix}plain_call_ms": plain_call_ms, f"{prefix}bound_ms": bound_ms,
-                    f"{prefix}bound_by": bound_by})
+                    f"{prefix}bound_by": bound_by, f"{prefix}simt_bound_ms": bound(work)[0]})
     return out
 
 
@@ -1928,23 +1980,28 @@ def run_swinir_training(force: list[str]) -> dict:
             "profile": profile, "grad64": grad64}
 
 
-def float64_states(states: int) -> dict:
-    """Not a phase of the run: [15]'s float64 check of the SwinIR DCPT step on
-    ``states`` trained states, each on three routes through the Swin blocks, to
-    tell whether K8 or K9 makes it fail where it does.
+def float64_states(states: int, arch: str = "SwinIR") -> dict:
+    """Not a phase of the run: the float64 check of [7], [11] or [15] on the
+    DCPT step of ``arch`` (NAFNet, Restormer, PromptIR or SwinIR) at ``states``
+    trained states, each on the routes through its blocks that tell the
+    forward kernel from the backward one, to show which makes the check fail
+    or come near its limit where it does.
 
-        python3 chip_smoke.py --phase float64_states '[12]'
+        python3 chip_smoke.py --phase float64_states '[12, "SwinIR"]'
 
-    The shipped SwinIR DCPT yml trains TRAIN_ITERS steps at batch 8 on the PNGs
-    of [7]; state k is that model after 2 k more steps on seeded batches.  On
-    each, the check of ``check_step_gradients`` at SWIN_FLOAT64_BATCH (the same
-    batch, float64 reference and sensitivities for every route): K8 forward
-    with K9 backward (the shipped route), the plain forward with K9, and K8
-    with the plain backward.  Prints each state's report and each route's
-    pass count."""
+    The shipped DCPT yml trains TRAIN_ITERS steps at batch 8 on the PNGs of
+    [7]; state k is that model after 2 k more steps on seeded batches.  On
+    each, the check of ``check_step_gradients`` at the batch of its phase (the
+    same batch, float64 reference and sensitivities for every route): the
+    shipped route (forward and backward kernel), the forward kernel with the
+    backward's plain version, and for SwinIR also the plain forward with K9.
+    Prints each state's report with the plain fp32 runs' own loss departures
+    from float64 beside ``LOSS_TOL``, and each route's pass count."""
     import shutil
     from contextlib import nullcontext
 
+    from dcpt_tpu_torch.ops import mdta_block_bwd as mbb
+    from dcpt_tpu_torch.ops import naf_block_bwd as nbb
     from dcpt_tpu_torch.ops import swin_block_bwd as sbb
     from dcpt_tpu_torch.ops import window_attention as wa
     from dcpt_tpu_torch.tools import grad_check
@@ -1953,35 +2010,62 @@ def float64_states(states: int) -> dict:
     def plain_forward(x, params, heads, ws, shift, eps):
         return wa.swin_block_map_ref(x, *params, heads, ws, shift, eps)
 
-    routes = {"K8 + K9": nullcontext,
-              "plain forward + K9": lambda: mock.patch.object(wa, "_kernel_block", plain_forward),
-              "K8 + plain backward": lambda: mock.patch.object(sbb, "swin_block_bwd", sbb.swin_block_bwd_ref)}
-    work = ROOT / "build" / "chip_smoke_float64_states"
+    def plain_k7(x, *a):  # mdta_block_bwd's arguments: 11 parameters, dz, res, then the configuration
+        return mbb.mdta_block_bwd_ref(x, *a[:11], *a[12][:4], a[11], *a[13:])
+
+    def plain_k2(x, *a):  # naf_block_bwd's arguments: 18 parameters, pooled, att, dz, res, eps
+        return nbb.naf_block_bwd_ref(x, *a[:21], a[22])
+
+    yml, batch_size, routes = {
+        "NAFNet": (TRAIN_YML, 8, {"K1 + K2": nullcontext,
+                                  "K1 + plain backward": lambda: mock.patch.object(nbb, "naf_block_bwd", plain_k2)}),
+        "Restormer": (TRANSFORMER_TRAIN_YMLS["Restormer"], FLOAT64_GRAD_BATCH,
+                      {"K6 + K7": nullcontext,
+                       "K6 + plain backward": lambda: mock.patch.object(mbb, "mdta_block_bwd", plain_k7)}),
+        "PromptIR": (TRANSFORMER_TRAIN_YMLS["PromptIR"], FLOAT64_GRAD_BATCH,
+                     {"K6 + K7": nullcontext,
+                      "K6 + plain backward": lambda: mock.patch.object(mbb, "mdta_block_bwd", plain_k7)}),
+        "SwinIR": (SWIN_TRAIN_YML, SWIN_FLOAT64_BATCH,
+                   {"K8 + K9": nullcontext,
+                    "plain forward + K9": lambda: mock.patch.object(wa, "_kernel_block", plain_forward),
+                    "K8 + plain backward": lambda: mock.patch.object(sbb, "swin_block_bwd", sbb.swin_block_bwd_ref)}),
+    }[arch]
+    work = ROOT / "build" / f"chip_smoke_float64_states_{arch}"
     shutil.rmtree(work, ignore_errors=True)
     force = write_train_sets(work / "data")
-    model = train_pipeline(str(work), args=["-opt", str(SWIN_TRAIN_YML), "--force_yml", *force,
+    model = train_pipeline(str(work), args=["-opt", str(yml), "--force_yml", *force,
                                             "datasets:train:datasets:d3_dehaze:suffix=.png",
-                                            "logger:use_tb_logger=false", f"train:total_iter={TRAIN_ITERS}"])
-    batch = grad_batch(SWIN_FLOAT64_BATCH)
+                                            "datasets:train:num_worker_per_gpu=0", "logger:use_tb_logger=false",
+                                            f"train:total_iter={TRAIN_ITERS}"])
+    batch = grad_batch(batch_size)
     passed = {route: 0 for route in routes}
     ratios = {route: [] for route in routes}
+    plain_losses = []
     for state in range(states):
         for k in range(2 if state else 0):
             model.feed_data(grad_batch(8, seed=100 + 2 * state + k))
             model.optimize_parameters(0)
-        ref, ref_losses, sens = float64_reference(model, batch)
+        ref, ref_losses, sens, plain_loss = float64_reference(model, batch)
+        plain_losses.append(plain_loss)
+        print(f"[float64 states] {arch} state {state} ({TRAIN_ITERS + 2 * state} steps), batch {batch_size}: the "
+              f"plain fp32 runs' loss departures from float64 {_fmt(plain_loss)} (each loss's limit max("
+              f"{grad_check.LOSS_TOL:.0e}, K x its departure))", flush=True)
         for route, ctx in routes.items():
             with ctx():
                 errs, losses = grad_check.run_errors(model, batch, ref)
-            report = grad_check.compare(grad_check.path_error(errs), losses, ref, ref_losses, sens)
+            report = grad_check.compare(grad_check.path_error(errs), losses, ref, ref_losses, sens,
+                                        plain_loss=plain_loss)
             passed[route] += report["ok"]
             ratios[route].append(report["worst_ratio"])
-            print(f"[float64 states] state {state} ({TRAIN_ITERS + 2 * state} steps), {route}: "
-                  f"{'pass' if report['ok'] else 'FAIL'}; {grad_check.describe(report)}", flush=True)
+            print(f"[float64 states] {arch} state {state}, {route}: {'pass' if report['ok'] else 'FAIL'}; "
+                  f"{grad_check.describe(report)}", flush=True)
     for route in routes:
-        print(f"[float64 states] {route}: passed {passed[route]} of {states}; worst share of a limit by state "
-              + ", ".join(f"{r:.3f}" for r in ratios[route]), flush=True)
-    return {"states": states, "passed": passed, "ratios": ratios}
+        print(f"[float64 states] {arch}, {route}: passed {passed[route]} of {states}; worst share of a limit by "
+              f"state " + ", ".join(f"{r:.3f}" for r in ratios[route]), flush=True)
+    worst_plain = {k: max(p[k] for p in plain_losses) for k in plain_losses[0]}
+    print(f"[float64 states] {arch}: the plain fp32 runs' worst loss departure over the states {_fmt(worst_plain)} "
+          f"(LOSS_TOL {grad_check.LOSS_TOL:.0e})", flush=True)
+    return {"arch": arch, "states": states, "passed": passed, "ratios": ratios, "plain_losses": plain_losses}
 
 
 def _k45_library(x, p):
@@ -2878,6 +2962,7 @@ def run_standalone_path() -> dict:
     return {"launches": launches, "per_net": per_net}
 
 PHASE_RESULT = "CHIP_SMOKE_PHASE_RESULT "
+NO_DEVICE_TIME = 3  # a fresh process's exit code when a profile of its phase recorded no device time
 # set once torch.profiler has recorded no device time in this process
 _profiler_lost = False
 
@@ -2887,7 +2972,9 @@ def run_phase(fn, *args, env: dict | None = None, profiles: bool = True):
     of the phase records no device time, the phase runs once more in a fresh
     process on the same card, its output passed on, and so does every phase
     after it that ``profiles`` (one that takes no torch.profiler trace runs
-    here all the same); a profile there that records none fails the script.
+    here all the same); if a profile there records none too (the child exits
+    with NO_DEVICE_TIME), one more fresh process runs it, and a profile there
+    that records none fails the script.
     With ``env`` the phase runs in a fresh process with those variables set
     (the port reads its routes' switches at import)."""
     global _profiler_lost
@@ -2907,15 +2994,20 @@ def run_phase(fn, *args, env: dict | None = None, profiles: bool = True):
             _profiler_lost = True
         gc.collect()  # the failed attempt's tensors, before the child takes its memory from the same card
     torch.cuda.empty_cache()
-    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--phase", fn.__name__, json.dumps(args)],
-                            stdout=subprocess.PIPE, text=True, env=None if env is None else {**os.environ, **env})
-    result = None
-    for line in proc.stdout:
-        if line.startswith(PHASE_RESULT):
-            result = json.loads(line[len(PHASE_RESULT):])
-        else:
-            print(line, end="", flush=True)
-    if proc.wait() != 0 or result is None:
+    for attempt in range(2):
+        proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--phase", fn.__name__,
+                                 json.dumps(args)], stdout=subprocess.PIPE, text=True,
+                                env=None if env is None else {**os.environ, **env})
+        result = None
+        for line in proc.stdout:
+            if line.startswith(PHASE_RESULT):
+                result = json.loads(line[len(PHASE_RESULT):])
+            else:
+                print(line, end="", flush=True)
+        if proc.wait() != NO_DEVICE_TIME or attempt:
+            break
+        print(f"  {fn.__name__} again in another fresh process: the profiler recorded no device time", flush=True)
+    if proc.returncode != 0 or result is None:
         raise RuntimeError(f"{fn.__name__} failed in a fresh process (exit code {proc.returncode})")
     print(f"  ({fn.__name__}, fresh process: {time.perf_counter() - t0:.1f} s)", flush=True)
     return result
@@ -2938,7 +3030,11 @@ def main() -> int:
     # device time in this process, which the later phases' profiles need
     multiprocessing.set_start_method("spawn")
     if sys.argv[1:2] == ["--phase"]:  # run_phase's fresh process
-        print(PHASE_RESULT + json.dumps(globals()[sys.argv[2]](*json.loads(sys.argv[3]))), flush=True)
+        try:
+            print(PHASE_RESULT + json.dumps(globals()[sys.argv[2]](*json.loads(sys.argv[3]))), flush=True)
+        except NoDeviceTime as e:
+            print(f"  {e}", flush=True)
+            return NO_DEVICE_TIME
         return 0
 
     card = card_line()
@@ -2958,10 +3054,14 @@ def main() -> int:
 
     force = run_phase(run_slice)
 
-    print(f"[5] K2 naf_block_bwd vs naf_block_bwd_ref, B=2, fp32, limit {K2_TOL:.0e} relative", flush=True)
+    print(f"[5] K2 naf_block_bwd vs naf_block_bwd_ref, B=2 (and 8 at C=64, 128x128), fp32, limit {K2_TOL:.0e} "
+          f"relative", flush=True)
     k2 = run_phase(check_k2)
     print(f"[5] K2 per NAFNet-w64 backward (B=2, 128x128, 36 blocks): kernel {k2['ms']:.3f} ms, "
-          f"plain {k2['plain_ms']:.3f} ms, bound {k2['bound_ms']:.3f} ms ({k2['bound_by']})", flush=True)
+          f"plain {k2['plain_ms']:.3f} ms, bound {k2['bound_ms']:.3f} ms ({k2['bound_by']}, 3xTF32 on the tensor "
+          f"cores; SIMT fp32 {k2['simt_bound_ms']:.3f} ms); one call at B=8, C=64: {k2['b8_ms']:.3f} ms (plain "
+          f"{k2['b8_plain_ms']:.3f} ms, bound {k2['b8_bound_ms']:.3f} ms, SIMT fp32 {k2['b8_simt_bound_ms']:.3f} ms)",
+          flush=True)
 
     print("[6] K3 layer_norm_2d forward + backward vs plain and F.layer_norm, fp32, limit 1e-4", flush=True)
     k3 = run_phase(check_k3)
@@ -2993,8 +3093,11 @@ def main() -> int:
     for net, pre, blocks in (("Restormer", "", 44), ("PromptIR", "promptir_", 47)):
         print(f"[10] K7 per {net} backward (B=2, 128x128, {blocks} blocks): device {k7[pre + 'ms']:.3f} ms (plain "
               f"{k7[pre + 'plain_ms']:.3f} ms), back-to-back calls {k7[pre + 'call_ms']:.3f} ms (plain "
-              f"{k7[pre + 'plain_call_ms']:.3f} ms), bound {k7[pre + 'bound_ms']:.3f} ms ({k7[pre + 'bound_by']})",
-              flush=True)
+              f"{k7[pre + 'plain_call_ms']:.3f} ms), bound {k7[pre + 'bound_ms']:.3f} ms ({k7[pre + 'bound_by']}, "
+              f"3xTF32 on the tensor cores; SIMT fp32 {k7[pre + 'simt_bound_ms']:.3f} ms)", flush=True)
+    print(f"[10] K7 one call at B=8, C={K7_BATCH8[0][0]}, 128x128, relu: device {k7['b8_ms']:.3f} ms (plain "
+          f"{k7['b8_plain_ms']:.3f} ms), back-to-back calls {k7['b8_call_ms']:.3f} ms, bound {k7['b8_bound_ms']:.3f} "
+          f"ms (SIMT fp32 {k7['b8_simt_bound_ms']:.3f} ms)", flush=True)
 
     transformer_train = run_phase(run_transformer_training, in_process)
 
@@ -3129,8 +3232,9 @@ def main() -> int:
     kernels[6].update(no_ln_ms=k10["no_ln_ms"], no_ln_plain_ms=k10["no_ln_plain_ms"])
     kernels[4].update(launches_per_step=TRANSFORMER_PER_STEP["Restormer"]["mdta_block_bwd"],
                       launches_promptir=transformer_train["PromptIR"]["launches"]["mdta_block_bwd"],
-                      call_ms=k7["call_ms"],
-                      **{k: v for k, v in k7.items() if k.startswith("promptir_") and k != "promptir_bound_by"})
+                      **{k: v for k, v in k7.items()
+                         if k not in kernels[4] and k not in ("promptir_bound_by", "b8_split")})
+    kernels[1].update({k: v for k, v in k2.items() if k not in kernels[1] and k != "b8_split"})
     kernels[7].update(launches_per_step=SWIN_PER_STEP["swin_block_bwd"],
                       **{k: k9[k] for k in ("call_ms", "plain_call_ms", "simt_bound_ms", "b8_ms", "b8_plain_ms",
                                             "b8_call_ms", "b8_bound_ms", "b8_simt_bound_ms")})

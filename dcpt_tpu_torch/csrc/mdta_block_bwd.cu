@@ -17,14 +17,14 @@
 // nothing is recomputed but the per-pixel LayerNorm statistics and the
 // depthwise output of u at the gate (9 taps a channel).
 //
-// Passes, on PyTorch's current stream (the products are grids of pixel tiles
-// x 64 output columns x batch, gemm.cuh's gemm_masked):
-//   G   dg = dz . Wout, and in its epilogue the gate backward with
+// Passes, on PyTorch's current stream:
+//   G   dg = dz . Wout, then per element the gate backward with
 //       a = dw(u)[j], b = dw(u)[F + j]:  dd = [dg b gelu'(a), dg gelu(a)]
-//   DW  (2F channels) du = the transposed 3x3 stencil of dd; per-chunk
+//   DW  (2F channels) du = the transposed 3x3 stencil of dd; per-row
 //       partials of dWdwf = sum dd * u (shifted)
 //   P   dln2 = du . Win
-//   LN  dy = dz + LN2 backward; partials of dn2w, dn2b
+//   LN  dy = dz + LN2 backward; partials of dn2w, dn2b; LN2(y) n2w (+ n2b)
+//       written for dWin
 //   P   dout = dy . Wproj
 //   A   per-128-pixel partials of dattn's head blocks, sum dout^T v (C ch a pixel)
 //   S   per (head, batch) block: the activation backward (softmax, or ReLU
@@ -34,9 +34,19 @@
 //       dout . attn], each column block over its heads' rows only
 //   DW  (3C channels) dt, partials of dWdwq = sum [dq, dk, dv] * t (shifted)
 //   P   dln1 = dt . Wqkv
-//   LN  dx = dy + LN1 backward; partials of dn1w, dn1b
-//   W   dWout, dWin, dWproj, dWqkv: products over the pixel axis, 64 x 64
-//       output tiles x chunks of pixels, one partial per chunk.
+//   LN  dx = dy + LN1 backward; partials of dn1w, dn1b; LN1(x) n1w (+ n1b)
+//       written for dWqkv
+//   W   dWout, dWin, dWproj, dWqkv: products over the pixel axis, cut into
+//       chunks of pixels, one partial per chunk.
+// G, the three P and the four W run on the tensor cores (token_bwd.cuh's
+// product and wgrad): tc_gemm.cuh's 96 x 96 tiles of mma.sync m16n8k8 TF32
+// with fp32 sums, three products a step for two fp32 operands (3xTF32, fp32
+// accuracy), two for an fp32 map and a bf16 weight, one for two bf16 (G in
+// bf16: dz and Wout), each 32-deep chunk summed from zero and added to the
+// running sum by one rounded add; a product whose tiles would leave SMs idle
+// (the deep stages' few pixels) is cut along its depth.  The gate and the
+// two DW passes walk image rows with their 3 x 3 windows in registers.  A
+// and Q, per head block, stay SIMT fp32 (gemm.cuh).
 // The TPU kernel accumulates dattn and every weight gradient across its
 // sequential grid; on the card blocks run in no order, so every sum over
 // pixels is written as partials and added by colsum<7> in a fixed order (no
@@ -44,10 +54,11 @@
 // head blocks are formed: both activations give ds = 0 off them.
 //
 // What bounds it on this card: 2 (6FC + 8C^2 + 4C ch) + 36 (3C + 2F) flops
-// a pixel, about 32 C^2 at F = 2.66 C, on the SIMT fp32 pipes from shared
-// memory (operations, at every stage of the shipped nets).  As in K6 the
-// products' ceiling is shared-memory bandwidth and the intermediate maps go
-// through device memory; wgmma/TMA tiles and halo fusion are the next steps.
+// a pixel, about 32 C^2 at F = 2.66 C, 80 % of them in the products on the
+// tensor cores (operations: at 495 / 3 TFLOP/s for 3xTF32, 6.7 x the SIMT
+// fp32 peak); the rest, A and Q on the SIMT pipes, the depthwise passes, the
+// LayerNorms and the column sums, move the intermediate maps through device
+// memory.  wgmma/TMA tiles and halo fusion are the next steps.
 //
 // Weights come in PyTorch's layout (every 1x1 as (out, in), the depthwise 3x3
 // as (D, 3, 3), temperature as (heads,)); the 1x1 gradients are written in
@@ -65,57 +76,84 @@
 
 #include "common.cuh"
 #include "gemm.cuh"
+#include "tc_gemm.cuh"
 #include "token_bwd.cuh"
 
 namespace {
 
 constexpr int kChunk = 128;   // A: pixels of one dattn partial
-constexpr int kTapPix = 64;   // DW: pixels of one tap partial
+constexpr int kRowC = 32;     // gate, DW: channels of a block (a warp), kThreads / kRowC image rows
 
 __device__ __forceinline__ int cols(int n) { return (n + kNB - 1) / kNB; }
 
-// The gate backward at pixel pix (of image b), column j, given dg.
+// Wout (C, F) into rows ld apart (ld = F rounded up to 4 elements): G's weight, so
+// that it stages by cp.async.
 template <typename TW>
-__device__ __forceinline__ void gate_bwd(float dg, const float* u, const TW* wdwf, float* dd, int b, int pix, int j,
-                                         int H, int W, int F) {
-  const int yy = pix / W, xx = pix % W;
-  const float a = dw3x3(u, wdwf, b, yy, xx, j, H, W, 2 * F);
-  const float bv = dw3x3(u, wdwf, b, yy, xx, F + j, H, W, 2 * F);
-  const float cdf = 0.5f * (1.f + erff(a * 0.70710678118654752f));
-  const float pdf = 0.3989422804014327f * expf(-0.5f * a * a);
-  float* row = dd + ((size_t)b * H * W + pix) * 2 * F;
-  row[j] = dg * bv * (cdf + a * pdf);
-  row[F + j] = dg * a * cdf;
+__global__ void __launch_bounds__(kThreads)
+k7_pad_kernel(const TW* __restrict__ w, TW* __restrict__ out, int rows, int n, int ld) {
+  const int idx = blockIdx.x * kThreads + threadIdx.x;
+  if (idx < rows * ld) out[idx] = idx % ld < n ? w[(size_t)(idx / ld) * n + idx % ld] : st<TW>(0.f);
 }
 
-// G: dg = dz . Wout (Wout (C, F) read transposed), then the gate backward into dd (B, HW, 2F)
-template <typename T, int RM>
+// G's gate backward: dd (B, HW, 2F; rows ldd apart) from dg (B, HW, F).  One thread a channel j
+// walks an image row, the 3 x 3 windows of u's channels j and F + j around
+// its pixel in registers (three new elements of each a pixel): a = dw(u)[j],
+// b = dw(u)[F + j] (dw3x3's sums, zero outside the image), then
+// dd = [dg b gelu'(a), dg gelu(a)].  A block: kRowC channels (a warp's lanes)
+// x kThreads / kRowC rows; grid (row tiles, channel tiles over F, B).
+template <typename TW>
 __global__ void __launch_bounds__(kThreads)
-k7_gate_kernel(const T* __restrict__ dz, const T* __restrict__ wout, const float* __restrict__ u,
-               const T* __restrict__ wdwf, float* __restrict__ dd, int H, int W, int C, int F) {
-  const int HW = H * W;
-  GEMM_PROLOGUE
-  (void)kGemmFloats;
-  const T* dzb = dz + ((size_t)b * HW + p0) * C;
-  gemm_masked<RM, true>(smem, wout, F, F, n0, 0, C, [&](int p, int k) {
-    return p < np ? ld(dzb[(size_t)p * C + k]) : 0.f;
-  }, acc);
-  GEMM_EPILOGUE(F, gate_bwd(a, u, wdwf, dd, b, p0 + p, n, H, W, F);)
-}
-
-// P: out (B*HW, N) = lhs (B*HW, K) . w, w (K, N) row-major (a PyTorch (out, in) weight read transposed)
-template <typename TW, int RM>
-__global__ void __launch_bounds__(kThreads)
-k7_prod_kernel(const float* __restrict__ lhs, const TW* __restrict__ w, float* __restrict__ out, int HW, int K,
-               int N) {
-  GEMM_PROLOGUE
-  (void)kGemmFloats;
-  const float* ab = lhs + ((size_t)b * HW + p0) * K;
-  gemm_masked<RM, true>(smem, w, N, N, n0, 0, K, [&](int p, int k) {
-    return p < np ? ab[(size_t)p * K + k] : 0.f;
-  }, acc);
-  float* ob = out + ((size_t)b * HW + p0) * N;
-  GEMM_EPILOGUE(N, ob[(size_t)p * N + n] = a;)
+k7_gate_bwd_kernel(const float* __restrict__ dg, const float* __restrict__ u, const TW* __restrict__ wdwf,
+                   float* __restrict__ dd, int H, int W, int F, int ldd) {
+  const int j = blockIdx.y * kRowC + threadIdx.x % kRowC, y = blockIdx.x * (kThreads / kRowC) + threadIdx.x / kRowC;
+  if (j >= F || y >= H) return;
+  const int D = 2 * F;
+  const size_t img = (size_t)blockIdx.z * H * W;
+  const float* urow[3];  // rows y - 1, y, y + 1 of u at channel j (null outside the image)
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+    urow[r] = y + r - 1 >= 0 && y + r - 1 < H ? u + (img + (size_t)(y + r - 1) * W) * D + j : nullptr;
+  float wa[9], wb[9], ua[3][3], ub[3][3];  // ua[r][k], ub[r][k]: channels j, F + j at (y + r - 1, x + k - 1)
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    wa[k] = ld(wdwf[(size_t)j * 9 + k]);
+    wb[k] = ld(wdwf[(size_t)(F + j) * 9 + k]);
+  }
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    ua[r][0] = ub[r][0] = 0.f;
+    ua[r][1] = urow[r] ? urow[r][0] : 0.f;
+    ub[r][1] = urow[r] ? urow[r][F] : 0.f;
+  }
+  for (int x = 0; x < W; ++x) {
+    const bool next = x + 1 < W;
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+      ua[r][2] = urow[r] && next ? urow[r][(size_t)(x + 1) * D] : 0.f;
+      ub[r][2] = urow[r] && next ? urow[r][(size_t)(x + 1) * D + F] : 0.f;
+    }
+    float a = 0.f, bv = 0.f;
+#pragma unroll
+    for (int r = 0; r < 3; ++r)
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        a = fmaf(ua[r][k], wa[r * 3 + k], a);
+        bv = fmaf(ub[r][k], wb[r * 3 + k], bv);
+      }
+    const size_t p = img + (size_t)y * W + x;
+    const float g = dg[p * F + j];
+    const float cdf = 0.5f * (1.f + erff(a * 0.70710678118654752f));
+    const float pdf = 0.3989422804014327f * expf(-0.5f * a * a);
+    dd[p * ldd + j] = g * bv * (cdf + a * pdf);
+    dd[p * ldd + F + j] = g * a * cdf;
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+      ua[r][0] = ua[r][1];
+      ua[r][1] = ua[r][2];
+      ub[r][0] = ub[r][1];
+      ub[r][1] = ub[r][2];
+    }
+  }
 }
 
 // Q: the cotangent of qkv (B, HW, 3C).  grid.y = 3 segments x cols(C): q's
@@ -165,39 +203,64 @@ k7_dqkv_kernel(const float* __restrict__ qkv, const float* __restrict__ dout, co
 }
 
 // DW: din = the transposed depthwise 3x3 of dout (zero outside the image), and
-// part (B * chunks, 9, D) the chunk's sums of dout * in at each tap; one thread
-// per channel over kTapPix pixels.  w (D, 3, 3).  grid (chunks, cols of kThreads, B).
+// part (B * H, 9, D) each image row's sums of dout * in at each tap, over D
+// channels (rows of dout and din ldo apart, of in ldi); one
+// thread per channel walks its row, the 3 x 3 windows of in and dout around
+// its pixel in registers, three new elements of each a pixel.  w (D, 3, 3).
+// A block: kRowC channels x kThreads / kRowC rows; grid (row tiles, channel tiles, B).
 template <typename TW>
 __global__ void __launch_bounds__(kThreads)
 k7_dw_bwd_kernel(const float* __restrict__ dout, const float* __restrict__ in, const TW* __restrict__ w,
-                 float* __restrict__ din, float* __restrict__ part, int H, int W, int D) {
-  const int c = blockIdx.y * kThreads + threadIdx.x;
-  if (c >= D) return;
-  const int b = blockIdx.z, HW = H * W, p0 = blockIdx.x * kTapPix, pend = min(HW, p0 + kTapPix);
-  const float* ib = in + (size_t)b * HW * D + c;
-  const float* ob = dout + (size_t)b * HW * D + c;
-  float wt[9], tap[9];
+                 float* __restrict__ din, float* __restrict__ part, int H, int W, int D, int ldo, int ldi) {
+  const int c = blockIdx.y * kRowC + threadIdx.x % kRowC, y = blockIdx.x * (kThreads / kRowC) + threadIdx.x / kRowC;
+  if (c >= D || y >= H) return;
+  const size_t img = (size_t)blockIdx.z * H * W;
+  const float* irow[3];  // rows y - 1, y, y + 1 of in and dout at channel c (null outside the image)
+  const float* orow[3];
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    const bool live = y + r - 1 >= 0 && y + r - 1 < H;
+    irow[r] = live ? in + (img + (size_t)(y + r - 1) * W) * ldi + c : nullptr;
+    orow[r] = live ? dout + (img + (size_t)(y + r - 1) * W) * ldo + c : nullptr;
+  }
+  float wt[9], tap[9], iv[3][3], ov[3][3];  // iv[r][k], ov[r][k]: in, dout at (y + r - 1, x + k - 1)
 #pragma unroll
   for (int k = 0; k < 9; ++k) {
     wt[k] = ld(w[(size_t)c * 9 + k]);
     tap[k] = 0.f;
   }
-  for (int p = p0; p < pend; ++p) {
-    const int yy = p / W, xx = p % W;
-    const float g = ob[(size_t)p * D];
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    iv[r][0] = ov[r][0] = 0.f;
+    iv[r][1] = irow[r] ? irow[r][0] : 0.f;
+    ov[r][1] = orow[r] ? orow[r][0] : 0.f;
+  }
+  for (int x = 0; x < W; ++x) {
+    const bool next = x + 1 < W;
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+      iv[r][2] = irow[r] && next ? irow[r][(size_t)(x + 1) * ldi] : 0.f;
+      ov[r][2] = orow[r] && next ? orow[r][(size_t)(x + 1) * ldo] : 0.f;
+    }
+    const float g = ov[1][1];
     float s = 0.f;
 #pragma unroll
     for (int dy = 0; dy < 3; ++dy)
 #pragma unroll
       for (int dx = 0; dx < 3; ++dx) {
-        const int y1 = yy + dy - 1, x1 = xx + dx - 1;  // the input this tap read for output p
-        if (y1 >= 0 && y1 < H && x1 >= 0 && x1 < W) tap[dy * 3 + dx] = fmaf(g, ib[((size_t)y1 * W + x1) * D], tap[dy * 3 + dx]);
-        const int y2 = yy - dy + 1, x2 = xx - dx + 1;  // the output that read p through this tap
-        if (y2 >= 0 && y2 < H && x2 >= 0 && x2 < W) s = fmaf(ob[((size_t)y2 * W + x2) * D], wt[dy * 3 + dx], s);
+        tap[dy * 3 + dx] = fmaf(g, iv[dy][dx], tap[dy * 3 + dx]);  // the input this tap read for output x
+        s = fmaf(ov[2 - dy][2 - dx], wt[dy * 3 + dx], s);          // the output that read x through this tap
       }
-    din[((size_t)b * HW + p) * D + c] = s;
+    din[(img + (size_t)y * W + x) * ldo + c] = s;
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+      iv[r][0] = iv[r][1];
+      iv[r][1] = iv[r][2];
+      ov[r][0] = ov[r][1];
+      ov[r][1] = ov[r][2];
+    }
   }
-  float* pr = part + ((size_t)b * gridDim.x + blockIdx.x) * 9 * D + c;
+  float* pr = part + ((size_t)blockIdx.z * H + y) * 9 * D + c;
 #pragma unroll
   for (int k = 0; k < 9; ++k) pr[(size_t)k * D] = tap[k];
 }
@@ -321,8 +384,9 @@ void param_lengths(int C, int F, int heads, long long* len) {
 // The workspace: the cotangent maps, the LN statistics, every partial sum,
 // colsum's scratch, and in a bf16 call the fp32 staging of the parameter gradients.
 struct Plan {
-  int B, H, W, C, F, heads, ch, HW, npix, rm, nchunk, ntap, nrb;
-  size_t mx, my, dln, dy, dout, st2, st1, pdattn, dattn, dgram, dqn2, dkn2, pdtemp, prow, ptap, pw, sum, stage, total;
+  int B, H, W, C, F, heads, ch, HW, npix, rm, nchunk, nrb;
+  int F4, D2;  // F and 2F rounded up to 4 elements: the row strides of Wout's copy and of dd, du
+  size_t wout, mx, my, dln, dy, dout, ln, pdattn, dattn, dgram, dqn2, dkn2, pdtemp, prow, ptap, pw, sum, stage, total;
 };
 
 Plan make_plan(int B, int H, int W, int C, int F, int heads, bool bf16) {
@@ -331,25 +395,26 @@ Plan make_plan(int B, int H, int W, int C, int F, int heads, bool bf16) {
   pl.ch = C / heads;
   pl.HW = H * W;
   pl.npix = B * H * W;
-  pl.rm = pl.npix >= 8192 ? 4 : (pl.npix >= 2048 ? 2 : 1);  // as K6: pixel tiles that fill the card
+  pl.rm = pl.npix >= 8192 ? 4 : (pl.npix >= 2048 ? 2 : 1);  // Q: pixel tiles that fill the card, as K6's
   pl.nchunk = (pl.HW + kChunk - 1) / kChunk;
-  pl.ntap = (pl.HW + kTapPix - 1) / kTapPix;
   pl.nrb = (pl.npix + kRP - 1) / kRP;
   const size_t n = pl.npix;
-  const size_t wide = std::max(2 * (size_t)F, 3 * (size_t)C);
+  pl.F4 = (F + 3) / 4 * 4;
+  pl.D2 = (2 * F + 3) / 4 * 4;
+  const size_t wide = std::max((size_t)pl.D2, 3 * (size_t)C);
   size_t off = 0;
   auto take = [&](size_t floats) {
     const size_t at = off;
     off += (floats + 63) / 64 * 64;  // 256-byte aligned
     return at;
   };
-  pl.mx = take(n * wide);  // dd (2F), then the cotangent of qkv (3C)
-  pl.my = take(n * wide);  // du (2F), then dt (3C)
+  pl.wout = take((size_t)C * pl.F4);  // Wout in rows of F4 (in the I/O type)
+  pl.mx = take(n * wide);  // dd (rows of D2), then the cotangent of qkv (3C)
+  pl.my = take(n * wide);  // dg (F), then du (rows of D2), then dt (3C)
   pl.dln = take(n * C);
   pl.dy = take(n * C);
   pl.dout = take(n * C);
-  pl.st2 = take(2 * n);
-  pl.st1 = take(2 * n);
+  pl.ln = take(n * C);  // LN2(y) n2w (+ n2b), then LN1(x) n1w (+ n1b)
   const size_t cch = (size_t)C * pl.ch;
   pl.pdattn = take((size_t)B * pl.nchunk * cch);
   pl.dattn = take((size_t)B * cch);
@@ -358,20 +423,18 @@ Plan make_plan(int B, int H, int W, int C, int F, int heads, bool bf16) {
   pl.dkn2 = take((size_t)B * C);
   pl.pdtemp = take((size_t)B * heads);
   pl.prow = take((size_t)pl.nrb * 2 * C);
-  pl.ptap = take((size_t)B * pl.ntap * 9 * wide);
-  size_t pw = 0, sum = 0;
+  pl.ptap = take((size_t)B * H * 9 * wide);
+  size_t pw = 0, pb = 0, sum = 0;
   const int shapes[4][2] = {{C, F}, {2 * F, C}, {C, C}, {3 * C, C}};
-  for (const auto& s : shapes) {
-    int len;
-    const int nch = w_chunks(s[0], s[1], pl.npix, &len);
-    pw = std::max(pw, (size_t)nch * s[0] * s[1]);
-    sum = std::max(sum, colsum_scratch(1, nch, s[0] * s[1]));
-  }
+  for (const auto& s : shapes) wgrad_floats(s[0], s[1], pl.npix, &pw, &pb, &sum);
+  // the products G, P share the partials' room (run in turn on one stream)
+  const int prods[4][2] = {{C, F}, {2 * F, C}, {C, C}, {3 * C, C}};  // (K, N)
+  for (const auto& s : prods) product_floats(pl.npix, s[0], s[1], &pw, &sum);
   pl.pw = take(pw);
   sum = std::max(sum, colsum_scratch(B, pl.nchunk, (int)cch));
   sum = std::max(sum, colsum_scratch(1, B, heads));
   sum = std::max(sum, colsum_scratch(1, pl.nrb, C));
-  sum = std::max(sum, colsum_scratch(1, B * pl.ntap, 9 * (int)wide));
+  sum = std::max(sum, colsum_scratch(1, B * H, 9 * (int)wide));
   pl.sum = take(sum);
   long long len[kParams], staged = 0;
   param_lengths(C, F, heads, len);
@@ -399,21 +462,11 @@ struct Inputs {
 #define CHECK_LAUNCH() \
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-// The pixel-space products at RM.
-template <typename T, int RM>
-cudaError_t launch_gate(const Plan& pl, float* ws, const Inputs<T>& in, cudaStream_t stream) {
-  const int smem = gemm_smem_floats(RM) * (int)sizeof(float);
-  k7_gate_kernel<T, RM><<<dim3((pl.HW + 16 * RM - 1) / (16 * RM), (pl.F + kNB - 1) / kNB, pl.B), kThreads, smem,
-                          stream>>>(in.dz, in.wout, in.u, in.wdwf, ws + pl.mx, pl.H, pl.W, pl.C, pl.F);
-  return cudaGetLastError();
-}
-
-template <typename TW, int RM>
-cudaError_t launch_prod(const Plan& pl, const float* a, const TW* w, float* out, int K, int N, cudaStream_t stream) {
-  const int smem = gemm_smem_floats(RM) * (int)sizeof(float);
-  k7_prod_kernel<TW, RM><<<dim3((pl.HW + 16 * RM - 1) / (16 * RM), (N + kNB - 1) / kNB, pl.B), kThreads, smem,
-                           stream>>>(a, w, out, pl.HW, K, N);
-  return cudaGetLastError();
+// out (pixels, N) = a (pixels, K) . W (token_bwd.cuh's product)
+template <typename TA, typename TW>
+cudaError_t prod(const Plan& pl, float* ws, const TA* a, const TW* w, int K, int N, float* out, cudaStream_t stream,
+                 int lda = 0, int ldw = 0) {
+  return product<7>(a, w, pl.npix, K, N, out, ws + pl.pw, ws + pl.sum, stream, lda, ldw);
 }
 
 template <typename T, int RM>
@@ -426,77 +479,72 @@ cudaError_t launch_dqkv(const Plan& pl, float* ws, const Inputs<T>& in, cudaStre
 }
 
 template <typename T>
-cudaError_t gate(const Plan& pl, float* ws, const Inputs<T>& in, cudaStream_t s) {
-  return pl.rm == 4 ? launch_gate<T, 4>(pl, ws, in, s) : pl.rm == 2 ? launch_gate<T, 2>(pl, ws, in, s)
-                                                                    : launch_gate<T, 1>(pl, ws, in, s);
-}
-
-template <typename TW>
-cudaError_t prod(const Plan& pl, const float* a, const TW* w, float* out, int K, int N, cudaStream_t s) {
-  return pl.rm == 4 ? launch_prod<TW, 4>(pl, a, w, out, K, N, s)
-                    : pl.rm == 2 ? launch_prod<TW, 2>(pl, a, w, out, K, N, s) : launch_prod<TW, 1>(pl, a, w, out, K, N, s);
-}
-
-template <typename T>
 cudaError_t dqkv(const Plan& pl, float* ws, const Inputs<T>& in, cudaStream_t s) {
   return pl.rm == 4 ? launch_dqkv<T, 4>(pl, ws, in, s) : pl.rm == 2 ? launch_dqkv<T, 2>(pl, ws, in, s)
                                                                     : launch_dqkv<T, 1>(pl, ws, in, s);
 }
 
-// DW over D channels: din and the tap gradient (3, 3, D).
-template <typename TW>
-cudaError_t dw_bwd(const Plan& pl, float* ws, const float* dout, const float* inp, const TW* w, float* din,
-                   float* dw, int D, cudaStream_t stream) {
-  k7_dw_bwd_kernel<TW><<<dim3(pl.ntap, (D + kThreads - 1) / kThreads, pl.B), kThreads, 0, stream>>>(
-      dout, inp, w, din, ws + pl.ptap, pl.H, pl.W, D);
-  cudaError_t err;
-  CHECK_LAUNCH();
-  return colsum<7>(ws + pl.ptap, 1, pl.B * pl.ntap, 9 * D, 9 * D, dw, ws + pl.sum, stream);
+// The gate's and DW's grid over D channels: tiles of kThreads / kRowC rows x kRowC channels, B.
+dim3 row_grid(const Plan& pl, int D) {
+  constexpr int rows = kThreads / kRowC;
+  return dim3((pl.H + rows - 1) / rows, (D + kRowC - 1) / kRowC, pl.B);
 }
 
-// LN backward: out = res + the backward through LN(v), stats, and the weight and bias gradients
+// DW over D channels: din and the tap gradient (3, 3, D); dout and din rows ldo apart.
+template <typename TW>
+cudaError_t dw_bwd(const Plan& pl, float* ws, const float* dout, const float* inp, const TW* w, float* din,
+                   float* dw, int D, int ldo, cudaStream_t stream) {
+  k7_dw_bwd_kernel<TW><<<row_grid(pl, D), kThreads, 0, stream>>>(
+      dout, inp, w, din, ws + pl.ptap, pl.H, pl.W, D, ldo, D);
+  cudaError_t err;
+  CHECK_LAUNCH();
+  return colsum<7>(ws + pl.ptap, 1, pl.B * pl.H, 9 * D, 9 * D, dw, ws + pl.sum, stream);
+}
+
+// LN backward: out = res + the backward through LN(v), LN(v) w (+ b) into ws + pl.ln,
+// and the weight and bias gradients
 template <typename TV, typename TR, typename TW, typename TO>
-cudaError_t ln_bwd(const Plan& pl, float* ws, const TV* v, const TR* res, const TW* w, TO* out, float* stats,
+cudaError_t ln_bwd(const Plan& pl, float* ws, const TV* v, const TR* res, const TW* w, const TW* b, TO* out,
                    float* dw, float* db, float eps, int ln_bias, cudaStream_t stream) {
   const int C = pl.C;
   ln_bwd_kernel<7, TV, TR, TW, TO><<<pl.nrb, kThreads, 4 * kRP * sizeof(float), stream>>>(
-      v, ws + pl.dln, res, w, out, stats, ws + pl.prow, pl.npix, C, eps, ln_bias);
+      v, ws + pl.dln, res, w, b, out, ws + pl.ln, ws + pl.prow, pl.npix, C, eps, ln_bias);
   cudaError_t err;
   CHECK_LAUNCH();
   CHECK(colsum<7>(ws + pl.prow, 1, pl.nrb, C, 2 * C, dw, ws + pl.sum, stream));
   return colsum<7>(ws + pl.prow + C, 1, pl.nrb, C, 2 * C, db, ws + pl.sum, stream);
 }
 
-// W: out (M, N) = sum over pixels of a (npix, M) x B (npix, N)
-template <bool LN, typename TA, typename TB, typename TL>
-cudaError_t wgrad(const Plan& pl, float* ws, const TA* a, int M, const TB* bm, int N, const float* stats,
-                  const TL* lw, const TL* lb, int ln_bias, float* out, cudaStream_t stream) {
-  int len;
-  const int nch = w_chunks(M, N, pl.npix, &len);
-  wgrad_kernel<7, LN, TA, TB, TL><<<dim3((N + kNB - 1) / kNB, (M + kNB - 1) / kNB, nch), kThreads,
-                                    2 * kKC * kWS * sizeof(float), stream>>>(a, M, bm, N, stats, lw, lb, ln_bias,
-                                                                             ws + pl.pw, pl.npix, M, N, len);
-  cudaError_t err;
-  CHECK_LAUNCH();
-  return colsum<7>(ws + pl.pw, 1, nch, M * N, M * N, out, ws + pl.sum, stream);
+// W: out (M, N) = sum over pixels of a (npix, M) x b (npix, N)
+template <typename TA, typename TB>
+cudaError_t weight_grad(const Plan& pl, float* ws, const TA* a, int M, const TB* b, int N, float* out,
+                        cudaStream_t stream, int lda = 0) {
+  return wgrad<7>(a, M, b, N, pl.npix, ws + pl.pw, nullptr, ws + pl.sum, out, nullptr, stream, lda);
 }
 
 template <typename T>
 int mdta_block_bwd(const Inputs<T>& in, const Grads<T>& gr, float* ws, const Plan& pl, int use_softmax, int ln_bias,
                    float eps, cudaStream_t stream) {
   const int B = pl.B, C = pl.C, F = pl.F, heads = pl.heads, ch = pl.ch;
-  const T* none = nullptr;
+  // mx holds dd, then the cotangent of qkv; my dg, then du, then dt
+  const float *mx = ws + pl.mx, *my = ws + pl.my, *dy = ws + pl.dy, *ln = ws + pl.ln;
   cudaError_t err;
   // B1: the GDFN backward
-  CHECK(gate(pl, ws, in, stream));
-  CHECK(wgrad<false>(pl, ws, in.dz, C, in.g, F, nullptr, none, none, 0, gr.dwout, stream));
-  CHECK(dw_bwd(pl, ws, ws + pl.mx, in.u, in.wdwf, ws + pl.my, gr.dwdwf, 2 * F, stream));
-  CHECK(prod(pl, ws + pl.my, in.win, ws + pl.dln, 2 * F, C, stream));
-  CHECK(ln_bwd(pl, ws, in.y, in.dz, in.n2w, ws + pl.dy, ws + pl.st2, gr.dn2w, gr.dn2b, eps, ln_bias, stream));
-  CHECK(wgrad<true>(pl, ws, ws + pl.my, 2 * F, in.y, C, ws + pl.st2, in.n2w, in.n2b, ln_bias, gr.dwin, stream));
+  T* wout = reinterpret_cast<T*>(ws + pl.wout);
+  k7_pad_kernel<T><<<(C * pl.F4 + kThreads - 1) / kThreads, kThreads, 0, stream>>>(in.wout, wout, C, F, pl.F4);
+  CHECK_LAUNCH();
+  CHECK(prod(pl, ws, in.dz, static_cast<const T*>(wout), C, F, ws + pl.my, stream, 0, pl.F4));  // dg, in du's place
+  k7_gate_bwd_kernel<T><<<row_grid(pl, F), kThreads, 0, stream>>>(
+      my, in.u, in.wdwf, ws + pl.mx, pl.H, pl.W, F, pl.D2);
+  CHECK_LAUNCH();
+  CHECK(weight_grad(pl, ws, in.dz, C, in.g, F, gr.dwout, stream));
+  CHECK(dw_bwd(pl, ws, mx, in.u, in.wdwf, ws + pl.my, gr.dwdwf, 2 * F, pl.D2, stream));
+  CHECK(prod(pl, ws, my, in.win, 2 * F, C, ws + pl.dln, stream, pl.D2));
+  CHECK(ln_bwd(pl, ws, in.y, in.dz, in.n2w, in.n2b, ws + pl.dy, gr.dn2w, gr.dn2b, eps, ln_bias, stream));
+  CHECK(weight_grad(pl, ws, my, 2 * F, ln, C, gr.dwin, stream, pl.D2));
   // B1: the attention application's backward
-  CHECK(prod(pl, ws + pl.dy, in.wproj, ws + pl.dout, C, C, stream));
-  CHECK(wgrad<false>(pl, ws, ws + pl.dy, C, in.o, C, nullptr, none, none, 0, gr.dwproj, stream));
+  CHECK(prod(pl, ws, dy, in.wproj, C, C, ws + pl.dout, stream));
+  CHECK(weight_grad(pl, ws, dy, C, in.o, C, gr.dwproj, stream));
   const int tiles = (ch + kNB - 1) / kNB;
   k7_dattn_kernel<<<dim3(pl.nchunk, heads * tiles * tiles, B), kThreads, 2 * kKC * kWS * sizeof(float), stream>>>(
       ws + pl.dout, in.qkv, ws + pl.pdattn, pl.HW, C, ch);
@@ -510,11 +558,10 @@ int mdta_block_bwd(const Inputs<T>& in, const Grads<T>& gr, float* ws, const Pla
   CHECK(colsum<7>(ws + pl.pdtemp, 1, B, heads, heads, gr.dtemp, ws + pl.sum, stream));
   // B2: the qkv prefix's backward
   CHECK(dqkv(pl, ws, in, stream));
-  CHECK(dw_bwd(pl, ws, ws + pl.mx, in.t, in.wdwq, ws + pl.my, gr.dwdwq, 3 * C, stream));
-  CHECK(prod(pl, ws + pl.my, in.wqkv, ws + pl.dln, 3 * C, C, stream));
-  CHECK(ln_bwd(pl, ws, in.x, static_cast<const float*>(ws + pl.dy), in.n1w, gr.dx, ws + pl.st1, gr.dn1w, gr.dn1b,
-               eps, ln_bias, stream));
-  CHECK(wgrad<true>(pl, ws, ws + pl.my, 3 * C, in.x, C, ws + pl.st1, in.n1w, in.n1b, ln_bias, gr.dwqkv, stream));
+  CHECK(dw_bwd(pl, ws, mx, in.t, in.wdwq, ws + pl.my, gr.dwdwq, 3 * C, 3 * C, stream));
+  CHECK(prod(pl, ws, my, in.wqkv, 3 * C, C, ws + pl.dln, stream));
+  CHECK(ln_bwd(pl, ws, in.x, dy, in.n1w, in.n1b, gr.dx, gr.dn1w, gr.dn1b, eps, ln_bias, stream));
+  CHECK(weight_grad(pl, ws, my, 3 * C, ln, C, gr.dwqkv, stream));
   return cudaSuccess;
 }
 

@@ -15,15 +15,18 @@
 // forward's 6 C^2 multiply-adds per pixel on the SIMT pipes.  So nothing of the
 // forward is recomputed except the per-pixel LayerNorm statistics.
 //
-// Passes, on PyTorch's current stream (each a grid of pixel tiles x 64 output
-// columns x batch, unless it says otherwise):
-//   F1  dh = [dhg * h2, dhg * h1], dhg = (dz * gamma) . W5          (K = C)
+// Passes, on PyTorch's current stream:
+//   F1  dhg = (dz * gamma) . W5 = dz . W5s, W5s = W5 with row o times gamma[o]
+//       (a C x C copy, fp32); then per element dh = [dhg * h2, dhg * h1] and
+//       the two operands of dW5, hg = h1 * h2 and dzg = dz * gamma    (K = C)
 //   F2  dln2 = dh . W4                                               (K = 2C)
 //   R2  per pixel: the LN2 backward -> dy, du = dy * beta; per-block partial
-//       column sums of dn2w, dn2b, dgamma (dz * o) and dbeta (dy * u)
-//   A   da = du . W3; dg = da * att; per-tile partials of datt = sum da * g
-//   S   datt (partials summed in tile order) -> dgk = datt . Wsca / (H W),
-//       dWsca, dbsca: the SCA's global coupling, a (B, C) x (C, C) product
+//       column sums of dn2w, dn2b, dgamma (dz * o) and dbeta (dy * u); the
+//       operand of dW4, LN2(y) * n2w + n2b
+//   A   da = du . W3; then per element dg = da * att and the operands da * g
+//       (datt's, summed over each image's pixels by colsum) and g * att (dW3's)
+//   S   datt -> dgk = datt . Wsca / (H W), dWsca, dbsca: the SCA's global
+//       coupling, a (B, C) x (C, C) product
 //   D   per 8 x 8 pixel tile x 64 gate pairs: t on the halo-2 window,
 //       the depthwise output on halo 1 and ddw = [dg * dwm2, dg * dwm1]
 //       (dg = local + dgk), then on the tile dt (the transposed stencil) and
@@ -31,21 +34,31 @@
 //       and ddw = 0, as the forward's zero padding of t implies; ragged tiles
 //       are masked, so 1 x 1 maps work.
 //   L1  dln1 = dt . W1                                               (K = 2C)
-//   R1  per pixel: the LN1 backward -> dx = dy + ...; partials of dn1w, dn1b
-//   W   dW5, dW4, dW3, dW1 and their biases, products over the pixel axis:
-//       64 x 64 output tiles x chunks of pixels, one partial per chunk.
+//   R1  per pixel: the LN1 backward -> dx = dy + ...; partials of dn1w,
+//       dn1b; the operand of dW1, LN1(x) * n1w + n1b
+//   W   dW5, dW4, dW3, dW1 and their biases, products over the pixel axis
+//       cut into chunks of pixels, one partial per chunk.
+// F1, F2, A, L1 and the four W run on the tensor cores (token_bwd.cuh's
+// product and wgrad over tc_gemm.cuh; a product of the deep stages' few pixels
+// cut along its depth): 96 x 96 tiles of mma.sync m16n8k8 TF32 with fp32 sums,
+// three products a step for two fp32 operands (3xTF32, fp32 accuracy), two
+// for an fp32 map and a bf16 one, each 32-deep chunk summed from zero and
+// added to the running sum by one rounded add.  tc_gemm.cuh stages only
+// operands in memory, so gamma is folded into W5s and the other formed
+// operands are written once by a pass that already reads the pixel.
 // The TPU kernel accumulates every weight gradient in VMEM across its
 // sequential grid; on the card blocks run in no order, so every sum over
 // pixels is written as partials and added by colsum in a fixed order (no
 // atomics): the result is the same bit for bit from run to run.
 //
 // What bounds it on this card: 12 C^2 multiply-adds per pixel (6 C^2 into
-// pixel space, 6 C^2 of weight gradients), i.e. arithmetic from C = 64 up, run
-// on the SIMT fp32 pipes from shared memory with gemm.cuh's product, whose
-// ceiling is shared-memory bandwidth.  The weight-gradient products split the
-// pixel axis into chunks so that deep stages (few pixels, large C x 2C
-// outputs) and shallow ones (many pixels, small outputs) both fill the card.
-// wgmma/TMA tiles are the next step.
+// pixel space, 6 C^2 of weight gradients), over 99 % of the flops from C = 64
+// up, on the tensor cores at 495 / 3 TFLOP/s for 3xTF32 (operations); at
+// NAFNet-w64's first stage (C = 64) the maps' traffic (about 40 C floats a
+// pixel) comes close.  The weight gradients split the pixel axis into chunks
+// so that deep stages (few pixels, large C x 2C outputs) and shallow ones
+// (many pixels, small outputs) both fill the card.  wgmma/TMA tiles are the
+// next step.
 //
 // Weights come in PyTorch's layout (every 1x1 as (out, in), the depthwise 3x3 as
 // (2C, 3, 3)); the gradients of the 1x1 weights are written in that layout, the
@@ -61,117 +74,77 @@
 #include <algorithm>
 
 #include "common.cuh"
-#include "gemm.cuh"
+#include "tc_gemm.cuh"
+#include "token_bwd.cuh"
 
 namespace {
 
-constexpr int kCC = 64;                  // D: gate channels per block (paired with C + j)
+constexpr int kCC = 64;                  // D: gate channels per block (paired with C + j); S: columns a block
 constexpr int kDT = 8;                   // D: output tile side
 constexpr int kDH1 = kDT + 2;            // D: halo-1 window side (ddw)
 constexpr int kDH2 = kDT + 4;            // D: halo-2 window side (t)
 constexpr int kDP1 = kDH1 * kDH1;
 constexpr int kDP2 = kDH2 * kDH2;
-constexpr int kRP = 32;                  // R1 / R2: pixels of a block
-constexpr int kWBlocks = 2 * 132;        // W: blocks to aim for (two per SM)
 
-// The pixel-space products share one grid: (pixel tiles of 16 * RM, N / kNB column blocks, B).
-#define PIX_PROLOGUE                                                \
-  constexpr int P = 16 * RM;                                        \
-  extern __shared__ float smem[];                                   \
-  const int b = blockIdx.z, p0 = blockIdx.x * P, n0 = blockIdx.y * kNB; \
-  const int np = min(P, HW - p0);                                   \
-  const size_t pix0 = (size_t)b * HW + p0;                          \
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;           \
-  float acc[RM][4], acc2[RM][4];
-
-// F1: dhg = (dz * gamma) . w5 (w5 (C, C) read transposed), dh = [dhg * h2, dhg * h1]
-template <typename T, int RM>
+// W5s[o][i] = gamma[o] * W5[o][i] (C x C, fp32): F1's weight
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-bwd_f1_kernel(const T* __restrict__ dz, const T* __restrict__ gamma, const T* __restrict__ w5,
-              const float* __restrict__ h, float* __restrict__ dh, int HW, int C) {
-  PIX_PROLOGUE
-  gemm_block<RM, false, true>(smem, w5, C, C, n0, 0, [&](int p, int k) {
-    return p < np ? ld(dz[(pix0 + p) * C + k]) * ld(gamma[k]) : 0.f;
-  }, acc, acc2);
-#pragma unroll
-  for (int r = 0; r < RM; ++r)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int p = ty + 16 * r, n = n0 + tx + 16 * i;
-      if (p < np) {
-        const size_t q = (pix0 + p) * 2 * C;
-        dh[q + n] = acc[r][i] * h[q + C + n];
-        dh[q + C + n] = acc[r][i] * h[q + n];
-      }
-    }
+bwd_scale_kernel(const T* __restrict__ w5, const T* __restrict__ gamma, float* __restrict__ w5s, int C) {
+  const size_t idx = (size_t)blockIdx.x * kThreads + threadIdx.x;
+  if (idx < (size_t)C * C) w5s[idx] = ld(gamma[idx / C]) * ld(w5[idx]);
 }
 
-// F2 and L1: out (B*HW, N) = a (B*HW, K) . w, w (K, N) read transposed
-template <typename T, int RM>
+// F1's gate pair, per element (p, n < C) of dhg (pixels, C): dh (pixels, 2C) =
+// [dhg * h2, dhg * h1]; hg = h1 * h2 and dzg = dz * gamma (pixels, C), dW5's operands.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-bwd_prod_kernel(const float* __restrict__ a, const T* __restrict__ w, float* __restrict__ out, int HW, int K,
-                int N) {
-  PIX_PROLOGUE
-  gemm_block<RM, false, true>(smem, w, K, N, n0, 0, [&](int p, int k) {
-    return p < np ? a[(pix0 + p) * K + k] : 0.f;
-  }, acc, acc2);
-#pragma unroll
-  for (int r = 0; r < RM; ++r)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int p = ty + 16 * r, n = n0 + tx + 16 * i;
-      if (p < np) out[(pix0 + p) * N + n] = acc[r][i];
-    }
+bwd_f1_gate_kernel(const float* __restrict__ dhg, const float* __restrict__ h, const T* __restrict__ dz,
+                   const T* __restrict__ gamma, float* __restrict__ dh, float* __restrict__ hg,
+                   float* __restrict__ dzg, int C, long long total) {
+  const long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (e >= total) return;
+  const long long p = e / C;
+  const int n = (int)(e % C);
+  const size_t q = (size_t)p * 2 * C;
+  const float v = dhg[e], h1 = h[q + n], h2 = h[q + C + n];
+  dh[q + n] = v * h2;
+  dh[q + C + n] = v * h1;
+  hg[e] = h1 * h2;
+  dzg[e] = ld(dz[e]) * ld(gamma[n]);
 }
 
-// A: da = du . w3 (w3 (C, C) read transposed); dg = da * att; part (B, tiles, C)
-// gets the tile's sum of da * g for datt.
-template <typename T, int RM>
+// A's scaling, per element (p, n < C) of da (pixels, C): dg = da * att, dag =
+// da * g (datt's terms) and ga = g * att (dW3's operand), att per image.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-bwd_a_kernel(const float* __restrict__ du, const T* __restrict__ w3, const float* __restrict__ att,
-             const T* __restrict__ g, float* __restrict__ dg, float* __restrict__ part, int HW, int C) {
-  PIX_PROLOGUE
-  gemm_block<RM, false, true>(smem, w3, C, C, n0, 0, [&](int p, int k) {
-    return p < np ? du[(pix0 + p) * C + k] : 0.f;
-  }, acc, acc2);
-  const float* ab = att + (size_t)b * C;
-  float s[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-  for (int r = 0; r < RM; ++r)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int p = ty + 16 * r, n = n0 + tx + 16 * i;
-      if (p < np) {
-        const size_t q = (pix0 + p) * C + n;
-        dg[q] = acc[r][i] * ab[n];
-        s[i] = fmaf(acc[r][i], ld(g[q]), s[i]);
-      }
-    }
-  __syncthreads();  // the product is done with its buffers
-#pragma unroll
-  for (int i = 0; i < 4; ++i) smem[ty * kNB + tx + 16 * i] = s[i];
-  __syncthreads();
-  if (threadIdx.x < kNB) {
-    float t = 0.f;
-    for (int k = 0; k < kThreads / 16; ++k) t += smem[k * kNB + threadIdx.x];
-    part[((size_t)b * gridDim.x + blockIdx.x) * C + n0 + threadIdx.x] = t;
-  }
+bwd_a_scale_kernel(const float* __restrict__ da, const float* __restrict__ att, const T* __restrict__ g,
+                   float* __restrict__ dg, float* __restrict__ dag, float* __restrict__ ga, int HW, int C,
+                   long long total) {
+  const long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (e >= total) return;
+  const int n = (int)(e % C);
+  const float a = att[(size_t)(e / C / HW) * C + n], gv = ld(g[e]), v = da[e];
+  dg[e] = v * a;
+  dag[e] = v * gv;
+  ga[e] = gv * a;
 }
 
 // R2 (SECOND) and R1: the LayerNorm backward of one pixel per warp, then per column.
 //   v: the normalised map's input (y for R2, x for R1); dln: cotangent of the
 //   affine output; res: the residual cotangent (dz for R2, dy for R1).
 //   out = res + rs * (dln*w - mean(dln*w) - vh * mean(dln*w*vh)), vh = (v - mu) * rs.
-//   R2 also writes du = out * beta.  stats (pixels, 2) gets mu and rs for the
-//   weight-gradient pass.  part (blocks, 2C or 4C): column sums over the block's
+//   R2 also writes du = out * beta.  lnout gets the LayerNorm's output
+//   vh * w + b, the operand of the weight gradient that follows.  part
+//   (blocks, 2C or 4C): column sums over the block's
 //   pixels of dln * vh, dln (and for R2, dz * o and out * u).  TV, TR and TO are
 //   the types of v, res and out (fp32 or the I/O type), T the parameters'.
 template <bool SECOND, typename TV, typename TR, typename T, typename TO>
 __global__ void __launch_bounds__(kThreads)
 bwd_ln_kernel(const TV* __restrict__ v, const float* __restrict__ dln, const TR* __restrict__ res,
-              const T* __restrict__ w, const T* __restrict__ beta, const float* __restrict__ o,
-              const float* __restrict__ u, TO* __restrict__ out, float* __restrict__ du,
-              float* __restrict__ stats, float* __restrict__ part, int npix, int C, float eps) {
+              const T* __restrict__ w, const T* __restrict__ b, const T* __restrict__ beta,
+              const float* __restrict__ o, const float* __restrict__ u, TO* __restrict__ out,
+              float* __restrict__ du, float* __restrict__ lnout, float* __restrict__ part, int npix, int C,
+              float eps) {
   extern __shared__ float smem[];  // 4 x kRP: mean, 1/sigma and the two means of the backward
   float *sMu = smem, *sRs = smem + kRP, *sM1 = smem + 2 * kRP, *sM2 = smem + 3 * kRP;
   const int p0 = blockIdx.x * kRP, np = min(kRP, npix - p0);
@@ -201,15 +174,13 @@ bwd_ln_kernel(const TV* __restrict__ v, const float* __restrict__ dln, const TR*
       sRs[p] = rs;
       sM1[p] = m1;
       sM2[p] = m2;
-      stats[2 * (size_t)(p0 + p)] = mu;
-      stats[2 * (size_t)(p0 + p) + 1] = rs;
     }
   }
   __syncthreads();
   constexpr int kParts = SECOND ? 4 : 2;
   float* pr = part + (size_t)blockIdx.x * kParts * C;
   for (int c = threadIdx.x; c < C; c += kThreads) {
-    const float wc = ld(w[c]), bc = SECOND ? ld(beta[c]) : 0.f;
+    const float wc = ld(w[c]), lb = ld(b[c]), bc = SECOND ? ld(beta[c]) : 0.f;
     float sw = 0.f, sb = 0.f, sg = 0.f, sbeta = 0.f;
     for (int p = 0; p < np; ++p) {
       const size_t q = (size_t)(p0 + p) * C + c;
@@ -218,6 +189,7 @@ bwd_ln_kernel(const TV* __restrict__ v, const float* __restrict__ dln, const TR*
       const float rv = ld(res[q]);
       const float ov = rv + sRs[p] * (d * wc - sM1[p] - vh * sM2[p]);
       out[q] = st<TO>(ov);
+      lnout[q] = vh * wc + lb;
       sw = fmaf(d, vh, sw);
       sb += d;
       if (SECOND) {
@@ -235,20 +207,20 @@ bwd_ln_kernel(const TV* __restrict__ v, const float* __restrict__ dln, const TR*
   }
 }
 
-// S: dgk[b][i] = sum_o datt[b][o] * wsca[o][i] / (H W); grid (C / kNB, B)
+// S: dgk[b][i] = sum_o datt[b][o] * wsca[o][i] / (H W); grid (C / kCC, B)
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 bwd_sca_kernel(const float* __restrict__ datt, const T* __restrict__ wsca, float* __restrict__ dgk, int C,
                float hw) {
   extern __shared__ float sP[];  // kThreads partial sums
-  const int b = blockIdx.y, i = blockIdx.x * kNB + (threadIdx.x & (kNB - 1)), grp = threadIdx.x / kNB;
+  const int b = blockIdx.y, i = blockIdx.x * kCC + (threadIdx.x & (kCC - 1)), grp = threadIdx.x / kCC;
   float s = 0.f;
-  for (int o = grp; o < C; o += kThreads / kNB) s = fmaf(datt[(size_t)b * C + o], ld(wsca[(size_t)o * C + i]), s);
+  for (int o = grp; o < C; o += kThreads / kCC) s = fmaf(datt[(size_t)b * C + o], ld(wsca[(size_t)o * C + i]), s);
   sP[threadIdx.x] = s;
   __syncthreads();
-  if (threadIdx.x < kNB) {
+  if (threadIdx.x < kCC) {
     float t = 0.f;
-    for (int k = 0; k < kThreads / kNB; ++k) t += sP[k * kNB + threadIdx.x];
+    for (int k = 0; k < kThreads / kCC; ++k) t += sP[k * kCC + threadIdx.x];
     dgk[(size_t)b * C + i] = t / hw;
   }
 }
@@ -380,83 +352,13 @@ bwd_d_kernel(const float* __restrict__ t, const float* __restrict__ dg, const fl
   }
 }
 
-// W: part[chunk][m][n] = sum over the chunk's pixels p of A(p, m) * B(p, n),
-// part_bias[chunk][m] = sum of A(p, m).  grid (N / kNB, M / kNB, chunks).
-//   MODE 5: A = dz * gamma (M = C),  B = h1 * h2 (N = C)         -> dW5, db5
-//   MODE 4: A = dh (M = 2C),         B = LN2(y) * n2w + n2b      -> dW4, db4
-//   MODE 3: A = du (M = C),          B = g * att                 -> dW3, db3
-//   MODE 1: A = dt (M = 2C),         B = LN1(x) * n1w + n1b      -> dW1, db1
-// TA, TB and TV are the types of a, bm and v0 / v1 (fp32 or the I/O type).
-template <int MODE, typename TA, typename TB, typename TV>
-__global__ void __launch_bounds__(kThreads)
-bwd_w_kernel(const TA* __restrict__ a, const TB* __restrict__ bm, const float* __restrict__ stats,
-             const TV* __restrict__ v0, const TV* __restrict__ v1, float* __restrict__ part,
-             float* __restrict__ part_bias, int npix, int HW, int C, int M, int N, int L) {
-  extern __shared__ float smem[];
-  float* sA = smem;
-  float* sB = smem + kKC * kWS;
-  const int n0 = blockIdx.x * kNB, m0 = blockIdx.y * kNB, chunk = blockIdx.z;
-  const int pbeg = chunk * L, pend = min(npix, pbeg + L);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  auto load_a = [&](int p, int m) {
-    if (MODE == 5) return ld(a[(size_t)p * C + m]) * ld(v0[m]);
-    if (MODE == 3) return ld(a[(size_t)p * C + m]);
-    return ld(a[(size_t)p * 2 * C + m]);
-  };
-  auto load_b = [&](int p, int n) {
-    if (MODE == 5) return ld(bm[(size_t)p * 2 * C + n]) * ld(bm[(size_t)p * 2 * C + C + n]);
-    if (MODE == 3) return ld(bm[(size_t)p * C + n]) * ld(v0[(size_t)(p / HW) * C + n]);
-    return (ld(bm[(size_t)p * C + n]) - stats[2 * (size_t)p]) * stats[2 * (size_t)p + 1] * ld(v0[n]) + ld(v1[n]);
-  };
-  float acc[4][4], acc2[4][4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[r][i] = 0.f;
-  float bsum = 0.f;
-  for (int q0 = pbeg; q0 < pend; q0 += kKC) {
-    __syncthreads();
-    // lanes run along m and n: coalesced reads, consecutive stores
-    for (int idx = threadIdx.x; idx < kKC * kNB; idx += kThreads) {
-      const int kk = idx / kNB, e = idx % kNB, p = q0 + kk;
-      const bool in = p < pend;
-      sA[kk * kWS + e] = in ? load_a(p, m0 + e) : 0.f;
-      sB[kk * kWS + e] = in ? load_b(p, n0 + e) : 0.f;
-    }
-    __syncthreads();
-    if (blockIdx.x == 0 && threadIdx.x < kNB)
-      for (int kk = 0; kk < kKC; ++kk) bsum += sA[kk * kWS + threadIdx.x];
-    mma_chunk<4, false>(sA, kWS, sB, sB, acc, acc2);
-  }
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      part[((size_t)chunk * M + m0 + ty + 16 * r) * N + n0 + tx + 16 * i] = acc[r][i];
-  if (blockIdx.x == 0 && threadIdx.x < kNB) part_bias[(size_t)chunk * M + m0 + threadIdx.x] = bsum;
-}
-
-// Pixel chunks of a weight-gradient product with an M x N output: enough
-// blocks to fill the card, chunks a multiple of kKC pixels.  Returns the chunk
-// count and sets *len.
-int w_chunks(int M, int N, int npix, int* len) {
-  const int tiles = (M / kNB) * (N / kNB);
-  const int max_chunks = (npix + kKC - 1) / kKC;
-  int n = (kWBlocks + tiles - 1) / tiles;
-  n = n < 1 ? 1 : (n > max_chunks ? max_chunks : n);
-  int l = (npix + n - 1) / n;
-  l = (l + kKC - 1) / kKC * kKC;
-  *len = l;
-  return (npix + l - 1) / l;
-}
-
 // The workspace: every intermediate map, the partial sums and colsum's scratch.
 // The 18 parameter gradients' floats: 7 C^2 + 33 C.
 inline size_t param_floats(int C) { return 7 * (size_t)C * C + 33 * (size_t)C; }
 
 struct Plan {
-  int B, H, W, C, HW, npix, rm, ntp, ntx, ntd, nrb;
-  size_t dh, dln, dy, du, dg, dt, st2, st1, pdatt, datt, dgk, prow, pd, pw, pwb, sum, stage, total;
+  int B, H, W, C, HW, npix, ntx, ntd, nrb;
+  size_t w5s, dh, dln, dy, du, dg, dt, m1, m2, ln, datt, dgk, prow, pd, pw, pwb, sum, stage, total;
 };
 
 // stage: room for the parameter gradients in fp32 (a bf16 call casts them at the end)
@@ -465,8 +367,6 @@ Plan make_plan(int B, int H, int W, int C, bool stage) {
   pl.B = B; pl.H = H; pl.W = W; pl.C = C;
   pl.HW = H * W;
   pl.npix = B * H * W;
-  pl.rm = pl.npix >= 4096 ? 2 : 1;  // 32-pixel tiles where the map fills the card, else 16
-  pl.ntp = (pl.HW + 16 * pl.rm - 1) / (16 * pl.rm);
   pl.ntx = (W + kDT - 1) / kDT;
   pl.ntd = pl.ntx * ((H + kDT - 1) / kDT);
   pl.nrb = (pl.npix + kRP - 1) / kRP;
@@ -477,30 +377,28 @@ Plan make_plan(int B, int H, int W, int C, bool stage) {
     off += (floats + 63) / 64 * 64;  // 256-byte aligned
     return at;
   };
+  pl.w5s = take((size_t)C * C);
   pl.dh = take(n * 2 * C);
-  pl.dln = take(n * C);
+  pl.dln = take(n * C);  // dln2, then A's da * g, then dln1
   pl.dy = take(n * C);
   pl.du = take(n * C);
   pl.dg = take(n * C);
   pl.dt = take(n * 2 * C);
-  pl.st2 = take(2 * n);
-  pl.st1 = take(2 * n);
-  pl.pdatt = take((size_t)B * pl.ntp * C);
+  pl.m1 = take(n * C);  // hg, then ga
+  pl.m2 = take(n * C);  // dzg
+  pl.ln = take(n * C);  // dhg, then LN2(y) n2w + n2b, then da, then LN1(x) n1w + n1b
   pl.datt = take((size_t)B * C);
   pl.dgk = take((size_t)B * C);
   pl.prow = take((size_t)pl.nrb * 4 * C);
   pl.pd = take((size_t)B * pl.ntd * 20 * C);
   size_t pw = 0, pwb = 0, sum = 0;
   for (int m = 1; m <= 2; ++m) {
-    int len;
-    const int nch = w_chunks(m * C, C, pl.npix, &len);
-    pw = std::max(pw, (size_t)nch * m * C * C);
-    pwb = std::max(pwb, (size_t)nch * m * C);
-    sum = std::max(sum, colsum_scratch(1, nch, m * C * C));
+    wgrad_floats(m * C, C, pl.npix, &pw, &pwb, &sum);
+    product_floats(pl.npix, m * C, C, &pw, &sum);  // F1, A (K = C); F2, L1 (K = 2C): the partials' room shared
   }
   pl.pw = take(pw);
   pl.pwb = take(pwb);
-  sum = std::max(sum, colsum_scratch(B, pl.ntp, C));
+  sum = std::max(sum, colsum_scratch(B, pl.HW, C));
   sum = std::max(sum, colsum_scratch(1, pl.nrb, C));
   sum = std::max(sum, colsum_scratch(1, B * pl.ntd, 18 * C));
   pl.sum = take(sum);
@@ -509,47 +407,17 @@ Plan make_plan(int B, int H, int W, int C, bool stage) {
   return pl;
 }
 
-template <typename T, int RM>
-cudaError_t launch_pixel_passes_1(const Plan& pl, float* ws, const T* dz, const T* gamma, const T* w5,
-                                  const float* h, const T* w4, cudaStream_t stream) {
-  const int C = pl.C, smem = gemm_smem_floats(RM) * (int)sizeof(float);
-  const dim3 grid(pl.ntp, C / kNB, pl.B);
-  bwd_f1_kernel<T, RM><<<grid, kThreads, smem, stream>>>(dz, gamma, w5, h, ws + pl.dh, pl.HW, C);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  bwd_prod_kernel<T, RM><<<grid, kThreads, smem, stream>>>(ws + pl.dh, w4, ws + pl.dln, pl.HW, 2 * C, C);
-  return cudaGetLastError();
+// out (pixels, N) = a (pixels, K) . W (token_bwd.cuh's product)
+template <typename TA, typename TW>
+cudaError_t prod(const Plan& pl, float* ws, const TA* a, const TW* w, int K, int N, float* out, cudaStream_t stream) {
+  return product<2>(a, w, pl.npix, K, N, out, ws + pl.pw, ws + pl.sum, stream);
 }
 
-template <typename T, int RM>
-cudaError_t launch_a(const Plan& pl, float* ws, const T* w3, const float* att, const T* g, cudaStream_t stream) {
-  const int smem = gemm_smem_floats(RM) * (int)sizeof(float);
-  bwd_a_kernel<T, RM><<<dim3(pl.ntp, pl.C / kNB, pl.B), kThreads, smem, stream>>>(
-      ws + pl.du, w3, att, g, ws + pl.dg, ws + pl.pdatt, pl.HW, pl.C);
-  return cudaGetLastError();
-}
-
-template <typename T, int RM>
-cudaError_t launch_l1(const Plan& pl, float* ws, const T* w1, cudaStream_t stream) {
-  const int smem = gemm_smem_floats(RM) * (int)sizeof(float);
-  bwd_prod_kernel<T, RM><<<dim3(pl.ntp, pl.C / kNB, pl.B), kThreads, smem, stream>>>(
-      ws + pl.dt, w1, ws + pl.dln, pl.HW, 2 * pl.C, pl.C);
-  return cudaGetLastError();
-}
-
-template <int MODE, typename TA, typename TB, typename TV>
-cudaError_t launch_w(const Plan& pl, float* ws, const TA* a, const TB* bm, const float* stats,
-                     const TV* v0, const TV* v1, float* dw, float* dbias, cudaStream_t stream) {
-  const int C = pl.C, M = (MODE == 4 || MODE == 1) ? 2 * C : C, N = C;
-  int len;
-  const int nch = w_chunks(M, N, pl.npix, &len);
-  const int smem = 2 * kKC * kWS * (int)sizeof(float);
-  bwd_w_kernel<MODE, TA, TB, TV><<<dim3(N / kNB, M / kNB, nch), kThreads, smem, stream>>>(
-      a, bm, stats, v0, v1, ws + pl.pw, ws + pl.pwb, pl.npix, pl.HW, C, M, N, len);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  if ((err = colsum<2>(ws + pl.pw, 1, nch, M * N, M * N, dw, ws + pl.sum, stream)) != cudaSuccess) return err;
-  return colsum<2>(ws + pl.pwb, 1, nch, M, M, dbias, ws + pl.sum, stream);
+// W: dw (M, N) = sum over pixels of a (pixels, M) x b (pixels, N), dbias (M,) the sums of a
+template <typename TA, typename TB>
+cudaError_t weight_grad(const Plan& pl, float* ws, const TA* a, int M, const TB* b, int N, float* dw, float* dbias,
+                        cudaStream_t stream) {
+  return wgrad<2>(a, M, b, N, pl.npix, ws + pl.pw, ws + pl.pwb, ws + pl.sum, dw, dbias, stream);
 }
 
 // The 18 parameter gradients in fp32: the caller's buffers in an fp32 call, the
@@ -582,24 +450,37 @@ int naf_block_bwd(const T* x, const T* dz, const T* n1w, const T* n1b, const T* 
 #define CHECK_LAUNCH()                                       \
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  // F1, F2: dh, dln2
-  CHECK((pl.rm == 2 ? launch_pixel_passes_1<T, 2>(pl, ws, dz, gamma, w5, h, w4, stream)
-                    : launch_pixel_passes_1<T, 1>(pl, ws, dz, gamma, w5, h, w4, stream)));
-  // R2: dy, du, and dn2w, dn2b, dgamma, dbeta
+  const float *dh = ws + pl.dh, *dy = ws + pl.dy, *du = ws + pl.du, *dt = ws + pl.dt;
+  const float *m1 = ws + pl.m1, *m2 = ws + pl.m2, *ln = ws + pl.ln;
+  // F1, F2: dh (and dW5's operands), dln2
+  bwd_scale_kernel<T><<<(unsigned)(((size_t)C * C + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
+      w5, gamma, ws + pl.w5s, C);
+  CHECK_LAUNCH();
+  const long long elems = (long long)pl.npix * C;
+  const unsigned eblocks = (unsigned)((elems + kThreads - 1) / kThreads);
+  CHECK(prod(pl, ws, dz, static_cast<const float*>(ws + pl.w5s), C, C, ws + pl.ln, stream));  // dhg
+  bwd_f1_gate_kernel<T><<<eblocks, kThreads, 0, stream>>>(ln, h, dz, gamma, ws + pl.dh, ws + pl.m1, ws + pl.m2, C,
+                                                          elems);
+  CHECK_LAUNCH();
+  CHECK(prod(pl, ws, dh, w4, 2 * C, C, ws + pl.dln, stream));
+  // R2: dy, du, LN2's output, and dn2w, dn2b, dgamma, dbeta
   bwd_ln_kernel<true, float, T, T, float><<<pl.nrb, kThreads, smem_ln, stream>>>(
-      y, ws + pl.dln, dz, n2w, beta, o, u, ws + pl.dy, ws + pl.du, ws + pl.st2, ws + pl.prow, pl.npix, C, eps);
+      y, ws + pl.dln, dz, n2w, n2b, beta, o, u, ws + pl.dy, ws + pl.du, ws + pl.ln, ws + pl.prow, pl.npix, C, eps);
   CHECK_LAUNCH();
   float* row_out[4] = {gr.dn2w, gr.dn2b, gr.dgamma, gr.dbeta};
   for (int k = 0; k < 4; ++k) CHECK(colsum<2>(ws + pl.prow + (size_t)k * C, 1, pl.nrb, C, 4 * C, row_out[k], sum, stream));
   // W: dW5, dW4
-  CHECK((launch_w<5, T, float, T>(pl, ws, dz, h, nullptr, gamma, nullptr, gr.dw5, gr.db5, stream)));
-  CHECK((launch_w<4, float, float, T>(pl, ws, ws + pl.dh, y, ws + pl.st2, n2w, n2b, gr.dw4, gr.db4, stream)));
-  // A: dg (local part), datt
-  CHECK((pl.rm == 2 ? launch_a<T, 2>(pl, ws, w3, att, g, stream) : launch_a<T, 1>(pl, ws, w3, att, g, stream)));
-  CHECK(colsum<2>(ws + pl.pdatt, B, pl.ntp, C, C, ws + pl.datt, sum, stream));
-  CHECK((launch_w<3, float, T, float>(pl, ws, ws + pl.du, g, nullptr, att, nullptr, gr.dw3, gr.db3, stream)));
+  CHECK(weight_grad(pl, ws, m2, C, m1, C, gr.dw5, gr.db5, stream));
+  CHECK(weight_grad(pl, ws, dh, 2 * C, ln, C, gr.dw4, gr.db4, stream));
+  // A: dg (local part), datt, dW3
+  CHECK(prod(pl, ws, du, w3, C, C, ws + pl.ln, stream));  // da
+  bwd_a_scale_kernel<T><<<eblocks, kThreads, 0, stream>>>(ln, att, g, ws + pl.dg, ws + pl.dln, ws + pl.m1, pl.HW, C,
+                                                          elems);
+  CHECK_LAUNCH();
+  CHECK(colsum<2>(ws + pl.dln, B, pl.HW, C, C, ws + pl.datt, sum, stream));
+  CHECK(weight_grad(pl, ws, du, C, m1, C, gr.dw3, gr.db3, stream));
   // S: dgk, dWsca, dbsca
-  bwd_sca_kernel<T><<<dim3(C / kNB, B), kThreads, kThreads * sizeof(float), stream>>>(ws + pl.datt, wsca, ws + pl.dgk, C, (float)H * (float)W);
+  bwd_sca_kernel<T><<<dim3(C / kCC, B), kThreads, kThreads * sizeof(float), stream>>>(ws + pl.datt, wsca, ws + pl.dgk, C, (float)H * (float)W);
   CHECK_LAUNCH();
   bwd_sca_w_kernel<<<(unsigned)(((size_t)C * C + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
       ws + pl.datt, pooled, gr.dwsca, gr.dbsca, B, C);
@@ -612,16 +493,16 @@ int naf_block_bwd(const T* x, const T* dz, const T* n1w, const T* n1b, const T* 
   CHECK_LAUNCH();
   CHECK(colsum<2>(ws + pl.pd, 1, B * pl.ntd, 18 * C, 20 * C, gr.dwdw, sum, stream));
   CHECK(colsum<2>(ws + pl.pd + 18 * (size_t)C, 1, B * pl.ntd, 2 * C, 20 * C, gr.dbdw, sum, stream));
-  // L1, R1: dln1, dx, and dn1w, dn1b
-  CHECK((pl.rm == 2 ? launch_l1<T, 2>(pl, ws, w1, stream) : launch_l1<T, 1>(pl, ws, w1, stream)));
+  // L1, R1: dln1, dx, LN1's output, and dn1w, dn1b
+  CHECK(prod(pl, ws, dt, w1, 2 * C, C, ws + pl.dln, stream));
   bwd_ln_kernel<false, T, float, T, T><<<pl.nrb, kThreads, smem_ln, stream>>>(
-      x, ws + pl.dln, ws + pl.dy, n1w, nullptr, nullptr, nullptr, dx, nullptr, ws + pl.st1, ws + pl.prow, pl.npix, C,
-      eps);
+      x, ws + pl.dln, ws + pl.dy, n1w, n1b, nullptr, nullptr, nullptr, dx, nullptr, ws + pl.ln, ws + pl.prow,
+      pl.npix, C, eps);
   CHECK_LAUNCH();
   CHECK(colsum<2>(ws + pl.prow, 1, pl.nrb, C, 2 * C, gr.dn1w, sum, stream));
   CHECK(colsum<2>(ws + pl.prow + C, 1, pl.nrb, C, 2 * C, gr.dn1b, sum, stream));
   // W: dW1
-  CHECK((launch_w<1, float, T, T>(pl, ws, ws + pl.dt, x, ws + pl.st1, n1w, n1b, gr.dw1, gr.db1, stream)));
+  CHECK(weight_grad(pl, ws, dt, 2 * C, ln, C, gr.dw1, gr.db1, stream));
 #undef CHECK
 #undef CHECK_LAUNCH
   return cudaSuccess;

@@ -132,17 +132,6 @@ struct ProdEpi {
   }
 };
 
-// A weight gradient's chunk z: part[z] (M, N) gets its share of dW.
-struct PartEpi {
-  float* part;
-  int M, N;
-  __device__ __forceinline__ void operator()(int z, int m, int n, float v0, float v1) const {
-    float* d = part + ((size_t)z * M + m) * N + n;
-    d[0] = v0;
-    if (n + 1 < N) d[1] = v1;
-  }
-};
-
 // The two window passes, one block of 4 warps a window and head: grid (wy (W /
 // ws) + wx, b, head).  The block gathers the window's tokens of q, k and v
 // (and in the backward dacc) of its head into shared memory, token-major with
@@ -406,7 +395,7 @@ void param_lengths(int C, int hidden, long long* len) {
 // colsum's scratch, and in a bf16 call the fp32 staging of the parameter gradients.
 struct Plan {
   int B, H, W, C, heads, hd, hidden, T, nrb;
-  size_t xn, qkv, acc, y, yn, pre, g, dm, dy, dqkv, stats, prow, pw, pb, sum, stage, total;
+  size_t xn, qkv, acc, y, yn, pre, g, dm, dy, dqkv, prow, pw, pb, sum, stage, total;
 };
 
 Plan make_plan(int B, int H, int W, int C, int heads, int hidden, bool bf16) {
@@ -432,17 +421,10 @@ Plan make_plan(int B, int H, int W, int C, int heads, int hidden, bool bf16) {
   pl.dm = take(n * C);        // dyn, then dacc, then dxn
   pl.dy = take(n * C);
   pl.dqkv = take(n * 3 * C);
-  pl.stats = take(2 * n);
   pl.prow = take((size_t)pl.nrb * 2 * C);
   size_t pw = 0, pb = 0, sum = 0;
   const int shapes[4][2] = {{C, hidden}, {hidden, C}, {C, C}, {3 * C, C}};
-  for (const auto& s : shapes) {
-    int len;
-    const int nch = tc::depth_chunks(s[0], s[1], pl.T, &len);
-    pw = std::max(pw, (size_t)nch * s[0] * s[1]);
-    pb = std::max(pb, (size_t)nch * s[0]);
-    sum = std::max(sum, colsum_scratch(1, nch, s[0] * s[1]));
-  }
+  for (const auto& s : shapes) wgrad_floats(s[0], s[1], pl.T, &pw, &pb, &sum);
   pl.pw = take(pw);
   pl.pb = take(pb);
   sum = std::max(sum, colsum_scratch(1, pl.nrb, C));
@@ -519,25 +501,11 @@ cudaError_t ln_bwd(const Plan& pl, float* ws, const TV* v, const float* dln, con
                    float* dw, float* db, float eps, cudaStream_t stream) {
   const int C = pl.C;
   ln_bwd_kernel<9, TV, TR, TW, TO><<<pl.nrb, kThreads, 4 * kRP * sizeof(float), stream>>>(
-      v, dln, res, w, out, ws + pl.stats, ws + pl.prow, pl.T, C, eps, 1);
+      v, dln, res, w, nullptr, out, nullptr, ws + pl.prow, pl.T, C, eps, 1);
   cudaError_t err;
   CHECK(cudaGetLastError());
   CHECK(colsum<9>(ws + pl.prow, 1, pl.nrb, C, 2 * C, dw, ws + pl.sum, stream));
   return colsum<9>(ws + pl.prow + C, 1, pl.nrb, C, 2 * C, db, ws + pl.sum, stream);
-}
-
-// W: out (M, N) = sum over tokens of a (T, M) x bm (T, N), bias (M,) = the
-// column sums of a: per-chunk partials over tokens, added by colsum in order
-template <typename TA>
-cudaError_t wgrad(const Plan& pl, float* ws, const TA* a, int M, const float* bm, int N, float* out, float* bias,
-                  cudaStream_t stream) {
-  int len;
-  const int nch = tc::depth_chunks(M, N, pl.T, &len);
-  cudaError_t err;
-  CHECK(tc::gemm<9>(tc::operand<false>(a, M, M), tc::operand<false>(bm, N, N), pl.T, nch, len,
-                    PartEpi{ws + pl.pw, M, N}, ws + pl.pb, stream));
-  CHECK(colsum<9>(ws + pl.pw, 1, nch, M * N, M * N, out, ws + pl.sum, stream));
-  return colsum<9>(ws + pl.pb, 1, nch, M, M, bias, ws + pl.sum, stream);
 }
 
 template <typename T>
@@ -546,6 +514,7 @@ int swin_block_bwd(const T* x, const T* dz, const Weights<T>& wt, const Grads<T>
   const int C = pl.C, hidden = pl.hidden;
   float *xn = ws + pl.xn, *qkv = ws + pl.qkv, *acc = ws + pl.acc, *y = ws + pl.y, *yn = ws + pl.yn;
   float *pre = ws + pl.pre, *g = ws + pl.g, *dm = ws + pl.dm, *dy = ws + pl.dy, *dqkv = ws + pl.dqkv;
+  float *pw = ws + pl.pw, *pb = ws + pl.pb, *sum = ws + pl.sum;
   const T* none = nullptr;
   cudaError_t err;
   // R: recompute the forward
@@ -557,18 +526,18 @@ int swin_block_bwd(const T* x, const T* dz, const Weights<T>& wt, const Grads<T>
   CHECK(layer_norm(pl, static_cast<const float*>(y), wt.ln2w, wt.ln2b, yn, eps, stream));
   CHECK((prod<false, kFc1>(pl, static_cast<const float*>(yn), wt.wfc1, wt.bfc1, none, pre, g, C, hidden, stream)));
   // B and W: the MLP and LN2
-  CHECK(wgrad(pl, ws, dz, C, g, hidden, gr.dwfc2, gr.dbfc2, stream));  // before dpre1 takes g's place
+  CHECK(wgrad<9>(dz, C, g, hidden, pl.T, pw, pb, sum, gr.dwfc2, gr.dbfc2, stream));  // before dpre1 takes g's place
   CHECK((prod<true, kGeluBwd>(pl, dz, wt.wfc2, none, none, g, nullptr, C, hidden, stream, 1.f, pre)));
   CHECK((prod<true, kPlain>(pl, static_cast<const float*>(g), wt.wfc1, none, none, dm, nullptr, hidden, C, stream)));
-  CHECK(wgrad(pl, ws, static_cast<const float*>(g), hidden, yn, C, gr.dwfc1, gr.dbfc1, stream));
+  CHECK(wgrad<9>(static_cast<const float*>(g), hidden, yn, C, pl.T, pw, pb, sum, gr.dwfc1, gr.dbfc1, stream));
   CHECK(ln_bwd(pl, ws, static_cast<const float*>(y), dm, dz, wt.ln2w, dy, gr.dln2w, gr.dln2b, eps, stream));
   // proj, the attention, qkv and LN1
   CHECK((prod<true, kPlain>(pl, static_cast<const float*>(dy), wt.wproj, none, none, dm, nullptr, C, C, stream)));
-  CHECK(wgrad(pl, ws, static_cast<const float*>(dy), C, acc, C, gr.dwproj, gr.dbproj, stream));
+  CHECK(wgrad<9>(static_cast<const float*>(dy), C, acc, C, pl.T, pw, pb, sum, gr.dwproj, gr.dbproj, stream));
   CHECK(attention<true>(pl, qkv, dm, dqkv, wsz, shift, stream));
   CHECK((prod<true, kPlain>(pl, static_cast<const float*>(dqkv), wt.wqkv, none, none, dm, nullptr, 3 * C, C,
                             stream)));
-  CHECK(wgrad(pl, ws, static_cast<const float*>(dqkv), 3 * C, xn, C, gr.dwqkv, gr.dbqkv, stream));
+  CHECK(wgrad<9>(static_cast<const float*>(dqkv), 3 * C, xn, C, pl.T, pw, pb, sum, gr.dwqkv, gr.dbqkv, stream));
   CHECK(ln_bwd(pl, ws, x, dm, static_cast<const float*>(dy), wt.ln1w, gr.dx, gr.dln1w, gr.dln1b, eps, stream));
   return cudaSuccess;
 }

@@ -1,9 +1,10 @@
 // A product on Hopper's tensor cores for the port's token-wide GEMMs:
 // D (M x N) = A (M x depth) . B (depth x N), in fp32 from fp32 or bf16
 // operands, through mma.sync m16n8k8 TF32 (csrc/ptx.cuh) with fp32 sums.
-// K9 (csrc/swin_block_bwd.cu) runs every token-wide product and weight
-// gradient through it; it takes no kernel-specific argument, so K7 and K2
-// can take it up as it is.
+// K9 (csrc/swin_block_bwd.cu), K7 (csrc/mdta_block_bwd.cu) and K2
+// (csrc/naf_block_bwd.cu) run their token-wide products and weight gradients
+// through it (K2 and K7 by token_bwd.cuh's product and wgrad); it takes no
+// kernel-specific argument.
 //
 // Each operand is read from device memory in either layout (Operand<T, K>):
 //   k-major   (K) element (r, k) at ptr[r ld + k]: A = a (T, K) of a product,
@@ -166,7 +167,7 @@ __device__ __forceinline__ void mma_chunk(Acc& acc, const TA* sa, const TB* sb, 
 // columns (n, n + 1) of a row r < a.rows, n < b.rows (n + 1 may be b.rows:
 // epi masks it); a_sums (chunks, a.rows): the chunk's sums over the depth of
 // A's rows, written by the blocks of column tile 0.  Owner is the number of
-// the kernel that launches it (K9), so a profile tells their products apart.
+// the kernel that launches it (K2, K7, K9), so a profile tells their products apart.
 template <int Owner, typename TA, bool AK, typename TB, bool BK, class Epi>
 __global__ void __launch_bounds__(kThreads, 2)
 tc_gemm_kernel(Operand<TA, AK> a, Operand<TB, BK> b, int depth, int len, Epi epi, float* __restrict__ a_sums) {

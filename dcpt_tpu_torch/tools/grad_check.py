@@ -27,8 +27,12 @@ error):
    decide the check, while a fault of the path shows in every run;
 4. that error must stay within ``max(FLOOR * max|ref|, K * sensitivity)`` on
    every tensor; the median over tensors of the error relative to max|ref|
-   within ``MEDIAN``; each loss of the run as it is within ``LOSS_TOL``
-   (relative to max(1, |loss|)) of the float64 loss.
+   within ``MEDIAN``; each loss of the run as it is within
+   ``max(LOSS_TOL, K * departure)`` (relative to max(1, |loss|)) of the
+   float64 loss, its departure the largest of the plain fp32 runs'
+   (``loss_departure``): on the card the plain Restormer step's own l_pix
+   departs from float64 by up to 6.2e-5 (``PERF.md`` section 6), so a fixed
+   1e-5 sits below fp32's own rounding there.
 
 A first design moved the float64 step's inputs and parameters by fp32's unit
 roundoff instead; on the card it read sensitivities of 4e-7 of max|ref| on the
@@ -116,18 +120,28 @@ def step_grads(model, batch: dict, dtype=None, perturb_seed: int | None = None):
     return grads, losses
 
 
-def run_errors(model, batch: dict, ref: dict, seeds=PERTURB_SEEDS) -> tuple[list[dict], dict]:
+def run_errors(model, batch: dict, ref: dict, seeds=PERTURB_SEEDS,
+               runs_losses: list | None = None) -> tuple[list[dict], dict]:
     """The fp32 step as it is and on parameters and inputs moved by one ulp
     (``_perturb``) for each of ``seeds``: each run's max-abs error against the
     float64 gradients ``ref``, by tensor (the run as it is first), and the
-    losses of the run as it is."""
+    losses of the run as it is; every run's losses appended to ``runs_losses``
+    when given."""
     errs, losses = [], None
     for seed in (None, *seeds):
         grads, run_losses = step_grads(model, batch, torch.float32, perturb_seed=seed)
         errs.append({n: (grads[n] - g).abs().max().item() for n, g in ref.items()})
         losses = losses or run_losses
+        if runs_losses is not None:
+            runs_losses.append(run_losses)
         del grads
     return errs, losses
+
+
+def loss_departure(runs_losses: list[dict], ref_losses: dict) -> dict:
+    """Each loss's largest departure over runs from its float64 value, relative to
+    max(1, |loss|) as ``compare`` holds it to ``LOSS_TOL``."""
+    return {k: max(abs(run[k] - v) / max(1.0, abs(v)) for run in runs_losses) for k, v in ref_losses.items()}
 
 
 def rounding_sensitivity(plain_errs: list[dict]) -> dict:
@@ -140,14 +154,17 @@ def path_error(errs: list[dict]) -> dict:
     return {n: statistics.median(e[n] for e in errs) for n in errs[0]}
 
 
-def compare(err: dict, got_losses: dict, ref: dict, ref_losses: dict, sens: dict, k: float = K) -> dict:
+def compare(err: dict, got_losses: dict, ref: dict, ref_losses: dict, sens: dict, k: float = K,
+            plain_loss: dict | None = None) -> dict:
     """The check of an fp32 path (``err``, its errors by tensor from
     ``path_error``, and its losses) against the float64 ``ref``; returns a report: ``ok``, the worst tensor by its error over
     its limit (``worst``, ``worst_ratio``, ``worst_rel`` of its max|ref|,
     ``worst_sens`` of its max|ref|), the median error of max|ref| (``median``),
     the tensors over 1e-3 of max|ref| (``over_1e3``), the count held by the
-    sensitivity rule rather than the floor (``by_sensitivity``) and the worst
-    loss error (``loss_err``)."""
+    sensitivity rule rather than the floor (``by_sensitivity``), the worst
+    loss error (``loss_err``) and the largest of a loss's error over its limit
+    (``loss_ratio``; the limit ``max(LOSS_TOL, k * plain_loss[loss])``, or
+    ``LOSS_TOL`` without ``plain_loss``)."""
     ratio, rel, srel = {}, {}, {}
     by_sens = 0
     for n, g in ref.items():
@@ -159,11 +176,14 @@ def compare(err: dict, got_losses: dict, ref: dict, ref_losses: dict, sens: dict
         srel[n] = sens[n] / scale if scale > 0 else sens[n]
     worst = max(ratio, key=ratio.get)
     median = statistics.median(rel.values())
-    loss_err = max(abs(got_losses[key] - v) / max(1.0, abs(v)) for key, v in ref_losses.items())
-    return {"ok": ratio[worst] <= 1 and median <= MEDIAN and loss_err <= LOSS_TOL, "worst": worst,
+    loss_errs = {key: abs(got_losses[key] - v) / max(1.0, abs(v)) for key, v in ref_losses.items()}
+    loss_limits = {key: max(LOSS_TOL, k * plain_loss[key]) if plain_loss else LOSS_TOL for key in ref_losses}
+    loss_ratio = max(loss_errs[key] / loss_limits[key] for key in ref_losses)
+    return {"ok": ratio[worst] <= 1 and median <= MEDIAN and loss_ratio <= 1, "worst": worst,
             "worst_ratio": ratio[worst], "worst_rel": rel[worst], "worst_sens": srel[worst], "median": median,
             "over_1e3": sum(v > 1e-3 for v in rel.values()), "by_sensitivity": by_sens, "tensors": len(ref),
-            "loss_err": loss_err, "max_rel": max(rel.values())}
+            "loss_err": max(loss_errs.values()), "loss_limit": min(loss_limits.values()), "loss_ratio": loss_ratio,
+            "max_rel": max(rel.values())}
 
 
 def describe(report: dict) -> str:
@@ -172,4 +192,4 @@ def describe(report: dict) -> str:
             f"{report['worst_sens']:.3e} of max|ref|), {report['worst_ratio']:.3f} of its limit; median "
             f"{report['median']:.3e} (limit {MEDIAN:.0e}); largest {report['max_rel']:.3e}; {report['over_1e3']} of "
             f"{report['tensors']} above 1e-3; {report['by_sensitivity']} limits set by the sensitivity; loss error "
-            f"{report['loss_err']:.3e} (limit {LOSS_TOL:.0e})")
+            f"{report['loss_err']:.3e}, {report['loss_ratio']:.3f} of its limit (the tightest {report['loss_limit']:.3e})")

@@ -1,24 +1,31 @@
-"""Time the Swin block kernels built from several copies of ``csrc`` side by side on one card.
+"""Time the backward kernels and the Swin block kernels built from several copies of ``csrc`` side by side on one card.
 
-    python -m dcpt_tpu_torch.tools.swin_ab [--k9] [NAME=CSRC_DIR ...]
+    python -m dcpt_tpu_torch.tools.swin_ab [--k9 | --k7 | --k2] [NAME=CSRC_DIR ...]
 
 Builds the kernels from the package's own ``csrc`` (named ``tree``) and from
 each other directory given (a parent commit's ``dcpt_tpu_torch/csrc``
 unpacked with ``git archive``, or a copy with one change), all with nvcc's
-flags of ``ops/cuda_build.py``, into ``build/swin_ab/<name>``.  Then, at
-SwinIR's shipped width (C 180, 6 heads, 8 x 8 windows, hidden 360) on 128 x
-128 maps shifted by 4, in fp32 (TF32 off) and bf16: each version against the
-plain version and against the tree's output bit for bit, and its ms a call
-by CUDA events over back-to-back calls, in turns (every version, then every
-version in reverse order).  Prints the card's name and power limit first.
-Needs the card and nvcc.
+flags of ``ops/cuda_build.py``, into ``build/swin_ab/<name>``.  Then, in fp32
+(TF32 off) and bf16: each version against the plain version and against the
+tree's output bit for bit, and its ms a call by CUDA events over
+back-to-back calls, in turns (every version, then every version in reverse
+order).  Prints the card's name and power limit first.  Needs the card and
+nvcc.
 
-* without ``--k9``: K8 and K10 (``swin_block.cu``, ``window_attention.cu``;
-  K10 without its LayerNorm) at B = 1, beside ``nn.TransformerEncoderLayer``
-  and ``F.multi_head_attention_forward`` on the same inputs;
-* with ``--k9``: K9 (``swin_block_bwd.cu``) at B = 2 and B = 8, and at B = 8
-  its device time by pass (``pass_split``: each launch of one call in order,
-  torch.profiler).
+* without a flag: K8 and K10 (``swin_block.cu``, ``window_attention.cu``;
+  K10 without its LayerNorm) at SwinIR's shipped width (C 180, 6 heads, 8 x 8
+  windows, hidden 360) on a 128 x 128 map shifted by 4 at B = 1, beside
+  ``nn.TransformerEncoderLayer`` and ``F.multi_head_attention_forward`` on the
+  same inputs;
+* ``--k9``: K9 (``swin_block_bwd.cu``) at that width at B = 2 and B = 8;
+* ``--k7``: K7 (``mdta_block_bwd.cu``) from the tree's K6 residuals at
+  Restormer's (C, H = W, heads) = (96, 128, 1) and (384, 16, 8) in both
+  flavours (ReLU / BiasFree and softmax / WithBias), B = 2 and B = 8;
+* ``--k2``: K2 (``naf_block_bwd.cu``) from the tree's K1 residuals at
+  NAFNet-w64's C = 64 on 128 x 128 and C = 512 on 16 x 16, B = 2 and B = 8;
+
+and for the backward kernels, at B = 8, each version's device time by pass
+(``pass_split``: each launch of one call in order, torch.profiler).
 """
 
 from __future__ import annotations
@@ -34,6 +41,10 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import cuda_build
+from ..ops import mdta_block as mb
+from ..ops import mdta_block_bwd as mbb
+from ..ops import naf_block as nb
+from ..ops import naf_block_bwd as nbb
 from ..ops import swin_block_bwd as sbb
 from ..ops import window_attention as wa
 
@@ -41,7 +52,12 @@ C, HEADS, WS, HIDDEN, SHIFT = 180, 6, 8, 360, 4
 OUT = Path(__file__).resolve().parents[2] / "build" / "swin_ab"
 # the kernels of each mode: label -> (source, binder)
 FORWARD = {"K8": ("swin_block", wa._bind_block), "K10": ("window_attention", wa._bind_attn)}
-BACKWARD = {"K9": ("swin_block_bwd", sbb._bind)}
+BACKWARD = {"--k9": {"K9": ("swin_block_bwd", sbb._bind)}, "--k7": {"K7": ("mdta_block_bwd", mbb._bind)},
+            "--k2": {"K2": ("naf_block_bwd", nbb._bind)}}
+K7_SHAPES = [(96, 128, 1), (384, 16, 8)]  # (C, H = W, heads)
+K7_FLAVOURS = {"relu": (False, False, 1e-6), "softmax": (True, True, 1e-5)}  # (use_softmax, ln_bias, eps)
+K2_SHAPES = [(64, 128), (512, 16)]  # (C, H = W)
+_MARKERS = 16  # pass_split's marker launches
 
 
 def _build(name: str, csrc: Path, kernels: dict) -> dict:
@@ -91,18 +107,28 @@ def _short(name: str) -> str:
 def pass_split(fn, iters: int = 1) -> list[tuple[str, float]]:
     """Device ms of each launch of one call of ``fn`` in launch order, averaged over
     ``iters`` calls (torch.profiler, after a warm-up call): [(kernel, ms)].  Empty
-    when the profiler records no device time."""
+    when the profiler records no device time.
+
+    In a process that has profiled before, the profile can miss its first few
+    launches; so a run of marker launches (fills of a one-element tensor) goes
+    first, and the calls' launches are those after the last marker recorded
+    (all of them if it recorded none)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
+    marker = torch.empty(1, device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(_MARKERS):
+            marker.fill_(1.0)
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
     launches = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
                       key=lambda e: e.time_range.start)
+    fills = [i for i, e in enumerate(launches) if "fill" in e.name.lower()]
+    launches = launches[fills[-1] + 1:] if fills else launches
     if not launches or len(launches) % iters:
         return []
     per = len(launches) // iters
@@ -185,40 +211,87 @@ def forward_ab(libs: dict) -> None:
                 print(f"{dname} {name}: {_ms(fn):.4f} ms a call", flush=True)
 
 
-def backward_ab(libs: dict) -> None:
-    """K9 of every build at B = 2 and B = 8, and its passes at B = 8."""
+def _rand(gen, dtype, *shape, scale=0.3, shift=0.0):
+    return (torch.randn(*shape, generator=gen) * scale + shift).to("cuda", dtype)
+
+
+def _k9_case(gen, batch, dtype, stream):
+    """K9's inputs at SwinIR's width, 128 x 128: (label, plain cotangents, {label: launch(lib)})."""
+    x, dz = (_rand(gen, dtype, batch, 128, 128, C, scale=1.0) for _ in range(2))
+    p = _params(gen, dtype)
+    yield "", sbb.swin_block_bwd_ref(x, *p, dz, HEADS, WS, SHIFT), (
+        lambda lib: sbb._launch(lib, x, p, dz, HEADS, WS, SHIFT, 1e-5, stream))
+
+
+def _k7_case(gen, batch, dtype, stream):
+    """K7's inputs at each K7_SHAPES stage and flavour, from the tree's K6 residuals."""
+    for c, s, heads in K7_SHAPES:
+        f = int(2.66 * c)
+        # drawn in PyTorch's layout and passed as the op-layout views a module passes (chip_smoke.mdta_params)
+        p = [_rand(gen, dtype, c, shift=1.0), _rand(gen, dtype, c), _rand(gen, dtype, 3 * c, c, scale=c ** -0.5).t(),
+             _rand(gen, dtype, 3 * c, 3, 3, scale=1 / 3).permute(1, 2, 0), _rand(gen, dtype, heads, 1, 1, shift=1.0),
+             _rand(gen, dtype, c, c, scale=c ** -0.5).t(), _rand(gen, dtype, c, shift=1.0), _rand(gen, dtype, c),
+             _rand(gen, dtype, 2 * f, c, scale=c ** -0.5).t(),
+             _rand(gen, dtype, 2 * f, 3, 3, scale=1 / 3).permute(1, 2, 0), _rand(gen, dtype, c, f, scale=f ** -0.5).t()]
+        x, dz = (_rand(gen, dtype, batch, s, s, c, scale=1.0) for _ in range(2))
+        for act, flavour in K7_FLAVOURS.items():
+            _, res = mb._kernel_forward(x, p, heads, *flavour, residuals=True)
+            ref = mbb.mdta_block_bwd_ref(x.float(), *[t.float() for t in p], *res[:4], dz.float(), heads, *flavour)
+            yield f" C={c} {s}x{s} heads={heads} {act}", ref, (
+                lambda lib, res=res, flavour=flavour: mbb._launch(lib, x, p, dz, res, heads, *flavour, stream))
+
+
+def _k2_case(gen, batch, dtype, stream):
+    """K2's inputs at each K2_SHAPES stage, from the tree's K1 residuals."""
+    for c, s in K2_SHAPES:
+        sc = c ** -0.5
+        p = [_rand(gen, dtype, *shape, scale=scale, shift=shift) for shape, scale, shift in [
+            ((c,), 0.5, 1.0), ((c,), 0.5, 0.0), ((c, 2 * c), sc, 0.0), ((2 * c,), 0.5, 0.0),
+            ((3, 3, 2 * c), 1 / 3, 0.0), ((2 * c,), 0.5, 0.0), ((c, c), sc, 0.0), ((c,), 0.5, 0.0), ((c, c), sc, 0.0),
+            ((c,), 0.5, 0.0), ((c,), 0.5, 0.0), ((c,), 0.5, 1.0), ((c,), 0.5, 0.0), ((c, 2 * c), sc, 0.0),
+            ((2 * c,), 0.5, 0.0), ((c, c), sc, 0.0), ((c,), 0.5, 0.0), ((c,), 0.5, 0.0)]]
+        x, dz = (_rand(gen, dtype, batch, s, s, c, scale=1.0) for _ in range(2))
+        _, (*maps, pooled, att) = nb._kernel_forward(x, p, 1e-6, residuals=True)
+        ref = nbb.naf_block_bwd_ref(x.float(), *[t.float() for t in p], pooled, att, dz.float())
+        yield f" C={c} {s}x{s}", ref, (lambda lib: nbb._launch(lib, x, p, pooled, att, dz, maps, 1e-6, stream))
+
+
+CASES = {"K9": _k9_case, "K7": _k7_case, "K2": _k2_case}
+
+
+def backward_ab(libs: dict, kernel: str) -> None:
+    """``kernel`` (K9, K7 or K2) of every build at B = 2 and B = 8, and its passes at B = 8."""
     gen = torch.Generator().manual_seed(14)
     stream = torch.cuda.current_stream().cuda_stream
     for batch in (2, 8):
         for dname in ("float32", "bfloat16"):
-            dtype = getattr(torch, dname)
-            x = torch.randn(batch, 128, 128, C, generator=gen).to("cuda", dtype)
-            dz = torch.randn(batch, 128, 128, C, generator=gen).to("cuda", dtype)
-            p = _params(gen, dtype)
-            refs = {"K9": sbb.swin_block_bwd_ref(x, *p, dz, HEADS, WS, SHIFT)}
-            calls = {(name, "K9"): (lambda lib=lib: sbb._launch(lib["K9"], x, p, dz, HEADS, WS, SHIFT, 1e-5, stream))
-                     for name, lib in libs.items()}
-            label = f"B={batch} {dname}"
-            _compare(label, calls, refs)
-            del refs
-            _turns(label, calls, 10 if batch == 2 else 4)
-            if batch == 8:
-                for (name, _), fn in calls.items():
-                    print_split(f"{label} {name} by pass", pass_split(fn))
-            torch.cuda.empty_cache()
+            for shape, ref, launch in CASES[kernel](gen, batch, getattr(torch, dname), stream):
+                calls = {(name, kernel): (lambda lib=lib: launch(lib[kernel])) for name, lib in libs.items()}
+                label = f"B={batch} {dname}{shape}"
+                _compare(label, calls, {kernel: ref})
+                del ref
+                _turns(label, calls, 10 if batch == 2 else 4)
+                if batch == 8:
+                    for (name, _), fn in calls.items():
+                        print_split(f"{label} {name} by pass", pass_split(fn))
+                torch.cuda.empty_cache()
 
 
 def main(argv: list[str]) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    k9 = "--k9" in argv
+    mode = next((a for a in argv if a in BACKWARD), None)
     dirs = {"tree": cuda_build.CSRC,
-            **{a.split("=", 1)[0]: Path(a.split("=", 1)[1]) for a in argv if a != "--k9"}}
+            **{a.split("=", 1)[0]: Path(a.split("=", 1)[1]) for a in argv if a not in BACKWARD}}
+    kernels = BACKWARD[mode] if mode else FORWARD
     with ThreadPoolExecutor(len(dirs)) as pool:
-        libs = dict(zip(dirs, pool.map(lambda item: _build(*item, BACKWARD if k9 else FORWARD), dirs.items())))
+        libs = dict(zip(dirs, pool.map(lambda item: _build(*item, kernels), dirs.items())))
     torch.backends.cuda.matmul.allow_tf32 = False
-    (backward_ab if k9 else forward_ab)(libs)
+    if mode:
+        backward_ab(libs, next(iter(kernels)))
+    else:
+        forward_ab(libs)
     return 0
 
 

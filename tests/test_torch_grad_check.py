@@ -74,6 +74,34 @@ def test_planted_loss_error_fails_the_check(step):
     assert np.isclose(grad_check.compare(err, losses, ref, ref_losses, sens)["loss_err"], 0.0, atol=1e-6)
 
 
+@pytest.fixture(scope="module")
+def plain_loss(step):
+    """Each loss's largest departure from float64 over the plain fp32 runs (as it is
+    and on one-ulp perturbations): what widens its limit beyond LOSS_TOL."""
+    model, batch, _, ref, ref_losses, *_ = step
+    runs_losses = []
+    grad_check.run_errors(model, batch, ref, runs_losses=runs_losses)
+    return grad_check.loss_departure(runs_losses, ref_losses)
+
+
+def test_loss_limit_follows_the_plain_runs(step, plain_loss):
+    """Each loss is held to max(LOSS_TOL, K x the plain fp32 runs' own departure
+    from float64).  On this step the plain runs stay far inside LOSS_TOL, so a
+    planted error of 1e-4 of each loss still fails; a departure of 1e-4 in
+    the plain runs widens the limit to K x 1e-4, and the same planted error
+    then passes."""
+    _, _, _, ref, ref_losses, sens, errs, losses = step
+    err = grad_check.path_error(errs)
+    assert set(plain_loss) == set(ref_losses)
+    assert all(grad_check.K * v < grad_check.LOSS_TOL for v in plain_loss.values()), plain_loss
+    report = grad_check.compare(err, losses, ref, ref_losses, sens, plain_loss=plain_loss)
+    assert report["ok"] and report["loss_limit"] == grad_check.LOSS_TOL, grad_check.describe(report)
+    planted = {k: v * (1 + 1e-4) for k, v in losses.items()}
+    assert not grad_check.compare(err, planted, ref, ref_losses, sens, plain_loss=plain_loss)["ok"]
+    wide = {k: 1e-4 for k in plain_loss}
+    assert grad_check.compare(err, planted, ref, ref_losses, sens, plain_loss=wide)["ok"]
+
+
 class _Stop(Exception):
     pass
 
