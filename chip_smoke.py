@@ -7,9 +7,14 @@ Phases, each of which raises on failure (exit code 1):
 1. the card's name and power limit (``nvidia-smi``);
 2. build every kernel of the main paths from ``dcpt_tpu_torch/csrc`` (one
    nvcc per source, all started together);
-3. kernel K1 (``naf_block_fused``) against its plain twin at the five
-   NAFNet-w64 stage shapes of a 128 x 128 input at B = 2, plus two ragged
-   shapes, in fp32 (and bf16 at C = 64 and 512), TF32 off for both;
+3. kernel K1 (``naf_block_fused``, its 1x1 products on the tensor cores)
+   against its plain twin at the five NAFNet-w64 stage shapes of a 128 x 128
+   input at B = 2, plus two ragged shapes, in fp32 (and bf16 at C = 64 and
+   512), and at the train yml's B = 8 at C = 64 (fp32 and bf16) and c = 512,
+   TF32 off for both, each run twice for equal bits; its ms per forward
+   beside the plain twin's and the bound (3xTF32 on the tensor cores, and the
+   SIMT fp32 bound); the device time of each of its passes at B = 8
+   (``tools/swin_ab.py::pass_split``);
 4. the eval path: the shipped ``options/all_in_one/test/test_NAFNet_5d.yml``
    through the port's ``test_pipeline`` at full NAFNet-w64 width, on
    synthetic PNGs and seeded random weights, with the kernel's launch count
@@ -36,11 +41,15 @@ Phases, each of which raises on failure (exit code 1):
    (``check_step_gradients``, ``dcpt_tpu_torch.tools.grad_check``), and the ms
    per step and peak memory of both paths;
 8. kernel K6 (``mdta_block_fused``, the whole Restormer / PromptIR
-   TransformerBlock) against its plain version at the Restormer stage shapes
-   of a 128 x 128 input and PromptIR's three noise-level shapes (B = 1) in
-   both flavours (ReLU / BiasFree / 1e-6 and softmax / WithBias / 1e-5), two
-   ragged shapes, bf16 at C = 48 and 384, each run twice for equal bits; its
-   ms per Restormer and per PromptIR forward beside the plain version's and the bound;
+   TransformerBlock, its 1x1 products on the tensor cores) against its plain
+   version at the Restormer stage shapes of a 128 x 128 input and PromptIR's
+   three noise-level shapes (B = 1) in both flavours (ReLU / BiasFree / 1e-6
+   and softmax / WithBias / 1e-5), two ragged shapes, bf16 at C = 48 and 384,
+   and the two 128 x 128 stages at the train ymls' B = 8 (fp32 in both
+   flavours, bf16 in Restormer's), each run twice for equal bits; its ms per
+   Restormer and per PromptIR forward beside the plain version's and the
+   bound (3xTF32 on the tensor cores, and the SIMT fp32 bound); the device
+   time of each of its passes at B = 8;
 9. the eval paths of the shipped ``test_Restormer_5d.yml`` and
    ``test_PromptIR_5d.yml`` through ``test_pipeline`` at full width on the
    PNGs of [4] and seeded weights, with exactly 44 and 47 K6 launches per
@@ -205,8 +214,8 @@ KERNELS = {
     "mdta_attention": ("dcpt_tpu_torch/csrc/mdta.cu", "dcpt_tpu/ops/mdta.py:158"),
 }
 # the card's peaks (NVIDIA's H100 SXM data sheet): fp32 outside the tensor cores, TF32 and
-# bf16 on the tensor cores (dense), HBM3.  K2, K7, K8, K9 and K10 compute fp32 products as
-# three TF32 products (3xTF32), so their fp32 bound takes PEAK_TF32_FLOPS / 3.
+# bf16 on the tensor cores (dense), HBM3.  K1, K2, K6, K7, K8, K9 and K10 compute fp32 products
+# as three TF32 products (3xTF32), so their fp32 bound takes PEAK_TF32_FLOPS / 3.
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
@@ -230,14 +239,17 @@ SHORT_ITERS, SHORT_RESUME_ITERS = 1, 1
 # per step of the DCPT yml's net: two forwards through all 36 NAFBlocks, a
 # backward through 71 (decoder3.0's output feeds no 'ups' tap in the skip-tail pass)
 K1_PER_STEP, K2_PER_STEP, K3_PER_STEP = 72, 71, sum(K3_SHAPES.values())
-K6_FUNCTIONS = {"mdta_qkv_kernel", "mdta_dw_kernel", "mdta_gram_kernel", "colsum_kernel<6>", "mdta_attn_kernel",
-                "mdta_av_kernel", "mdta_proj_kernel", "mdta_ffn_in_kernel", "mdta_gate_kernel", "mdta_ffn_out_kernel"}
+# K6's device functions; chunk_epi_kernel<6> runs only where a product is cut along its depth
+K6_FUNCTIONS = {"ln_fwd_kernel<6>", "tc_gemm_kernel<6>", "mdta_dw_kernel", "mdta_gram_kernel", "colsum_kernel<6>",
+                "mdta_attn_kernel", "mdta_av_kernel", "mdta_gate_kernel", "chunk_epi_kernel<6>"}
+K6_CUT_ONLY = {"chunk_epi_kernel<6>"}
 K7_FUNCTIONS = {"k7_pad_kernel", "tc_gemm_kernel<7>", "k7_gate_bwd_kernel", "k7_dw_bwd_kernel", "ln_bwd_kernel<7>",
                 "k7_dattn_kernel", "k7_cspace_kernel", "k7_dqkv_kernel", "colsum_kernel<7>"}
 # each kernel's device functions by name (``colsum_kernel<N>``, ``ln_bwd_kernel<N>`` and
 # ``tc_gemm_kernel<N>`` are the shared passes as kernel N launches them)
 DEVICE_FUNCTIONS = {
-    "naf_block_fused": {"naf_p1_kernel", "naf_sca_kernel", "naf_p2a_kernel", "naf_p2b_kernel", "naf_p2c_kernel"},
+    "naf_block_fused": {"ln_fwd_kernel<1>", "tc_gemm_kernel<1>", "naf_gate_kernel", "naf_sca_kernel",
+                        "naf_scale_kernel", "chunk_epi_kernel<1>"},
     "naf_block_bwd": {"bwd_scale_kernel", "tc_gemm_kernel<2>", "bwd_f1_gate_kernel", "bwd_ln_kernel",
                       "bwd_a_scale_kernel", "bwd_sca_kernel", "bwd_sca_w_kernel", "bwd_d_kernel", "colsum_kernel<2>"},
     "layer_norm_2d": {"ln2d_fwd_kernel", "ln2d_bwd_kernel", "ln2d_sum_kernel"},
@@ -475,7 +487,7 @@ def cuda_ms(fn, iters: int = 10) -> float:
 
 
 # device functions shared by several kernels, their first template argument the owner's number
-OWNED = ("colsum_kernel", "ln_bwd_kernel", "tc_gemm_kernel")
+OWNED = ("colsum_kernel", "ln_bwd_kernel", "ln_fwd_kernel", "tc_gemm_kernel", "chunk_epi_kernel")
 
 
 def kernel_id(key: str) -> str:
@@ -524,47 +536,78 @@ def device_ms_by_function(fn, iters: int) -> tuple[dict[str, float], float]:
 
 
 def check_k1() -> dict:
-    """K1 against its plain twin on the card; returns per-forward totals."""
+    """K1 against its plain twin on the card at the stage and ragged shapes (B =
+    2), in bf16 at two of them, and at the train yml's B = 8 at C = 64, 128 x 128
+    and at the c = 512 stage, each call twice for equal bits; per-forward totals
+    at B = 2 (CUDA events, and the device time as ``device_ms``) beside the
+    bound on the tensor cores (3xTF32 at a third of the TF32 peak) and the SIMT
+    fp32 bound (``simt_bound_ms``); the call at B = 8, C = 64 (``b8_*``, bf16
+    beside it) and each B = 8 call's device time by pass (``swin_ab.pass_split``)."""
     import torch
 
     from dcpt_tpu_torch.ops.naf_block import _kernel_forward, naf_block_fused, naf_block_ref
+    from dcpt_tpu_torch.tools.swin_ab import pass_split, print_split
 
     gen = torch.Generator().manual_seed(1)
-    cases = [(c, s, s, "float32") for c, s, _ in STAGES] + [(c, h, w, "float32") for c, h, w in RAGGED]
-    cases += [(64, 128, 128, "bfloat16"), (512, 16, 16, "bfloat16")]
-    per_block = {}
+    cases = [(2, c, s, s, "float32") for c, s, _ in STAGES] + [(2, c, h, w, "float32") for c, h, w in RAGGED]
+    cases += [(2, 64, 128, 128, "bfloat16"), (2, 512, 16, 16, "bfloat16")]
+    cases += [(8, 64, 128, 128, "float32"), (8, 512, 16, 16, "float32"), (8, 64, 128, 128, "bfloat16")]
+    per_block, splits = {}, {}
     worst = {"float32": 0.0, "bfloat16": 0.0}
-    print(f"  {'C':>5} {'H':>4} {'W':>4} {'dtype':>9} {'max_abs':>10} {'rel':>10} {'kernel_ms':>10} {'plain_ms':>10} "
-          f"{'train_ms':>10}")
-    for c, h, w, dname in cases:
+    print(f"  {'B':>2} {'C':>5} {'H':>4} {'W':>4} {'dtype':>9} {'max_abs':>10} {'rel':>10} {'kernel_ms':>10} "
+          f"{'plain_ms':>10} {'train_ms':>10} {'device_ms':>10}  (kernel_ms, plain_ms, train_ms: CUDA events around "
+          f"back-to-back calls; device_ms: the kernel's device time per call, torch.profiler)")
+    for batch, c, h, w, dname in cases:
         dtype = getattr(torch, dname)
-        x = torch.randn(2, h, w, c, generator=gen).to(device="cuda", dtype=dtype)
+        x = torch.randn(batch, h, w, c, generator=gen).to(device="cuda", dtype=dtype)
         params = random_block_params(c, gen, dtype, "cuda")
         # the twin computes in fp32 on the same (rounded) inputs; the kernel's math is fp32 too
         xf, pf = x.float(), [p.float() for p in params]
         z = naf_block_fused(x, *params)
+        again = naf_block_fused(x, *params)
         ref = naf_block_ref(xf, *pf)
         torch.cuda.synchronize()
         if z.shape != x.shape or z.dtype != dtype or not torch.isfinite(z).all():
-            raise RuntimeError(f"K1 C={c} {h}x{w} {dname}: bad output {z.shape} {z.dtype}")
+            raise RuntimeError(f"K1 B={batch} C={c} {h}x{w} {dname}: bad output {z.shape} {z.dtype}")
+        if not torch.equal(z, again):
+            raise RuntimeError(f"K1 B={batch} C={c} {h}x{w} {dname}: two runs on the same inputs differ")
         err = (z.float() - ref).abs().max().item()
         rel = err / max(1.0, ref.abs().max().item())
-        k_ms = cuda_ms(lambda: naf_block_fused(x, *params))
+        kernel = lambda: naf_block_fused(x, *params)  # noqa: E731
+        k_ms = cuda_ms(kernel)
         p_ms = cuda_ms(lambda: naf_block_ref(x, *params))
+        # a call at the deep stages is a few microseconds of device work a launch: time the device too
+        stage = batch == 2 and dname == "float32" and h == w and (c, h) in {(sc, ss) for sc, ss, _ in STAGES}
+        d_ms = sum(device_ms_by_function(kernel, 10)[0].values()) if stage else float("nan")
         # the differentiated forward, which also writes the residuals K2 reads (fp32 only)
         t_ms = cuda_ms(lambda: _kernel_forward(x, params, 1e-6, residuals=True)) if dname == "float32" else float("nan")
-        print(f"  {c:>5} {h:>4} {w:>4} {dname:>9} {err:>10.3e} {rel:>10.3e} {k_ms:>10.4f} {p_ms:>10.4f} {t_ms:>10.4f}")
+        print(f"  {batch:>2} {c:>5} {h:>4} {w:>4} {dname:>9} {err:>10.3e} {rel:>10.3e} {k_ms:>10.4f} {p_ms:>10.4f} "
+              f"{t_ms:>10.4f} {d_ms:>10.4f}", flush=True)
         if rel > TOL[dname]:
-            raise RuntimeError(f"K1 C={c} {h}x{w} {dname}: error {rel:.3e} above {TOL[dname]:.0e}")
+            raise RuntimeError(f"K1 B={batch} C={c} {h}x{w} {dname}: error {rel:.3e} above {TOL[dname]:.0e}")
         worst[dname] = max(worst[dname], err)
-        if dname == "float32":
-            per_block[(c, h, w)] = (k_ms, p_ms)
+        per_block[(batch, c, h, w, dname)] = (k_ms, p_ms, d_ms)
+        if batch == 8:
+            splits[(c, dname)] = pass_split(kernel)
+            print_split(f"  K1 at B={batch}, C={c}, {h}x{w}, {dname}, by pass", splits[(c, dname)])
+            if not splits[(c, dname)]:
+                raise NoDeviceTime("torch.profiler recorded no device time for K1's passes")
+        del z, again, ref
+    print("  K1 twice on the same inputs: equal bit for bit at every shape", flush=True)
     # one NAFNet-w64 forward at B = 2, 128 x 128: every stage's blocks
-    ms = sum(n * per_block[(c, s, s)][0] for c, s, n in STAGES)
-    plain_ms = sum(n * per_block[(c, s, s)][1] for c, s, n in STAGES)
-    bound_ms, bound_by = bound([(n, *k1_work(c, 2 * s * s)) for c, s, n in STAGES])
+    ms = sum(n * per_block[(2, c, s, s, "float32")][0] for c, s, n in STAGES)
+    plain_ms = sum(n * per_block[(2, c, s, s, "float32")][1] for c, s, n in STAGES)
+    device_ms = sum(n * per_block[(2, c, s, s, "float32")][2] for c, s, n in STAGES)
+    work = [(n, *k1_work(c, 2 * s * s)) for c, s, n in STAGES]
+    bound_ms, bound_by = bound(work, PEAK_TF32_FLOPS / 3)
+    b8_work = [(1, *k1_work(64, 8 * 128 * 128))]
+    b8 = per_block[(8, 64, 128, 128, "float32")]
     return {"max_abs_err": worst["float32"], "bf16_max_abs_err": worst["bfloat16"], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "device_ms": device_ms, "bound_ms": bound_ms, "bound_by": bound_by, "simt_bound_ms": bound(work)[0],
+            "library_ms": None,
+            "b8_ms": b8[0], "b8_plain_ms": b8[1], "b8_bf16_ms": per_block[(8, 64, 128, 128, "bfloat16")][0],
+            "b8_bound_ms": bound(b8_work, PEAK_TF32_FLOPS / 3)[0], "b8_simt_bound_ms": bound(b8_work)[0],
+            "b8_c512_ms": per_block[(8, 512, 16, 16, "float32")][0], "b8_split": splits[(64, "float32")]}
 
 
 def write_datasets(seed: int = 0) -> list[str]:
@@ -993,7 +1036,7 @@ def check_step_gradients(model, label: str = "[7]", batch_size: int = 8, float64
     torch.cuda.empty_cache()
 
     batch = grad_batch(float64_batch)
-    ref, ref_losses, sens, plain_loss = float64_reference(model, batch)
+    ref, ref_losses, sens, plain_loss, plain_median = float64_reference(model, batch)
     kernel_errs, kernel_losses = grad_check.run_errors(model, batch, ref)
     model.feed_data(batch)
     report = grad_check.compare(grad_check.path_error(kernel_errs), kernel_losses, ref, ref_losses, sens,
@@ -1007,7 +1050,8 @@ def check_step_gradients(model, label: str = "[7]", batch_size: int = 8, float64
           f"max|ref|): kernel path, the median of its {runs} runs: {grad_check.describe(report)}; its run as it is "
           f"alone: worst {as_is['worst_rel']:.3e} ({as_is['worst']}), {as_is['worst_ratio']:.3f} of its limit; losses "
           f"kernel {kernel_losses}, float64 {ref_losses}; the plain fp32 runs' own loss departures from float64 "
-          f"{_fmt(plain_loss)} (each loss's limit max({grad_check.LOSS_TOL:.0e}, K x its departure))", flush=True)
+          f"{_fmt(plain_loss)} (each loss's limit max({grad_check.LOSS_TOL:.0e}, K x its departure)); their own "
+          f"median error {plain_median:.3e}", flush=True)
     if not ks[ks_name] <= 1:
         raise RuntimeError(f"gradient {ks_name} through the kernels differs from the plain path by {rel[ks_name]:.3e} "
                            f"of its max|ref|, {ks[ks_name]:.3f} of its limit")
@@ -1021,12 +1065,14 @@ def _fmt(values: dict) -> str:
     return ", ".join(f"{k} {v:.3e}" for k, v in values.items())
 
 
-def float64_reference(model, batch: dict) -> tuple[dict, dict, dict, dict]:
+def float64_reference(model, batch: dict) -> tuple[dict, dict, dict, dict, float]:
     """The plain path's step on ``batch`` in float64: its gradients and losses,
     each tensor's rounding sensitivity from five plain fp32 runs
-    (``dcpt_tpu_torch.tools.grad_check``), and each loss's largest departure
+    (``dcpt_tpu_torch.tools.grad_check``), each loss's largest departure
     in those runs from float64, which sets that loss's limit
-    (``grad_check.compare``)."""
+    (``grad_check.compare``), and the plain runs' own median error over
+    tensors, the statistic the median rule holds a kernel path to (printed
+    beside it; not a limit)."""
     import torch
 
     from dcpt_tpu_torch.tools import grad_check
@@ -1034,8 +1080,9 @@ def float64_reference(model, batch: dict) -> tuple[dict, dict, dict, dict]:
     runs_losses = []
     with plain_path():
         ref, ref_losses = grad_check.step_grads(model, batch, torch.float64)
-        sens = grad_check.rounding_sensitivity(grad_check.run_errors(model, batch, ref, runs_losses=runs_losses)[0])
-    return ref, ref_losses, sens, grad_check.loss_departure(runs_losses, ref_losses)
+        plain_errs = grad_check.run_errors(model, batch, ref, runs_losses=runs_losses)[0]
+    return (ref, ref_losses, grad_check.rounding_sensitivity(plain_errs), grad_check.loss_departure(runs_losses, ref_losses),
+            grad_check.median_rel(grad_check.path_error(plain_errs), ref))
 
 
 def check_bwd_in_step(model, label: str, function, ref, tol: float, calls: int | None = None,
@@ -1194,37 +1241,47 @@ def mdta_params(c: int, heads: int, gen, dtype, device):
 
 def check_k6() -> dict:
     """K6 against its plain version on the card at the stage, noise-level and
-    ragged shapes in both flavours (B = 1), each call twice for equal bits;
-    totals per Restormer and per PromptIR forward at 128 x 128: device time
-    (``ms``, ``plain_ms``) and CUDA events around back-to-back calls (``call_ms``)."""
+    ragged shapes in both flavours (B = 1), in bf16 at two stages, and at the
+    train ymls' B = 8 at the 128 x 128 stages (fp32 in both flavours, bf16 in
+    Restormer's), each call twice for equal bits; totals per Restormer and per
+    PromptIR forward at 128 x 128: device time (``ms``, ``plain_ms``) and CUDA
+    events around back-to-back calls (``call_ms``) beside the bound on the
+    tensor cores (3xTF32 at a third of the TF32 peak) and the SIMT fp32 bound
+    (``simt_bound_ms``); the call at B = 8, C = 48, ReLU (``b8_*``) and each
+    B = 8 call's device time by pass (``swin_ab.pass_split``)."""
     import torch
 
     from dcpt_tpu_torch.ops.mdta_block import mdta_block_fused, mdta_block_ref
+    from dcpt_tpu_torch.tools.swin_ab import pass_split, print_split
 
     gen = torch.Generator().manual_seed(9)
     names = {RESTORMER_FLAVOUR: "relu", PROMPTIR_FLAVOUR: "softmax"}
-    cases = [(s, s, c, heads, RESTORMER_FLAVOUR, "float32") for c, s, heads in K6_BODY]
-    cases += [(s, s, c, heads, PROMPTIR_FLAVOUR, "float32") for c, s, heads in [*K6_BODY, *K6_NOISE]]
-    cases += [(h, w, c, heads, fl, "float32") for h, w, c, heads in K6_RAGGED for fl in names]
-    cases += [(s, s, c, heads, fl, "bfloat16") for c, s, heads in [(48, 128, 1), (384, 16, 8)] for fl in names]
-    times, worst = {}, {"float32": 0.0, "bfloat16": 0.0}
-    print(f"  {'C':>4} {'H':>4} {'W':>4} {'heads':>5} {'act':>7} {'dtype':>9} {'max_abs':>10} {'rel':>10} "
-          f"{'kernel_ms':>10} {'plain_ms':>10} {'call_ms':>10} {'plain_call':>10} {'bound_ms':>10}  (kernel_ms, "
-          f"plain_ms: device time per call, torch.profiler; call_ms: CUDA events around back-to-back calls)")
+    cases = [(1, s, s, c, heads, RESTORMER_FLAVOUR, "float32") for c, s, heads in K6_BODY]
+    cases += [(1, s, s, c, heads, PROMPTIR_FLAVOUR, "float32") for c, s, heads in [*K6_BODY, *K6_NOISE]]
+    cases += [(1, h, w, c, heads, fl, "float32") for h, w, c, heads in K6_RAGGED for fl in names]
+    cases += [(1, s, s, c, heads, fl, "bfloat16") for c, s, heads in [(48, 128, 1), (384, 16, 8)] for fl in names]
+    cases += [(8, s, s, c, heads, fl, "float32") for c, s, heads in K7_BATCH8 for fl in names]
+    cases += [(8, s, s, c, heads, RESTORMER_FLAVOUR, "bfloat16") for c, s, heads in K7_BATCH8[:1]]
+    times, worst, splits = {}, {"float32": 0.0, "bfloat16": 0.0}, {}
+    print(f"  {'B':>2} {'C':>4} {'H':>4} {'W':>4} {'heads':>5} {'act':>7} {'dtype':>9} {'max_abs':>10} {'rel':>10} "
+          f"{'kernel_ms':>10} {'plain_ms':>10} {'call_ms':>10} {'plain_call':>10} {'bound_ms':>10} {'simt_bound':>10}  "
+          f"(kernel_ms, plain_ms: device time per call, torch.profiler; call_ms: CUDA events around back-to-back "
+          f"calls; bound_ms: 3xTF32 on the tensor cores; simt_bound: fp32 outside them)")
     with torch.no_grad():
-        for h, w, c, heads, flavour, dname in cases:
+        for batch, h, w, c, heads, flavour, dname in cases:
             dtype = getattr(torch, dname)
-            x = torch.randn(1, h, w, c, generator=gen).to(device="cuda", dtype=dtype)
+            x = torch.randn(batch, h, w, c, generator=gen).to(device="cuda", dtype=dtype)
             params = mdta_params(c, heads, gen, dtype, "cuda")
             z = mdta_block_fused(x, *params, heads, *flavour)
             again = mdta_block_fused(x, *params, heads, *flavour)
             # the plain version computes in fp32 on the same (rounded) inputs; the kernel's math is fp32 too
             ref = mdta_block_ref(x.float(), *[p.float() for p in params], heads, *flavour)
             torch.cuda.synchronize()
+            label = f"K6 B={batch} C={c} {h}x{w} {names[flavour]} {dname}"
             if z.shape != x.shape or z.dtype != dtype or not torch.isfinite(z).all():
-                raise RuntimeError(f"K6 C={c} {h}x{w} {dname}: bad output {tuple(z.shape)} {z.dtype}")
+                raise RuntimeError(f"{label}: bad output {tuple(z.shape)} {z.dtype}")
             if not torch.equal(z, again):
-                raise RuntimeError(f"K6 C={c} {h}x{w} {dname}: two runs on the same inputs differ")
+                raise RuntimeError(f"{label}: two runs on the same inputs differ")
             err = (z.float() - ref).abs().max().item()
             rel = err / max(1.0, ref.abs().max().item())
             kernel = lambda: mdta_block_fused(x, *params, heads, *flavour)  # noqa: E731
@@ -1232,30 +1289,47 @@ def check_k6() -> dict:
             # each call is a few hundred microseconds of host work (allocations, a dozen launches),
             # so CUDA events around back-to-back calls can measure the host: time the device too
             k_funcs = device_ms_by_function(kernel, 10)[0]
-            if set(k_funcs) != K6_FUNCTIONS:
-                raise RuntimeError(f"K6's profile shows {sorted(k_funcs)}, expected {sorted(K6_FUNCTIONS)}")
+            if not K6_FUNCTIONS - K6_CUT_ONLY <= set(k_funcs) <= K6_FUNCTIONS:
+                raise RuntimeError(f"{label}: the profile shows {sorted(k_funcs)}, expected "
+                                   f"{sorted(K6_FUNCTIONS - K6_CUT_ONLY)} and at most {sorted(K6_CUT_ONLY)} besides")
             k_ms, p_ms = sum(k_funcs.values()), sum(device_ms_by_function(plain, 10)[0].values())
             k_call, p_call = cuda_ms(kernel), cuda_ms(plain)
-            b_ms = bound([(1, *k6_work(c, int(2.66 * c), c // heads, h * w))])[0]
-            print(f"  {c:>4} {h:>4} {w:>4} {heads:>5} {names[flavour]:>7} {dname:>9} {err:>10.3e} {rel:>10.3e} "
-                  f"{k_ms:>10.4f} {p_ms:>10.4f} {k_call:>10.4f} {p_call:>10.4f} {b_ms:>10.4f}", flush=True)
+            work = [(1, *k6_work(c, int(2.66 * c), c // heads, batch * h * w))]
+            b_ms, simt_ms = bound(work, PEAK_TF32_FLOPS / 3)[0], bound(work)[0]
+            print(f"  {batch:>2} {c:>4} {h:>4} {w:>4} {heads:>5} {names[flavour]:>7} {dname:>9} {err:>10.3e} "
+                  f"{rel:>10.3e} {k_ms:>10.4f} {p_ms:>10.4f} {k_call:>10.4f} {p_call:>10.4f} {b_ms:>10.4f} "
+                  f"{simt_ms:>10.4f}", flush=True)
             if rel > TOL[dname]:
-                raise RuntimeError(f"K6 C={c} {h}x{w} {names[flavour]} {dname}: error {rel:.3e} above {TOL[dname]:.0e}")
+                raise RuntimeError(f"{label}: error {rel:.3e} above {TOL[dname]:.0e}")
             worst[dname] = max(worst[dname], rel)
-            if dname == "float32" and h == w:
+            if dname == "float32" and h == w and batch == 1:
                 times[(c, h, heads, flavour)] = (k_ms, p_ms, k_call, p_call)
+            if batch == 8:
+                times[(8, c, flavour, dname)] = (k_ms, p_ms, k_call, p_call, b_ms, simt_ms)
+                splits[(c, flavour, dname)] = pass_split(kernel)
+                print_split(f"  K6 at B=8, C={c}, {h}x{w}, {names[flavour]}, {dname}, by pass",
+                            splits[(c, flavour, dname)])
+                if not splits[(c, flavour, dname)]:
+                    raise NoDeviceTime("torch.profiler recorded no device time for K6's passes")
+            del z, again, ref
     print("  K6 twice on the same inputs: equal bit for bit at every shape", flush=True)
     per_net = {"Restormer": [(n, key, RESTORMER_FLAVOUR) for key, n in K6_BODY.items()],
                "PromptIR": [(n, key, PROMPTIR_FLAVOUR) for key, n in [*K6_BODY.items(), *K6_NOISE.items()]]}
-    out = {"max_abs_err": worst["float32"], "bf16_rel_err": worst["bfloat16"], "library_ms": None}
+    c8 = K7_BATCH8[0][0]
+    b8 = times[(8, c8, RESTORMER_FLAVOUR, "float32")]
+    out = {"max_abs_err": worst["float32"], "bf16_rel_err": worst["bfloat16"], "library_ms": None, "b8_ms": b8[0],
+           "b8_plain_ms": b8[1], "b8_call_ms": b8[2], "b8_bound_ms": b8[4], "b8_simt_bound_ms": b8[5],
+           "b8_bf16_ms": times[(8, c8, RESTORMER_FLAVOUR, "bfloat16")][0],
+           "b8_split": splits[(c8, RESTORMER_FLAVOUR, "float32")]}
     for net, blocks in per_net.items():
-        bound_ms, bound_by = bound([(n, *k6_work(c, int(2.66 * c), c // heads, s * s)) for n, (c, s, heads), _ in blocks])
+        work = [(n, *k6_work(c, int(2.66 * c), c // heads, s * s)) for n, (c, s, heads), _ in blocks]
+        bound_ms, bound_by = bound(work, PEAK_TF32_FLOPS / 3)
         ms, plain_ms, call_ms, plain_call_ms = (sum(n * times[(*key, fl)][i] for n, key, fl in blocks)
                                                 for i in range(4))
         prefix = "" if net == "Restormer" else "promptir_"
         out.update({f"{prefix}ms": ms, f"{prefix}plain_ms": plain_ms, f"{prefix}call_ms": call_ms,
                     f"{prefix}plain_call_ms": plain_call_ms, f"{prefix}bound_ms": bound_ms,
-                    f"{prefix}bound_by": bound_by})
+                    f"{prefix}bound_by": bound_by, f"{prefix}simt_bound_ms": bound(work)[0]})
     return out
 
 
@@ -2040,16 +2114,18 @@ def float64_states(states: int, arch: str = "SwinIR") -> dict:
     batch = grad_batch(batch_size)
     passed = {route: 0 for route in routes}
     ratios = {route: [] for route in routes}
-    plain_losses = []
+    plain_losses, plain_medians, medians = [], [], {route: [] for route in routes}
     for state in range(states):
         for k in range(2 if state else 0):
             model.feed_data(grad_batch(8, seed=100 + 2 * state + k))
             model.optimize_parameters(0)
-        ref, ref_losses, sens, plain_loss = float64_reference(model, batch)
+        ref, ref_losses, sens, plain_loss, plain_median = float64_reference(model, batch)
         plain_losses.append(plain_loss)
+        plain_medians.append(plain_median)
         print(f"[float64 states] {arch} state {state} ({TRAIN_ITERS + 2 * state} steps), batch {batch_size}: the "
               f"plain fp32 runs' loss departures from float64 {_fmt(plain_loss)} (each loss's limit max("
-              f"{grad_check.LOSS_TOL:.0e}, K x its departure))", flush=True)
+              f"{grad_check.LOSS_TOL:.0e}, K x its departure)); their own median error over tensors "
+              f"{plain_median:.3e} (the routes' median limit {grad_check.MEDIAN:.0e})", flush=True)
         for route, ctx in routes.items():
             with ctx():
                 errs, losses = grad_check.run_errors(model, batch, ref)
@@ -2057,15 +2133,19 @@ def float64_states(states: int, arch: str = "SwinIR") -> dict:
                                         plain_loss=plain_loss)
             passed[route] += report["ok"]
             ratios[route].append(report["worst_ratio"])
+            medians[route].append(report["median"])
             print(f"[float64 states] {arch} state {state}, {route}: {'pass' if report['ok'] else 'FAIL'}; "
                   f"{grad_check.describe(report)}", flush=True)
     for route in routes:
         print(f"[float64 states] {arch}, {route}: passed {passed[route]} of {states}; worst share of a limit by "
-              f"state " + ", ".join(f"{r:.3f}" for r in ratios[route]), flush=True)
+              f"state " + ", ".join(f"{r:.3f}" for r in ratios[route]) + "; median error by state "
+              + ", ".join(f"{m:.3e}" for m in medians[route]), flush=True)
     worst_plain = {k: max(p[k] for p in plain_losses) for k in plain_losses[0]}
     print(f"[float64 states] {arch}: the plain fp32 runs' worst loss departure over the states {_fmt(worst_plain)} "
-          f"(LOSS_TOL {grad_check.LOSS_TOL:.0e})", flush=True)
-    return {"arch": arch, "states": states, "passed": passed, "ratios": ratios, "plain_losses": plain_losses}
+          f"(LOSS_TOL {grad_check.LOSS_TOL:.0e}); their own median error by state "
+          + ", ".join(f"{m:.3e}" for m in plain_medians), flush=True)
+    return {"arch": arch, "states": states, "passed": passed, "ratios": ratios, "medians": medians,
+            "plain_losses": plain_losses, "plain_medians": plain_medians}
 
 
 def _k45_library(x, p):
@@ -3047,10 +3127,13 @@ def main() -> int:
           f"{', '.join(f'{b:.1f}' for b in build_s)} s (nvcc, in parallel), "
           f"phase {time.perf_counter() - t0:.1f} s", flush=True)
 
-    print("[3] K1 naf_block_fused vs naf_block_ref, B=2, TF32 off", flush=True)
+    print("[3] K1 naf_block_fused vs naf_block_ref, B=2 (and 8 at C=64 and 512), TF32 off", flush=True)
     k1 = run_phase(check_k1)
-    print(f"[3] K1 per NAFNet-w64 forward (B=2, 128x128, 36 blocks): kernel {k1['ms']:.3f} ms, "
-          f"plain {k1['plain_ms']:.3f} ms, bound {k1['bound_ms']:.3f} ms ({k1['bound_by']})", flush=True)
+    print(f"[3] K1 per NAFNet-w64 forward (B=2, 128x128, 36 blocks): kernel {k1['ms']:.3f} ms (device "
+          f"{k1['device_ms']:.3f} ms), plain {k1['plain_ms']:.3f} ms, bound {k1['bound_ms']:.3f} ms ({k1['bound_by']}, 3xTF32 on the tensor "
+          f"cores; SIMT fp32 {k1['simt_bound_ms']:.3f} ms); one call at B=8, C=64: {k1['b8_ms']:.3f} ms (bf16 "
+          f"{k1['b8_bf16_ms']:.3f} ms, plain {k1['b8_plain_ms']:.3f} ms, bound {k1['b8_bound_ms']:.3f} ms, SIMT fp32 "
+          f"{k1['b8_simt_bound_ms']:.3f} ms)", flush=True)
 
     force = run_phase(run_slice)
 
@@ -3075,14 +3158,17 @@ def main() -> int:
     # in the process (each loader's workers take about 7 s to start, some 100 s over the script)
     in_process = [*train["force"], "datasets:train:num_worker_per_gpu=0"]
 
-    print("[8] K6 mdta_block_fused vs mdta_block_ref, B=1, TF32 off; limits 1e-4 (fp32), 2e-2 (bf16) relative to "
-          "max(1, max|ref|)", flush=True)
+    print("[8] K6 mdta_block_fused vs mdta_block_ref, B=1 (and 8 at 128x128), TF32 off; limits 1e-4 (fp32), 2e-2 "
+          "(bf16) relative to max(1, max|ref|)", flush=True)
     k6 = run_phase(check_k6)
     for net, pre, blocks in (("Restormer", "", 44), ("PromptIR", "promptir_", 47)):
         print(f"[8] K6 per {net} forward (128x128, {blocks} blocks): device {k6[pre + 'ms']:.3f} ms (plain "
               f"{k6[pre + 'plain_ms']:.3f} ms), back-to-back calls {k6[pre + 'call_ms']:.3f} ms (plain "
-              f"{k6[pre + 'plain_call_ms']:.3f} ms), bound {k6[pre + 'bound_ms']:.3f} ms ({k6[pre + 'bound_by']})",
-              flush=True)
+              f"{k6[pre + 'plain_call_ms']:.3f} ms), bound {k6[pre + 'bound_ms']:.3f} ms ({k6[pre + 'bound_by']}, "
+              f"3xTF32 on the tensor cores; SIMT fp32 {k6[pre + 'simt_bound_ms']:.3f} ms)", flush=True)
+    print(f"[8] K6 one call at B=8, C={K7_BATCH8[0][0]}, 128x128, relu: device {k6['b8_ms']:.3f} ms (bf16 "
+          f"{k6['b8_bf16_ms']:.3f} ms, plain {k6['b8_plain_ms']:.3f} ms), back-to-back calls {k6['b8_call_ms']:.3f} "
+          f"ms, bound {k6['b8_bound_ms']:.3f} ms (SIMT fp32 {k6['b8_simt_bound_ms']:.3f} ms)", flush=True)
 
     k6_launches = run_phase(run_transformer_slices, force)
 
@@ -3222,8 +3308,10 @@ def main() -> int:
                         "launches": launches[name], "max_abs_err": measured["max_abs_err"],
                         "ms": measured["ms"], "plain_ms": measured["plain_ms"], "bound_ms": measured["bound_ms"],
                         "bound_by": measured["bound_by"], "library_ms": measured["library_ms"]})
-    kernels[3].update(launches_promptir=k6_launches["PromptIR"], call_ms=k6["call_ms"],
-                      **{k: v for k, v in k6.items() if k.startswith("promptir_") and k != "promptir_bound_by"})
+    kernels[0].update({k: v for k, v in k1.items() if k not in kernels[0] and k != "b8_split"})
+    kernels[3].update(launches_promptir=k6_launches["PromptIR"],
+                      **{k: v for k, v in k6.items()
+                         if k not in kernels[3] and k not in ("promptir_bound_by", "b8_split")})
     for entry in kernels[5:7]:
         entry.update(launches_per_image=SWIN_PER_FORWARD, call_ms=swin[entry["name"]]["call_ms"],
                      plain_call_ms=swin[entry["name"]]["plain_call_ms"],

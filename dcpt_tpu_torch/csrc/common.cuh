@@ -45,6 +45,55 @@ __device__ __forceinline__ float dw3x3(const float* __restrict__ in, const T* __
   return s;
 }
 
+// Depthwise 3x3 (cross-correlation, as F.conv2d, zero outside the image) of
+// the N channels ch[i] of a (B, H, W, ld_) fp32 map along pixels [x0, x1) of
+// image row y, img the image's first pixel (x0 < W): one thread keeps each
+// channel's 3 x 3 window in registers, three new elements of each a pixel,
+// and calls out(x, s) with s[i] = init[i] + the stencil's sum at ch[i],
+// taken in dw3x3's order; w (channels, 3, 3).
+template <int N, typename TW, class Out>
+__device__ __forceinline__ void dw3x3_walk(const float* __restrict__ in, const TW* __restrict__ w, const int (&ch)[N],
+                                           const float (&init)[N], size_t img, int y, int x0, int x1, int H, int W,
+                                           int ld_, Out out) {
+  const float* row[3];  // rows y - 1, y, y + 1 (null outside the image)
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+    row[r] = y + r - 1 >= 0 && y + r - 1 < H ? in + (img + (size_t)(y + r - 1) * W) * ld_ : nullptr;
+  float wt[N][9], win[N][3][3];  // win[i][r][k]: channel ch[i] at (y + r - 1, x + k - 1)
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int k = 0; k < 9; ++k) wt[i][k] = ld(w[(size_t)ch[i] * 9 + k]);
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+      win[i][r][0] = row[r] && x0 > 0 ? row[r][(size_t)(x0 - 1) * ld_ + ch[i]] : 0.f;
+      win[i][r][1] = row[r] ? row[r][(size_t)x0 * ld_ + ch[i]] : 0.f;
+    }
+  }
+  for (int x = x0; x < x1; ++x) {
+    const bool next = x + 1 < W;
+#pragma unroll
+    for (int i = 0; i < N; ++i)  // every new element's load first, then the sums
+#pragma unroll
+      for (int r = 0; r < 3; ++r) win[i][r][2] = row[r] && next ? row[r][(size_t)(x + 1) * ld_ + ch[i]] : 0.f;
+    float s[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      s[i] = init[i];
+#pragma unroll
+      for (int r = 0; r < 3; ++r)
+#pragma unroll
+        for (int k = 0; k < 3; ++k) s[i] = fmaf(win[i][r][k], wt[i][r * 3 + k], s[i]);
+#pragma unroll
+      for (int r = 0; r < 3; ++r) {
+        win[i][r][0] = win[i][r][1];
+        win[i][r][1] = win[i][r][2];
+      }
+    }
+    out(x, s);
+  }
+}
+
 // out[b][r'][c] = sum over r in [r' * kSumRows, (r' + 1) * kSumRows) of in[b][r][c],
 // in row order; a row of in is lda elements apart, a row of out Cn.  Owner is the
 // number of the kernel that calls it (K2, K3, K6, K7, K9), so a profile tells their sums apart.

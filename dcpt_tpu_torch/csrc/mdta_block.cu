@@ -1,12 +1,13 @@
-// Whole Restormer / PromptIR TransformerBlock forward on Hopper (sm_90a): SIMT
-// fp32 math, fp32 or bf16 I/O.
+// Whole Restormer / PromptIR TransformerBlock forward on Hopper (sm_90a): fp32
+// math, fp32 or bf16 I/O; the 1x1 products on the tensor cores.
 //
 // Replaces the TPU kernel dcpt_tpu/ops/mdta_block.py::mdta_block_fused
 // (_block_pallas: _p1_kernel, the host _attn_from_stats, _p2_kernel).  It
 // computes what mdta_block_ref computes on a (B, H, W, C) channels-last map
 // with heads heads of ch = C / heads channels and an FFN of F channels:
 //
-//   pass 1  qkv    t = LN1(x) . Wqkv^T                      (B, HW, 3C) fp32
+//   pass 1  ln1    LN1(x)                                    (B, HW, C) fp32 scratch
+//           qkv    t = LN1(x) . Wqkv^T                      (B, HW, 3C) fp32
 //           dw     qkv = depthwise 3x3 of t, zero outside    (B, HW, 3C) fp32
 //           gram   per (pixel chunk, head, 64 x 64 tile): the raw Gram
 //                  q_h^T k_h of the head's ch x ch block, |q|^2 and |k|^2,
@@ -17,6 +18,7 @@
 //                  softmax over the block (the off-block logits are -inf)
 //   pass 2  av     o = v . attn^T, each column block only over its heads' rows
 //           proj   y = x + o . Wproj^T                       (B, HW, C) fp32
+//           ln2    LN2(y)                                    (B, HW, C) fp32 scratch
 //           ffnin  u = LN2(y) . Win^T                        (B, HW, 2F) fp32
 //           gate   g = gelu(dw(u)[:F]) * dw(u)[F:], exact erf (B, HW, F) fp32
 //           ffnout z = y + g . Wout^T                        (B, HW, C) I/O type
@@ -33,15 +35,27 @@
 // taken (C = 48 ... 704, F = 127 ... 1872 and ch = 40 ... 176 on the shipped nets).
 //
 // What bounds it on this card: 2 (3C^2 + C^2 + 3FC + 2C ch) + 18 (3C + 2F)
-// flops per pixel, about 24 C^2 at F = 2.66 C: operations, at every stage of
-// the shipped nets, run here on the SIMT fp32 pipes from shared memory.  Each
-// product is a grid of 16 * RM-pixel x 64-column blocks with the weight
-// streamed through shared memory in 32-deep chunks (gemm.cuh's inner loop),
-// so its ceiling is shared-memory bandwidth, and the grid is sized so that
-// hundreds of blocks fill the card at the deep, small stages too.  The
-// intermediate maps (t, qkv, o, y, u, g) go through device memory, which
-// costs about 3 KB per pixel at C = 48 (they stay mostly in the 50 MB L2 at
-// 128 x 128); fusing them into halo tiles, and wgmma/TMA tiles, are the next steps.
+// flops per pixel, about 24 C^2 at F = 2.66 C, over 90 % of them in the four
+// 1x1 products: operations, at every stage of the shipped nets.  Those run on
+// the tensor cores through tc_gemm.cuh (token_bwd.cuh's product_epi, a
+// PyTorch (out, in) weight read k-major): 96 x 96 tiles of mma.sync m16n8k8
+// TF32 with fp32 sums, three MMAs a step for two fp32 operands (3xTF32, fp32
+// accuracy; 495 / 3 TFLOP/s against the SIMT pipes' 67), two for an fp32 map
+// and a bf16 weight.  The product stages its operands raw by cp.async, so
+// each LayerNorm is written once (ln_fwd_kernel, one row a warp) and read as
+// the product's A; the residual add and the cast to the I/O type are
+// epilogues.  Where a product's tiles leave the card idle (C = 384 on 16 x 16
+// at B = 8 is 2048 rows, 88 tiles of ffn_out for 132 SMs) it is cut along its
+// depth and its chunks added in a fixed order before the epilogue
+// (chunk_epi_kernel); below 1024 rows (B = 1 on the deep stages) the cut's
+// extra launches would cost the host more than they save the device, so it is
+// not (kForwardMinCutRows).  At F = 127, 255, 510 the rows of g and Wout are
+// no multiple of 4 floats, so ffn_out stages them by 4-byte copies.  The Gram
+// and av (2 C ch of the 12 C^2 multiply-adds a pixel) stay SIMT (gemm.cuh);
+// the depthwise and gate passes walk image-row segments with their 3 x 3
+// windows in registers (dw3x3_walk); the intermediate maps (t, qkv, o, y, u,
+// g and the LayerNorms' outputs) go through device memory, mostly the 50 MB
+// L2 at 128 x 128.  wgmma/TMA tiles and halo fusion are the next steps.
 //
 // Weights come in PyTorch's layout: every 1x1 as (out, in) row-major, the
 // depthwise 3x3 as (channels, 3, 3), temperature as (heads,).
@@ -50,6 +64,8 @@
 
 #include "common.cuh"
 #include "gemm.cuh"
+#include "tc_gemm.cuh"
+#include "token_bwd.cuh"
 
 namespace {
 
@@ -60,71 +76,33 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// LayerNorm statistics of the rows p < np of a (rows, C) map at `rows`, one
-// warp per row, into sMu[p] and sRs[p] = 1 / sqrt(var + eps) (biased variance).
-template <typename T>
-__device__ __forceinline__ void ln_stats(const T* __restrict__ rows, int np, int P, int C, float eps, float* sMu,
-                                         float* sRs) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int p = warp; p < P; p += kThreads / 32) {
-    const bool in = p < np;
-    const T* row = rows + (in ? (size_t)p * C : 0);
-    float s = 0.f;
-    if (in)
-      for (int c = lane; c < C; c += 32) s += ld(row[c]);
-    const float mu = warp_sum(s) / C;
-    float v = 0.f;
-    if (in)
-      for (int c = lane; c < C; c += 32) {
-        const float d = ld(row[c]) - mu;
-        v += d * d;
-      }
-    v = warp_sum(v);
-    if (lane == 0) {
-      sMu[p] = mu;
-      sRs[p] = 1.f / sqrtf(v / C + eps);
-    }
-  }
+constexpr int kRowC = 32;  // dw, gate: channels of a block (a warp's lanes)
+constexpr int kSeg = 32;   // dw, gate: pixels of an image row a thread walks
+
+__host__ __device__ inline int num_segments(int W) { return (W + kSeg - 1) / kSeg; }
+
+// The dw and gate passes' grid over D channels: blocks of kRowC channels x
+// kThreads / kRowC (image row, segment) pairs, and B.
+inline dim3 walk_grid(int B, int H, int W, int D) {
+  constexpr int pairs = kThreads / kRowC;
+  return dim3((H * num_segments(W) + pairs - 1) / pairs, (D + kRowC - 1) / kRowC, B);
 }
 
-// LN(rows)[p][k] with the statistics in sMu / sRs: BiasFree keeps the
-// uncentred value (x * rsigma * w), WithBias centres it and adds b.
-template <typename T, typename TW>
-__device__ __forceinline__ float ln_value(const T* rows, int C, int p, int k, const float* sMu, const float* sRs,
-                                          const TW* w, const TW* bias, int ln_bias) {
-  const float v = ld(rows[(size_t)p * C + k]);
-  return ln_bias ? (v - sMu[p]) * sRs[p] * ld(w[k]) + ld(bias[k]) : v * sRs[p] * ld(w[k]);
-}
-
-// t = LN1(x) . Wqkv^T, (B, HW, 3C) fp32
-template <typename T, int RM>
-__global__ void __launch_bounds__(kThreads)
-mdta_qkv_kernel(const T* __restrict__ x, const T* __restrict__ n1w, const T* __restrict__ n1b,
-                const T* __restrict__ wqkv, float* __restrict__ t, int HW, int C, float eps, int ln_bias) {
-  GEMM_PROLOGUE
-  const T* xb = x + ((size_t)b * HW + p0) * C;
-  float* sMu = smem + kGemmFloats;  // after the product's buffers
-  float* sRs = sMu + P;
-  ln_stats(xb, np, P, C, eps, sMu, sRs);
-  gemm_masked<RM>(smem, wqkv, C, 3 * C, n0, 0, C, [&](int p, int k) {
-    return p < np ? ln_value(xb, C, p, k, sMu, sRs, n1w, n1b, ln_bias) : 0.f;
-  }, acc);
-  float* tb = t + ((size_t)b * HW + p0) * 3 * C;
-  GEMM_EPILOGUE(3 * C, tb[(size_t)p * 3 * C + n] = a;)
-}
-
-// qkv = depthwise 3x3 of t, all 3C channels; one thread per (pixel, channel)
+// qkv = depthwise 3x3 of t, all D = 3C channels: one thread a channel walks
+// kSeg pixels of an image row (dw3x3_walk)
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-mdta_dw_kernel(const float* __restrict__ t, const T* __restrict__ wdw, float* __restrict__ out, int B, int H, int W,
-               int D) {
-  const size_t total = (size_t)B * H * W * D;
-  for (size_t idx = (size_t)blockIdx.x * kThreads + threadIdx.x; idx < total; idx += (size_t)gridDim.x * kThreads) {
-    const int c = (int)(idx % D);
-    const size_t pix = idx / D;
-    const int xx = (int)(pix % W), yy = (int)((pix / W) % H), b = (int)(pix / ((size_t)H * W));
-    out[idx] = dw3x3(t, wdw, b, yy, xx, c, H, W, D);
-  }
+mdta_dw_kernel(const float* __restrict__ t, const T* __restrict__ wdw, float* __restrict__ out, int H, int W, int D) {
+  const int c = blockIdx.y * kRowC + threadIdx.x % kRowC, nseg = num_segments(W);
+  const int rs = blockIdx.x * (kThreads / kRowC) + threadIdx.x / kRowC;
+  if (c >= D || rs >= H * nseg) return;
+  const int y = rs / nseg, x0 = (rs % nseg) * kSeg;
+  const size_t img = (size_t)blockIdx.z * H * W;
+  const int ch[1] = {c};
+  const float zero[1] = {0.f};
+  dw3x3_walk<1>(t, wdw, ch, zero, img, y, x0, min(W, x0 + kSeg), H, W, D, [&](int x, const float (&s)[1]) {
+    out[(img + (size_t)y * W + x) * D + c] = s[0];
+  });
 }
 
 // Gram partials.  Grid (chunks, heads * tiles^2, B), tiles = ceil(ch / 64): the
@@ -210,111 +188,130 @@ mdta_av_kernel(const float* __restrict__ qkv, const float* __restrict__ attn, fl
   GEMM_EPILOGUE(C, ob[(size_t)p * C + n] = a;)
 }
 
-// y = x + o . Wproj^T, fp32
-template <typename T, int RM>
-__global__ void __launch_bounds__(kThreads)
-mdta_proj_kernel(const float* __restrict__ o, const T* __restrict__ x, const T* __restrict__ wproj,
-                 float* __restrict__ y, int HW, int C) {
-  GEMM_PROLOGUE
-  const size_t base = ((size_t)b * HW + p0) * C;
-  gemm_masked<RM>(smem, wproj, C, C, n0, 0, C, [&](int p, int k) {
-    return p < np ? o[base + (size_t)p * C + k] : 0.f;
-  }, acc);
-  GEMM_EPILOGUE(C, y[base + (size_t)p * C + n] = ld(x[base + (size_t)p * C + n]) + a;)
-}
-
-// u = LN2(y) . Win^T, (B, HW, 2F) fp32
-template <typename T, int RM>
-__global__ void __launch_bounds__(kThreads)
-mdta_ffn_in_kernel(const float* __restrict__ y, const T* __restrict__ n2w, const T* __restrict__ n2b,
-                   const T* __restrict__ win, float* __restrict__ u, int HW, int C, int F, float eps, int ln_bias) {
-  GEMM_PROLOGUE
-  const float* yb = y + ((size_t)b * HW + p0) * C;
-  float* sMu = smem + kGemmFloats;  // after the product's buffers
-  float* sRs = sMu + P;
-  ln_stats(yb, np, P, C, eps, sMu, sRs);
-  gemm_masked<RM>(smem, win, C, 2 * F, n0, 0, C, [&](int p, int k) {
-    return p < np ? ln_value(yb, C, p, k, sMu, sRs, n2w, n2b, ln_bias) : 0.f;
-  }, acc);
-  float* ub = u + ((size_t)b * HW + p0) * 2 * F;
-  GEMM_EPILOGUE(2 * F, ub[(size_t)p * 2 * F + n] = a;)
-}
-
-// g = gelu(dw(u)[j]) * dw(u)[F + j], exact-erf GELU as F.gelu; one thread per (pixel, j)
+// g = gelu(dw(u)[j]) * dw(u)[F + j], exact-erf GELU as F.gelu: one thread a
+// channel j walks kSeg pixels of an image row (dw3x3_walk)
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-mdta_gate_kernel(const float* __restrict__ u, const T* __restrict__ wdw, float* __restrict__ g, int B, int H, int W,
-                 int F) {
-  const size_t total = (size_t)B * H * W * F;
-  for (size_t idx = (size_t)blockIdx.x * kThreads + threadIdx.x; idx < total; idx += (size_t)gridDim.x * kThreads) {
-    const int j = (int)(idx % F);
-    const size_t pix = idx / F;
-    const int xx = (int)(pix % W), yy = (int)((pix / W) % H), b = (int)(pix / ((size_t)H * W));
-    const float a = dw3x3(u, wdw, b, yy, xx, j, H, W, 2 * F);
-    const float v = dw3x3(u, wdw, b, yy, xx, F + j, H, W, 2 * F);
-    g[idx] = 0.5f * a * (1.f + erff(a * 0.70710678118654752f)) * v;
-  }
-}
-
-// z = y + g . Wout^T, in the I/O type
-template <typename T, int RM>
-__global__ void __launch_bounds__(kThreads)
-mdta_ffn_out_kernel(const float* __restrict__ g, const float* __restrict__ y, const T* __restrict__ wout,
-                    T* __restrict__ z, int HW, int C, int F) {
-  GEMM_PROLOGUE
-  const float* gb = g + ((size_t)b * HW + p0) * F;
-  gemm_masked<RM>(smem, wout, F, C, n0, 0, F, [&](int p, int k) {
-    return p < np ? gb[(size_t)p * F + k] : 0.f;
-  }, acc);
-  const size_t base = ((size_t)b * HW + p0) * C;
-  GEMM_EPILOGUE(C, z[base + (size_t)p * C + n] = st<T>(y[base + (size_t)p * C + n] + a);)
+mdta_gate_kernel(const float* __restrict__ u, const T* __restrict__ wdw, float* __restrict__ g, int H, int W, int F) {
+  const int j = blockIdx.y * kRowC + threadIdx.x % kRowC, nseg = num_segments(W);
+  const int rs = blockIdx.x * (kThreads / kRowC) + threadIdx.x / kRowC;
+  if (j >= F || rs >= H * nseg) return;
+  const int y = rs / nseg, x0 = (rs % nseg) * kSeg;
+  const size_t img = (size_t)blockIdx.z * H * W;
+  const int ch[2] = {j, F + j};
+  const float zero[2] = {0.f, 0.f};
+  dw3x3_walk<2>(u, wdw, ch, zero, img, y, x0, min(W, x0 + kSeg), H, W, 2 * F, [&](int x, const float (&s)[2]) {
+    g[(img + (size_t)y * W + x) * F + j] = 0.5f * s[0] * (1.f + erff(s[0] * 0.70710678118654752f)) * s[1];
+  });
 }
 
 struct Maps {
   float *t, *qkv, *part, *red, *attn, *o, *y, *u, *g;
 };
 
+// y = x + o . Wproj^T (fp32), x in the I/O type: proj's epilogue
+template <typename T>
+struct ResidualEpi {
+  const T* x;
+  float* y;
+  int N;
+  __device__ __forceinline__ void operator()(int, int r, int n, float v0, float v1) const {
+    const size_t q = (size_t)r * N + n;
+    const bool two = n + 1 < N;
+    store_pair(y + q, ld(x[q]) + v0, two ? ld(x[q + 1]) + v1 : 0.f, two);
+  }
+};
+
+// z = y + g . Wout^T, stored in the I/O type: ffn_out's epilogue
+template <typename T>
+struct OutEpi {
+  const float* y;
+  T* z;
+  int N;
+  __device__ __forceinline__ void operator()(int, int r, int n, float v0, float v1) const {
+    const size_t q = (size_t)r * N + n;
+    z[q] = st<T>(y[q] + v0);
+    if (n + 1 < N) z[q + 1] = st<T>(y[q + 1] + v1);
+  }
+};
+
 inline int num_chunks(int HW) { return (HW + kChunk - 1) / kChunk; }
 inline size_t stats_floats(int C, int ch) { return (size_t)C * ch + 2 * (size_t)C; }
-inline int grid_1d(size_t total) { return (int)std::min<size_t>((total + kThreads - 1) / kThreads, 132 * 16); }
+inline size_t round64(size_t floats) { return (floats + 63) / 64 * 64; }  // 256-byte aligned offsets
 
-template <typename T, int RM>
-cudaError_t launch_products(const T* x, const T* n1w, const T* n1b, const T* wqkv, const T* wdwq, const T* temp,
-                            const T* wproj, const T* n2w, const T* n2b, const T* win, const T* wdwf, const T* wout,
-                            T* z, const Maps& m, int B, int H, int W, int C, int F, int heads, int use_softmax,
-                            int ln_bias, float eps, cudaStream_t stream) {
-  constexpr int P = 16 * RM;
-  const int HW = H * W, ch = C / heads, tiles = (ch + kNB - 1) / kNB;
-  const int ptiles = (HW + P - 1) / P;
-  const int smem = gemm_smem_floats(RM) * (int)sizeof(float);
-  const int smem_ln = smem + 2 * P * (int)sizeof(float);
-  auto cols = [](int n) { return (n + kNB - 1) / kNB; };
+// The fp32 scratch (the caller's part): a LayerNorm's output (pixels, C), then
+// one region that the Gram partials (with colsum's buffers) and the 1x1
+// products' depth-chunk partials (with theirs) take in turn.
+struct Scratch {
+  size_t ln, region, prod_part, prod_sum, gram_sum, total;
+};
+
+inline Scratch scratch_plan(int B, int H, int W, int C, int F, int heads) {
+  const int npix = B * H * W, chunks = num_chunks(H * W), cn = (int)stats_floats(C, C / heads);
+  Scratch sc;
+  sc.ln = 0;
+  sc.region = round64((size_t)npix * C);
+  sc.gram_sum = round64((size_t)B * chunks * cn);
+  size_t part = 0, sum = 0;
+  const int prods[4][2] = {{C, 3 * C}, {C, C}, {C, 2 * F}, {F, C}};  // (depth, N): qkv, proj, ffn_in, ffn_out
+  for (const auto& pr : prods) product_floats(npix, pr[0], pr[1], &part, &sum, kForwardMinCutRows);
+  sc.prod_part = 0;
+  sc.prod_sum = round64(part);
+  const size_t gram = sc.gram_sum + colsum_scratch(B, chunks, cn), prod = sc.prod_sum + sum;
+  sc.total = sc.region + std::max(gram, prod);
+  return sc;
+}
+
+template <typename T>
+cudaError_t launch_block(const T* x, const T* n1w, const T* n1b, const T* wqkv, const T* wdwq, const T* temp,
+                         const T* wproj, const T* n2w, const T* n2b, const T* win, const T* wdwf, const T* wout, T* z,
+                         const Maps& m, int B, int H, int W, int C, int F, int heads, int use_softmax, int ln_bias,
+                         float eps, cudaStream_t stream) {
+  const int HW = H * W, npix = B * HW, ch = C / heads, tiles = (ch + kNB - 1) / kNB;
+  const Scratch sc = scratch_plan(B, H, W, C, F, heads);
+  float* ln = m.part + sc.ln;
+  float* ppart = m.part + sc.region + sc.prod_part;
+  float* psum = m.part + sc.region + sc.prod_sum;
+  float* gpart = m.part + sc.region;
+  // a map (npix rows) or an (out, in) weight, read k-major
+  auto kmaj = [npix](const auto* ptr, int ld, int n = -1) { return tc::operand<true>(ptr, ld, n < 0 ? npix : n); };
+  const int cut = kForwardMinCutRows;
   cudaError_t err;
+#define CHECK(...) \
+  if ((err = (__VA_ARGS__)) != cudaSuccess) return err;
   // pass 1
-  mdta_qkv_kernel<T, RM><<<dim3(ptiles, cols(3 * C), B), kThreads, smem_ln, stream>>>(x, n1w, n1b, wqkv, m.t, HW, C, eps, ln_bias);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  mdta_dw_kernel<T><<<grid_1d((size_t)B * HW * 3 * C), kThreads, 0, stream>>>(m.t, wdwq, m.qkv, B, H, W, 3 * C);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  CHECK(ln_fwd<6>(x, n1w, n1b, ln, npix, C, eps, ln_bias, stream));
+  CHECK(product_epi<6>(kmaj(ln, C), kmaj(wqkv, C, 3 * C), C, StoreEpi{m.t, 3 * C}, ppart, psum, stream, cut));
+  mdta_dw_kernel<T><<<walk_grid(B, H, W, 3 * C), kThreads, 0, stream>>>(m.t, wdwq, m.qkv, H, W, 3 * C);
+  CHECK(cudaGetLastError());
   const int chunks = num_chunks(HW);
-  mdta_gram_kernel<<<dim3(chunks, heads * tiles * tiles, B), kThreads, 2 * kKC * kWS * (int)sizeof(float), stream>>>(m.qkv, m.part, HW, C, ch);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  mdta_gram_kernel<<<dim3(chunks, heads * tiles * tiles, B), kThreads, 2 * kKC * kWS * (int)sizeof(float), stream>>>(
+      m.qkv, gpart, HW, C, ch);
+  CHECK(cudaGetLastError());
   const int cn = (int)stats_floats(C, ch);
-  if ((err = colsum<6>(m.part, B, chunks, cn, cn, m.red, m.part + (size_t)B * chunks * cn, stream)) != cudaSuccess)
-    return err;
+  CHECK(colsum<6>(gpart, B, chunks, cn, cn, m.red, m.part + sc.region + sc.gram_sum, stream));
   // between the passes
-  mdta_attn_kernel<T><<<dim3((C + kThreads / 32 - 1) / (kThreads / 32), B), kThreads, 0, stream>>>(m.red, temp, m.attn, C, ch, use_softmax);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  // pass 2
-  mdta_av_kernel<RM><<<dim3(ptiles, cols(C), B), kThreads, smem, stream>>>(m.qkv, m.attn, m.o, HW, C, ch);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  mdta_proj_kernel<T, RM><<<dim3(ptiles, cols(C), B), kThreads, smem, stream>>>(m.o, x, wproj, m.y, HW, C);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  mdta_ffn_in_kernel<T, RM><<<dim3(ptiles, cols(2 * F), B), kThreads, smem_ln, stream>>>(m.y, n2w, n2b, win, m.u, HW, C, F, eps, ln_bias);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  mdta_gate_kernel<T><<<grid_1d((size_t)B * HW * F), kThreads, 0, stream>>>(m.u, wdwf, m.g, B, H, W, F);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  mdta_ffn_out_kernel<T, RM><<<dim3(ptiles, cols(C), B), kThreads, smem, stream>>>(m.g, m.y, wout, z, HW, C, F);
-  return cudaGetLastError();
+  mdta_attn_kernel<T><<<dim3((C + kThreads / 32 - 1) / (kThreads / 32), B), kThreads, 0, stream>>>(
+      m.red, temp, m.attn, C, ch, use_softmax);
+  CHECK(cudaGetLastError());
+  // pass 2: 64-pixel tiles of av where the map has pixels enough to fill the card, 32 or 16 on the deep stages
+  const int rm = npix >= 8192 ? 4 : (npix >= 2048 ? 2 : 1);
+  const dim3 av_grid((HW + 16 * rm - 1) / (16 * rm), (C + kNB - 1) / kNB, B);
+  const int av_smem = gemm_smem_floats(rm) * (int)sizeof(float);
+  if (rm == 4)
+    mdta_av_kernel<4><<<av_grid, kThreads, av_smem, stream>>>(m.qkv, m.attn, m.o, HW, C, ch);
+  else if (rm == 2)
+    mdta_av_kernel<2><<<av_grid, kThreads, av_smem, stream>>>(m.qkv, m.attn, m.o, HW, C, ch);
+  else
+    mdta_av_kernel<1><<<av_grid, kThreads, av_smem, stream>>>(m.qkv, m.attn, m.o, HW, C, ch);
+  CHECK(cudaGetLastError());
+  CHECK(product_epi<6>(kmaj(m.o, C), kmaj(wproj, C, C), C, ResidualEpi<T>{x, m.y, C}, ppart, psum, stream, cut));
+  CHECK(ln_fwd<6>(m.y, n2w, n2b, ln, npix, C, eps, ln_bias, stream));
+  CHECK(product_epi<6>(kmaj(ln, C), kmaj(win, C, 2 * F), C, StoreEpi{m.u, 2 * F}, ppart, psum, stream, cut));
+  mdta_gate_kernel<T><<<walk_grid(B, H, W, F), kThreads, 0, stream>>>(m.u, wdwf, m.g, H, W, F);
+  CHECK(cudaGetLastError());
+  return product_epi<6>(kmaj(m.g, F), kmaj(wout, F, C), F, OutEpi<T>{m.y, z, C}, ppart, psum, stream, cut);
+#undef CHECK
 }
 
 template <typename T>
@@ -323,17 +320,9 @@ int mdta_block_fwd(const void* x_, const void* n1w_, const void* n1b_, const voi
                    const void* wdwf_, const void* wout_, void* z_, const Maps& m, int B, int H, int W, int C, int F,
                    int heads, int use_softmax, int ln_bias, float eps, void* stream_) {
   auto p = [](const void* v) { return static_cast<const T*>(v); };
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  T* z = static_cast<T*>(z_);
-  // 64-pixel tiles where the map has pixels enough to fill the card, 32 or 16 on the deep stages
-  const long long pixels = (long long)B * H * W;
-#define MDTA_LAUNCH(RM) \
-  launch_products<T, RM>(p(x_), p(n1w_), p(n1b_), p(wqkv_), p(wdwq_), p(temp_), p(wproj_), p(n2w_), p(n2b_), \
-                         p(win_), p(wdwf_), p(wout_), z, m, B, H, W, C, F, heads, use_softmax, ln_bias, eps, stream)
-  if (pixels >= 8192) return MDTA_LAUNCH(4);
-  if (pixels >= 2048) return MDTA_LAUNCH(2);
-  return MDTA_LAUNCH(1);
-#undef MDTA_LAUNCH
+  return launch_block<T>(p(x_), p(n1w_), p(n1b_), p(wqkv_), p(wdwq_), p(temp_), p(wproj_), p(n2w_), p(n2b_),
+                         p(win_), p(wdwf_), p(wout_), static_cast<T*>(z_), m, B, H, W, C, F, heads, use_softmax,
+                         ln_bias, eps, static_cast<cudaStream_t>(stream_));
 }
 
 }  // namespace
@@ -343,7 +332,7 @@ int mdta_block_fwd(const void* x_, const void* n1w_, const void* n1b_, const voi
 // weights and biases (C,), Wqkv (3C, C), Wdwq (3C, 3, 3), temperature (heads,),
 // Wproj (C, C), Win (2F, C), Wdwf (2F, 3, 3), Wout (C, F)); the output z
 // (B, H, W, C) in the I/O type.  fp32 scratch the caller allocates: t and qkv
-// (B, H, W, 3C), part (mdta_block_part_floats), red (B, C * ch + 2C) — the
+// (B, H, W, 3C), part (mdta_block_scratch_floats), red (B, C * ch + 2C) — the
 // reduced Gram (B, C, ch), |q|^2 (B, C) and |k|^2 (B, C) —, attn (B, C, C),
 // o and y (B, H, W, C), u (B, H, W, 2F), g (B, H, W, F).  v is qkv[..., 2C:].
 // ln_bias 0 = BiasFree (the bias pointer is not read).  Returns cudaGetLastError().
@@ -362,8 +351,7 @@ int mdta_block_fwd(const void* x_, const void* n1w_, const void* n1b_, const voi
 extern "C" int mdta_block_fwd_f32(MDTA_BLOCK_ARGS) { return mdta_block_fwd<float>(MDTA_BLOCK_PASS); }
 extern "C" int mdta_block_fwd_bf16(MDTA_BLOCK_ARGS) { return mdta_block_fwd<__nv_bfloat16>(MDTA_BLOCK_PASS); }
 
-// Floats of the Gram partials and colsum's scratch, so the caller can size part.
-extern "C" long long mdta_block_part_floats(int B, int H, int W, int C, int heads) {
-  const int chunks = num_chunks(H * W), cn = (int)stats_floats(C, C / heads);
-  return (long long)B * chunks * cn + (long long)colsum_scratch(B, chunks, cn);
+// Floats of the fp32 scratch part, so the caller can size it.
+extern "C" long long mdta_block_scratch_floats(int B, int H, int W, int C, int F, int heads) {
+  return (long long)scratch_plan(B, H, W, C, F, heads).total;
 }

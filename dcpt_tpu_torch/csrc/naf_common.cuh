@@ -1,14 +1,14 @@
-// The NAFBlock's two halves as kernels that three CUDA sources share:
+// The NAFBlock's two halves as SIMT fp32 kernels that two CUDA sources share:
 //
 //   naf_p1_kernel   LN1 -> 1x1 C->2C -> depthwise 3x3 -> SimpleGate on halo tiles
-//                   (K1's first pass; with no tile-sum buffer, all of K4)
+//                   (with no tile-sum buffer, all of K4, naf_prefix.cu)
 //   naf_p2b_kernel  hidden = gate(LN2(y) . W4^T + b4)
 //   naf_p2c_kernel  z = y + gamma * (hidden . W5^T + b5)
-//                   (K1's FFN passes; the two together are K5)
+//                   (the two together are K5, naf_ffn.cu)
 //
 // Each is templated on the I/O type T of its weights and output, and the FFN
-// passes also on the type TY of y: K1 hands them its fp32 y, K5 the caller's
-// map in T.  The math is fp32 throughout.  Weights come in PyTorch's layout:
+// passes also on the type TY of y (K5 hands them the caller's map in T).  The
+// math is fp32 throughout.  Weights come in PyTorch's layout:
 // every 1x1 as (out, in) row-major, the depthwise 3x3 as (2C, 3, 3).
 #pragma once
 

@@ -6,8 +6,8 @@
 // runs it at every c = 512 NAFBlock under DCPT_TPU_PALLAS=1 when the
 // whole-block kernel is not taken.
 //
-// It is K1's FFN passes (naf_common.cuh::naf_p2b_kernel, naf_p2c_kernel) with
-// y read in the I/O type: per (tile of 16 or 32 rows, 64 output columns) a block
+// It is naf_common.cuh's FFN passes (naf_p2b_kernel, naf_p2c_kernel) with y
+// read in the I/O type: per (tile of 16 or 32 rows, 64 output columns) a block
 // computes the LN statistics of its rows, the paired columns n and C + n of
 // the expand, and the gate into an fp32 hidden map (N, C); a second grid
 // multiplies it by W5 and adds the residual.  The TPU kernel keeps the 2C-wide

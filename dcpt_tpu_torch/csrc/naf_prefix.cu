@@ -6,9 +6,9 @@
 // giving (B, H, W, DW/2), DW = 2C.  dcpt_tpu runs it at every c = 512 NAFBlock
 // under DCPT_TPU_PALLAS=1 when the whole-block kernel is not taken.
 //
-// It is K1's first pass (naf_common.cuh::naf_p1_kernel) without the SCA tile
-// sums: per (batch, 6x14 output tile with a 1-pixel halo, 64 gate channels) one
-// block normalises the halo pixels, expands them to its 2 x 64 channels of t
+// It is naf_common.cuh::naf_p1_kernel without the SCA tile sums: per (batch,
+// 6x14 output tile with a 1-pixel halo, 64 gate channels) one block
+// normalises the halo pixels, expands them to its 2 x 64 channels of t
 // in shared memory, zeroes t outside the image (the dwconv's padding), runs the
 // stencil and the gate, and writes the tile's gated channels.  The TPU kernel
 // holds the whole (H, W, 2C) map in VMEM and so runs only where it fits

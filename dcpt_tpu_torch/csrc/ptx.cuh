@@ -36,18 +36,20 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const float (&a)[4], con
         "r"(__float_as_uint(a[3])), "r"(__float_as_uint(b[0])), "r"(__float_as_uint(b[1])));
 }
 
-// Copy kBytes (16 or 8) from global src to shared dst without the registers:
+// Copy kBytes (16, 8 or 4) from global src to shared dst without the registers:
 // the first src_bytes of them from src, the rest zeros (src_bytes 0 reads
 // nothing).  Both addresses aligned to kBytes.  Visible to this thread after
 // cp_async_wait, to the block after a barrier that follows it.
 template <int kBytes>
 __device__ __forceinline__ void cp_async(void* dst, const void* src, int src_bytes) {
-  static_assert(kBytes == 16 || kBytes == 8, "cp.async copies 16 or 8 bytes here");
+  static_assert(kBytes == 16 || kBytes == 8 || kBytes == 4, "cp.async copies 16, 8 or 4 bytes");
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   if constexpr (kBytes == 16)
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(src_bytes) : "memory");
-  else
+  else if constexpr (kBytes == 8)
     asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(src), "r"(src_bytes) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(src_bytes) : "memory");
 }
 
 // Close the group of this thread's cp_async calls since the last commit.

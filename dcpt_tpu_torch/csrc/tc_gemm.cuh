@@ -3,8 +3,9 @@
 // operands, through mma.sync m16n8k8 TF32 (csrc/ptx.cuh) with fp32 sums.
 // K9 (csrc/swin_block_bwd.cu), K7 (csrc/mdta_block_bwd.cu) and K2
 // (csrc/naf_block_bwd.cu) run their token-wide products and weight gradients
-// through it (K2 and K7 by token_bwd.cuh's product and wgrad); it takes no
-// kernel-specific argument.
+// through it (K2 and K7 by token_bwd.cuh's product and wgrad), and the
+// forwards K6 (csrc/mdta_block.cu) and K1 (csrc/naf_block.cu) their 1x1
+// products (token_bwd.cuh's product_epi); it takes no kernel-specific argument.
 //
 // Each operand is read from device memory in either layout (Operand<T, K>):
 //   k-major   (K) element (r, k) at ptr[r ld + k]: A = a (T, K) of a product,
@@ -20,7 +21,8 @@
 // widths 180, 360 and 540.  The depth streams through a ring of three
 // chunks of 32, two in flight while one is read, one barrier a chunk:
 // cp.async copies of 16 bytes (4 fp32) or 8 (4 bf16), zero-filled past the
-// operand's rows and depth (plain loads where a row is not so aligned), in
+// operand's rows and depth (where a row is not so aligned, 4-byte copies of
+// single fp32 elements, or plain loads of bf16 ones), in
 // the operand's own layout: k-major rows 40 elements apart (8 (mod 16): a
 // thread's two depth slots t and t + 4 of each MMA are taken as the adjacent
 // depths 2t and 2t + 1 in both operands, so a fragment is one 8-byte load,
@@ -35,7 +37,7 @@
 // fp32 add: an MMA rounds its sum toward zero, so over a long depth its errors
 // add up in one direction.  The ring takes 92,160 bytes: two blocks an SM.
 //
-// The depth may be cut into chunks of len along blockIdx.z (a weight
+// The depth may be cut into chunks of len along blockIdx.y (a weight
 // gradient's sum over 131 k tokens), each block adding its chunk's share in
 // order; the caller adds the chunks in a fixed order (colsum).  With a_sums
 // the blocks of the first column tile also write the chunk's sums over the
@@ -68,18 +70,21 @@ constexpr int kSmemFloats = 2 * kStages * kStage;
 
 // An operand: element (r, k) at ptr[r ld + k] (K, k-major) or ptr[k ld + r],
 // for r < rows; vec when 4-element units are aligned to 4 elements (ld and
-// ptr), so they stage by cp.async.
+// ptr), so they stage by cp.async.  A k-major operand with pair > 0 takes
+// its rows from two halves side by side: row r is stored row (r & 1) pair +
+// r / 2 (a gate's weight, its pairs (j, pair + j) as adjacent rows 2j, 2j + 1).
 template <typename T, bool K>
 struct Operand {
   const T* ptr;
   long long ld;
   int rows;
   bool vec;
+  int pair;
 };
 
 template <bool K, typename T>
-Operand<T, K> operand(const T* ptr, long long ld, int rows) {
-  return Operand<T, K>{ptr, ld, rows, ld % 4 == 0 && reinterpret_cast<uintptr_t>(ptr) % (4 * sizeof(T)) == 0};
+Operand<T, K> operand(const T* ptr, long long ld, int rows, int pair = 0) {
+  return Operand<T, K>{ptr, ld, rows, ld % 4 == 0 && reinterpret_cast<uintptr_t>(ptr) % (4 * sizeof(T)) == 0, pair};
 }
 
 // Depth [k0, k1) of rows [r0, r0 + kBM) into a stage: (r, k) at buf[r kKLD + k - k0]
@@ -100,10 +105,14 @@ __device__ __forceinline__ void stage(const Operand<T, K>& op, T* buf, int r0, i
       dst = (u / (kBM / 4)) * kRLD + 4 * (u % (kBM / 4));
       n = k < k1 ? min(4, max(0, op.rows - r)) : 0;
     }
-    const T* src = op.ptr + (K ? (long long)r * op.ld + k : (long long)k * op.ld + r);
+    const long long row = K && op.pair ? (long long)(r & 1) * op.pair + (r >> 1) : r;
+    const T* src = op.ptr + (K ? row * op.ld + k : (long long)k * op.ld + r);
     if (op.vec) {
       cp_async<4 * sizeof(T)>(buf + dst, n ? src : op.ptr, n * (int)sizeof(T));
-    } else {
+    } else if (sizeof(T) == 4) {  // fp32 rows no multiple of 4 elements apart: an element a copy
+#pragma unroll
+      for (int e = 0; e < 4; ++e) cp_async<4>(buf + dst + e, e < n ? src + e : op.ptr, e < n ? 4 : 0);
+    } else {  // bf16: cp.async copies 4 bytes at least
 #pragma unroll
       for (int e = 0; e < 4; ++e) buf[dst + e] = e < n ? src[e] : st<T>(0.f);
     }
@@ -162,19 +171,20 @@ __device__ __forceinline__ void mma_chunk(Acc& acc, const TA* sa, const TB* sb, 
   }
 }
 
-// D's tile (blockIdx.x, blockIdx.y) over the depth chunk blockIdx.z, [z len,
+// D's tile blockIdx.x (column tiles fastest) over the depth chunk blockIdx.y, [z len,
 // min(depth, (z + 1) len)); then epi(z, r, n, v0, v1) for each pair of
 // columns (n, n + 1) of a row r < a.rows, n < b.rows (n + 1 may be b.rows:
 // epi masks it); a_sums (chunks, a.rows): the chunk's sums over the depth of
 // A's rows, written by the blocks of column tile 0.  Owner is the number of
-// the kernel that launches it (K2, K7, K9), so a profile tells their products apart.
+// the kernel that launches it (K1, K2, K6, K7, K9), so a profile tells their products apart.
 template <int Owner, typename TA, bool AK, typename TB, bool BK, class Epi>
 __global__ void __launch_bounds__(kThreads, 2)
 tc_gemm_kernel(Operand<TA, AK> a, Operand<TB, BK> b, int depth, int len, Epi epi, float* __restrict__ a_sums) {
   extern __shared__ __align__(16) float smem[];
-  const int r0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN, z = blockIdx.z;
+  const int ntiles = (b.rows + kBN - 1) / kBN, tn = blockIdx.x % ntiles;
+  const int r0 = (blockIdx.x / ntiles) * kBM, n0 = tn * kBN, z = blockIdx.y;
   const int kbeg = z * len, kend = min(depth, kbeg + len), chunks = (kend - kbeg + kKC - 1) / kKC;
-  const bool sums = a_sums != nullptr && blockIdx.y == 0;
+  const bool sums = a_sums != nullptr && tn == 0;
   auto sa = [&](int c) { return reinterpret_cast<TA*>(smem + (c % kStages) * 2 * kStage); };
   auto sb = [&](int c) { return reinterpret_cast<TB*>(smem + (c % kStages) * 2 * kStage + kStage); };
   auto fill = [&](int c) {
@@ -246,15 +256,26 @@ inline int depth_chunks(int M, int N, int depth, int* len) {
 }
 
 // D = A . B over depth, in `chunks` chunks of len (1 and depth: the whole sum
-// in each block), epi as tc_gemm_kernel's.
+// in each block), epi as tc_gemm_kernel's.  The kernel's shared-memory limit
+// is raised once per instantiation and device (a forward at B = 1 is a few
+// microseconds of work a launch, and the call costs the host about as much).
 template <int Owner, typename TA, bool AK, typename TB, bool BK, class Epi>
 inline cudaError_t gemm(const Operand<TA, AK>& a, const Operand<TB, BK>& b, int depth, int chunks, int len, Epi epi,
                         float* a_sums, cudaStream_t stream) {
   constexpr int bytes = kSmemFloats * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(tc_gemm_kernel<Owner, TA, AK, TB, BK, Epi>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  static unsigned long long raised = 0;  // a bit per device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.rows + kBM - 1) / kBM, (b.rows + kBN - 1) / kBN, chunks);
+  if (dev >= 64 || !(raised >> dev & 1)) {
+    err = cudaFuncSetAttribute(tc_gemm_kernel<Owner, TA, AK, TB, BK, Epi>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bytes);
+    if (err != cudaSuccess) return err;
+    if (dev < 64) raised |= 1ull << dev;
+  }
+  // one grid index a tile, the column tiles of a row tile next to each other: they run side by
+  // side, so A's tile comes from the L2 after its first read
+  const dim3 grid(((b.rows + kBN - 1) / kBN) * ((a.rows + kBM - 1) / kBM), chunks);
   tc_gemm_kernel<Owner, TA, AK, TB, BK, Epi><<<grid, kThreads, bytes, stream>>>(a, b, depth, len, epi, a_sums);
   return cudaGetLastError();
 }

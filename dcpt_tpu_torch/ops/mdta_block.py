@@ -11,7 +11,8 @@ kernel reads them, which costs nothing for such views.
 * ``attn_from_stats``: the (B, C, C) attention from the raw Gram and the
   squared norms, under the block-diagonal head mask (ReLU or softmax).
 * ``mdta_block_fused``: on a CUDA tensor it launches the kernel in
-  ``csrc/mdta_block.cu`` (fp32 or bf16 I/O, fp32 math) or raises; on a CPU
+  ``csrc/mdta_block.cu`` (fp32 or bf16 I/O, fp32 math, the 1x1 products on
+  the tensor cores) or raises; on a CPU
   tensor it returns ``mdta_block_ref``.  ``mdta_block_fused.launches`` counts
   the calls that launched the kernel.
 
@@ -124,8 +125,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    lib.mdta_block_part_floats.argtypes = [ctypes.c_int] * 5
-    lib.mdta_block_part_floats.restype = ctypes.c_longlong
+    lib.mdta_block_scratch_floats.argtypes = [ctypes.c_int] * 6
+    lib.mdta_block_scratch_floats.restype = ctypes.c_longlong
     return lib
 
 
@@ -174,7 +175,7 @@ def _launch(lib, x, params, heads: int, use_softmax: bool, ln_bias: bool, eps: f
     f32 = dict(dtype=torch.float32, device=x.device)
     t = torch.empty((b, h, w, 3 * c), **f32)
     qkv = torch.empty_like(t)
-    part = torch.empty(lib.mdta_block_part_floats(b, h, w, c, heads), **f32)
+    part = torch.empty(lib.mdta_block_scratch_floats(b, h, w, c, f, heads), **f32)
     red = torch.empty((b, c * ch + 2 * c), **f32)
     attn = torch.empty((b, c, c), **f32)
     o = torch.empty((b, h, w, c), **f32)

@@ -8,7 +8,8 @@ transposes them back, which costs nothing for such views.
 
 * ``naf_block_ref``: plain PyTorch, what the kernel must compute.
 * ``naf_block_fused``: on a CUDA tensor it launches the kernel in
-  ``csrc/naf_block.cu`` (fp32 or bf16 I/O, fp32 math) or raises; on a CPU
+  ``csrc/naf_block.cu`` (fp32 or bf16 I/O, fp32 math, the 1x1 products on
+  the tensor cores) or raises; on a CPU
   tensor it returns ``naf_block_ref``.  ``naf_block_fused.launches`` counts
   the calls that launched the kernel.
 
@@ -84,8 +85,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * 30 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    lib.naf_block_num_tiles.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.naf_block_num_tiles.restype = ctypes.c_int
+    lib.naf_block_scratch_floats.argtypes = [ctypes.c_int] * 4
+    lib.naf_block_scratch_floats.restype = ctypes.c_longlong
     return lib
 
 
@@ -128,7 +129,7 @@ def _launch(lib, x, params, eps: float, stream: int, residuals: bool = False):
     weights = torch_layout(params)
     f32 = dict(dtype=torch.float32, device=x.device)
     g = torch.empty_like(x)
-    part = torch.empty((b, lib.naf_block_num_tiles(h, w), c), **f32)
+    part = torch.empty(lib.naf_block_scratch_floats(b, h, w, c), **f32)
     att = torch.empty((b, c), **f32)
     y = torch.empty((b, h, w, c), **f32)
     hidden = torch.empty_like(y)

@@ -36,6 +36,7 @@ constexpr int cudaErrorInvalidValue = 1;
 typedef void* cudaStream_t;
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 template <class F> inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int v) { return v > 232448 ? 1 : 0; }
+inline cudaError_t cudaGetDevice(int* dev) { *dev = 0; return 0; }
 namespace emu {
 inline int last_error = 0;
 // the running fiber's indices and block

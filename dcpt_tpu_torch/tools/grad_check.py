@@ -154,6 +154,12 @@ def path_error(errs: list[dict]) -> dict:
     return {n: statistics.median(e[n] for e in errs) for n in errs[0]}
 
 
+def median_rel(err: dict, ref: dict) -> float:
+    """The median over tensors of a path's error (``path_error``) relative to each tensor's max|ref|,
+    the statistic ``compare`` holds to ``MEDIAN``."""
+    return statistics.median(err[n] / s if (s := g.abs().max().item()) > 0 else err[n] for n, g in ref.items())
+
+
 def compare(err: dict, got_losses: dict, ref: dict, ref_losses: dict, sens: dict, k: float = K,
             plain_loss: dict | None = None) -> dict:
     """The check of an fp32 path (``err``, its errors by tensor from
@@ -175,7 +181,7 @@ def compare(err: dict, got_losses: dict, ref: dict, ref_losses: dict, sens: dict
         rel[n] = err[n] / scale if scale > 0 else err[n]
         srel[n] = sens[n] / scale if scale > 0 else sens[n]
     worst = max(ratio, key=ratio.get)
-    median = statistics.median(rel.values())
+    median = median_rel(err, ref)
     loss_errs = {key: abs(got_losses[key] - v) / max(1.0, abs(v)) for key, v in ref_losses.items()}
     loss_limits = {key: max(LOSS_TOL, k * plain_loss[key]) if plain_loss else LOSS_TOL for key in ref_losses}
     loss_ratio = max(loss_errs[key] / loss_limits[key] for key in ref_losses)

@@ -1,6 +1,6 @@
-"""Time the backward kernels and the Swin block kernels built from several copies of ``csrc`` side by side on one card.
+"""Time the block kernels built from several copies of ``csrc`` side by side on one card.
 
-    python -m dcpt_tpu_torch.tools.swin_ab [--k9 | --k7 | --k2] [NAME=CSRC_DIR ...]
+    python -m dcpt_tpu_torch.tools.swin_ab [--k9 | --k7 | --k2 | --k6 | --k1] [NAME=CSRC_DIR ...]
 
 Builds the kernels from the package's own ``csrc`` (named ``tree``) and from
 each other directory given (a parent commit's ``dcpt_tpu_torch/csrc``
@@ -23,9 +23,16 @@ nvcc.
   flavours (ReLU / BiasFree and softmax / WithBias), B = 2 and B = 8;
 * ``--k2``: K2 (``naf_block_bwd.cu``) from the tree's K1 residuals at
   NAFNet-w64's C = 64 on 128 x 128 and C = 512 on 16 x 16, B = 2 and B = 8;
+* ``--k6``: K6 (``mdta_block.cu``) at Restormer's (C, H = W, heads) = (48,
+  128, 1) and (384, 16, 8) in the ReLU / BiasFree flavour and (96, 128, 1) in
+  the softmax / WithBias one, B = 1, 2 and 8;
+* ``--k1``: K1 (``naf_block.cu``) at NAFNet-w64's C = 64 on 128 x 128 and
+  C = 512 on 16 x 16, B = 1, 2 and 8;
 
-and for the backward kernels, at B = 8, each version's device time by pass
-(``pass_split``: each launch of one call in order, torch.profiler).
+and for these five, at B = 8, each version's device time by pass
+(``pass_split``: each launch of one call in order, torch.profiler).  A K6 or
+K1 build from before its scratch-size entry (``mdta_block_scratch_floats``,
+``naf_block_scratch_floats``) is sized by the entry it had.
 """
 
 from __future__ import annotations
@@ -52,8 +59,38 @@ C, HEADS, WS, HIDDEN, SHIFT = 180, 6, 8, 360, 4
 OUT = Path(__file__).resolve().parents[2] / "build" / "swin_ab"
 # the kernels of each mode: label -> (source, binder)
 FORWARD = {"K8": ("swin_block", wa._bind_block), "K10": ("window_attention", wa._bind_attn)}
-BACKWARD = {"--k9": {"K9": ("swin_block_bwd", sbb._bind)}, "--k7": {"K7": ("mdta_block_bwd", mbb._bind)},
-            "--k2": {"K2": ("naf_block_bwd", nbb._bind)}}
+class _Sized:
+    """A build of K6 or K1 from before its scratch-size entry: ``name`` answered by
+    ``floats``, every other entry point by the build itself."""
+
+    def __init__(self, lib: ctypes.CDLL, name: str, floats):
+        self._lib, self._name, self._floats = lib, name, floats
+
+    def __getattr__(self, attr: str):
+        return self._floats if attr == self._name else getattr(self._lib, attr)
+
+
+def _bind_k6(lib: ctypes.CDLL):
+    if not hasattr(lib, "mdta_block_scratch_floats"):  # the Gram partials were all its scratch
+        old = lib.mdta_block_part_floats
+        old.argtypes, old.restype = [ctypes.c_int] * 5, ctypes.c_longlong
+        lib = _Sized(lib, "mdta_block_scratch_floats", lambda b, h, w, c, f, heads: old(b, h, w, c, heads))
+    return mb._bind(lib)
+
+
+def _bind_k1(lib: ctypes.CDLL):
+    if not hasattr(lib, "naf_block_scratch_floats"):  # (B, tiles, C) tile sums were all its scratch
+        old = lib.naf_block_num_tiles
+        old.argtypes, old.restype = [ctypes.c_int] * 2, ctypes.c_int
+        lib = _Sized(lib, "naf_block_scratch_floats", lambda b, h, w, c: b * old(h, w) * c)
+    return nb._bind(lib)
+
+
+BLOCK_MODES = {"--k9": {"K9": ("swin_block_bwd", sbb._bind)}, "--k7": {"K7": ("mdta_block_bwd", mbb._bind)},
+            "--k2": {"K2": ("naf_block_bwd", nbb._bind)}, "--k6": {"K6": ("mdta_block", _bind_k6)},
+            "--k1": {"K1": ("naf_block", _bind_k1)}}
+BATCHES = {"K9": (2, 8), "K7": (2, 8), "K2": (2, 8), "K6": (1, 2, 8), "K1": (1, 2, 8)}
+K6_CASES = [(48, 128, 1, "relu"), (96, 128, 1, "softmax"), (384, 16, 8, "relu")]  # (C, H = W, heads, flavour)
 K7_SHAPES = [(96, 128, 1), (384, 16, 8)]  # (C, H = W, heads)
 K7_FLAVOURS = {"relu": (False, False, 1e-6), "softmax": (True, True, 1e-5)}  # (use_softmax, ln_bias, eps)
 K2_SHAPES = [(64, 128), (512, 16)]  # (C, H = W)
@@ -226,13 +263,7 @@ def _k9_case(gen, batch, dtype, stream):
 def _k7_case(gen, batch, dtype, stream):
     """K7's inputs at each K7_SHAPES stage and flavour, from the tree's K6 residuals."""
     for c, s, heads in K7_SHAPES:
-        f = int(2.66 * c)
-        # drawn in PyTorch's layout and passed as the op-layout views a module passes (chip_smoke.mdta_params)
-        p = [_rand(gen, dtype, c, shift=1.0), _rand(gen, dtype, c), _rand(gen, dtype, 3 * c, c, scale=c ** -0.5).t(),
-             _rand(gen, dtype, 3 * c, 3, 3, scale=1 / 3).permute(1, 2, 0), _rand(gen, dtype, heads, 1, 1, shift=1.0),
-             _rand(gen, dtype, c, c, scale=c ** -0.5).t(), _rand(gen, dtype, c, shift=1.0), _rand(gen, dtype, c),
-             _rand(gen, dtype, 2 * f, c, scale=c ** -0.5).t(),
-             _rand(gen, dtype, 2 * f, 3, 3, scale=1 / 3).permute(1, 2, 0), _rand(gen, dtype, c, f, scale=f ** -0.5).t()]
+        p = _k6_params(gen, dtype, c, heads)
         x, dz = (_rand(gen, dtype, batch, s, s, c, scale=1.0) for _ in range(2))
         for act, flavour in K7_FLAVOURS.items():
             _, res = mb._kernel_forward(x, p, heads, *flavour, residuals=True)
@@ -241,36 +272,71 @@ def _k7_case(gen, batch, dtype, stream):
                 lambda lib, res=res, flavour=flavour: mbb._launch(lib, x, p, dz, res, heads, *flavour, stream))
 
 
+def _k6_params(gen, dtype, c, heads):
+    """K6's parameters, drawn in PyTorch's layout and passed as the op-layout views a
+    module passes (chip_smoke.mdta_params)."""
+    f = int(2.66 * c)
+    return [_rand(gen, dtype, c, shift=1.0), _rand(gen, dtype, c), _rand(gen, dtype, 3 * c, c, scale=c ** -0.5).t(),
+            _rand(gen, dtype, 3 * c, 3, 3, scale=1 / 3).permute(1, 2, 0), _rand(gen, dtype, heads, 1, 1, shift=1.0),
+            _rand(gen, dtype, c, c, scale=c ** -0.5).t(), _rand(gen, dtype, c, shift=1.0), _rand(gen, dtype, c),
+            _rand(gen, dtype, 2 * f, c, scale=c ** -0.5).t(), _rand(gen, dtype, 2 * f, 3, 3, scale=1 / 3).permute(1, 2, 0),
+            _rand(gen, dtype, c, f, scale=f ** -0.5).t()]
+
+
+def _k1_params(gen, dtype, c):
+    sc = c ** -0.5
+    return [_rand(gen, dtype, *shape, scale=scale, shift=shift) for shape, scale, shift in [
+        ((c,), 0.5, 1.0), ((c,), 0.5, 0.0), ((c, 2 * c), sc, 0.0), ((2 * c,), 0.5, 0.0),
+        ((3, 3, 2 * c), 1 / 3, 0.0), ((2 * c,), 0.5, 0.0), ((c, c), sc, 0.0), ((c,), 0.5, 0.0), ((c, c), sc, 0.0),
+        ((c,), 0.5, 0.0), ((c,), 0.5, 0.0), ((c,), 0.5, 1.0), ((c,), 0.5, 0.0), ((c, 2 * c), sc, 0.0),
+        ((2 * c,), 0.5, 0.0), ((c, c), sc, 0.0), ((c,), 0.5, 0.0), ((c,), 0.5, 0.0)]]
+
+
+def _k6_case(gen, batch, dtype, stream):
+    """K6's inputs at each K6_CASES stage in its flavour."""
+    for c, s, heads, act in K6_CASES:
+        p = _k6_params(gen, dtype, c, heads)
+        x = _rand(gen, dtype, batch, s, s, c, scale=1.0)
+        flavour = K7_FLAVOURS[act]
+        ref = mb.mdta_block_ref(x.float(), *[t.float() for t in p], heads, *flavour)
+        yield f" C={c} {s}x{s} heads={heads} {act}", (ref,), (
+            lambda lib, x=x, p=p, heads=heads, flavour=flavour: mb._launch(lib, x, p, heads, *flavour, stream))
+
+
+def _k1_case(gen, batch, dtype, stream):
+    """K1's inputs at each K2_SHAPES stage."""
+    for c, s in K2_SHAPES:
+        p = _k1_params(gen, dtype, c)
+        x = _rand(gen, dtype, batch, s, s, c, scale=1.0)
+        ref = nb.naf_block_ref(x.float(), *[t.float() for t in p])
+        yield f" C={c} {s}x{s}", (ref,), (lambda lib, x=x, p=p: nb._launch(lib, x, p, 1e-6, stream))
+
+
 def _k2_case(gen, batch, dtype, stream):
     """K2's inputs at each K2_SHAPES stage, from the tree's K1 residuals."""
     for c, s in K2_SHAPES:
-        sc = c ** -0.5
-        p = [_rand(gen, dtype, *shape, scale=scale, shift=shift) for shape, scale, shift in [
-            ((c,), 0.5, 1.0), ((c,), 0.5, 0.0), ((c, 2 * c), sc, 0.0), ((2 * c,), 0.5, 0.0),
-            ((3, 3, 2 * c), 1 / 3, 0.0), ((2 * c,), 0.5, 0.0), ((c, c), sc, 0.0), ((c,), 0.5, 0.0), ((c, c), sc, 0.0),
-            ((c,), 0.5, 0.0), ((c,), 0.5, 0.0), ((c,), 0.5, 1.0), ((c,), 0.5, 0.0), ((c, 2 * c), sc, 0.0),
-            ((2 * c,), 0.5, 0.0), ((c, c), sc, 0.0), ((c,), 0.5, 0.0), ((c,), 0.5, 0.0)]]
+        p = _k1_params(gen, dtype, c)
         x, dz = (_rand(gen, dtype, batch, s, s, c, scale=1.0) for _ in range(2))
         _, (*maps, pooled, att) = nb._kernel_forward(x, p, 1e-6, residuals=True)
         ref = nbb.naf_block_bwd_ref(x.float(), *[t.float() for t in p], pooled, att, dz.float())
         yield f" C={c} {s}x{s}", ref, (lambda lib: nbb._launch(lib, x, p, pooled, att, dz, maps, 1e-6, stream))
 
 
-CASES = {"K9": _k9_case, "K7": _k7_case, "K2": _k2_case}
+CASES = {"K9": _k9_case, "K7": _k7_case, "K2": _k2_case, "K6": _k6_case, "K1": _k1_case}
 
 
-def backward_ab(libs: dict, kernel: str) -> None:
-    """``kernel`` (K9, K7 or K2) of every build at B = 2 and B = 8, and its passes at B = 8."""
+def block_ab(libs: dict, kernel: str) -> None:
+    """``kernel`` (K9, K7, K2, K6 or K1) of every build at each of its BATCHES, and its passes at B = 8."""
     gen = torch.Generator().manual_seed(14)
     stream = torch.cuda.current_stream().cuda_stream
-    for batch in (2, 8):
+    for batch in BATCHES[kernel]:
         for dname in ("float32", "bfloat16"):
             for shape, ref, launch in CASES[kernel](gen, batch, getattr(torch, dname), stream):
                 calls = {(name, kernel): (lambda lib=lib: launch(lib[kernel])) for name, lib in libs.items()}
                 label = f"B={batch} {dname}{shape}"
                 _compare(label, calls, {kernel: ref})
                 del ref
-                _turns(label, calls, 10 if batch == 2 else 4)
+                _turns(label, calls, 4 if batch == 8 else 10)
                 if batch == 8:
                     for (name, _), fn in calls.items():
                         print_split(f"{label} {name} by pass", pass_split(fn))
@@ -281,15 +347,15 @@ def main(argv: list[str]) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    mode = next((a for a in argv if a in BACKWARD), None)
+    mode = next((a for a in argv if a in BLOCK_MODES), None)
     dirs = {"tree": cuda_build.CSRC,
-            **{a.split("=", 1)[0]: Path(a.split("=", 1)[1]) for a in argv if a not in BACKWARD}}
-    kernels = BACKWARD[mode] if mode else FORWARD
+            **{a.split("=", 1)[0]: Path(a.split("=", 1)[1]) for a in argv if a not in BLOCK_MODES}}
+    kernels = BLOCK_MODES[mode] if mode else FORWARD
     with ThreadPoolExecutor(len(dirs)) as pool:
         libs = dict(zip(dirs, pool.map(lambda item: _build(*item, kernels), dirs.items())))
     torch.backends.cuda.matmul.allow_tf32 = False
     if mode:
-        backward_ab(libs, next(iter(kernels)))
+        block_ab(libs, next(iter(kernels)))
     else:
         forward_ab(libs)
     return 0
