@@ -104,12 +104,15 @@ Phases, each of which raises on failure (exit code 1):
    version on that call's inputs; one step's gradients through the kernels
    against the plain path's; one step on the ``DCPT_TPU_SWIN_BLOCK=0`` route
    (K10 launches counted, gradients against the K8 route's);
-16. kernels K4 (``naf_prefix``) and K5 (``naf_ffn``) against their plain
-   versions at NAFNet-w64's c = 512 stage of a 128 x 128 input (B = 1, 2, 8)
-   and a ragged 15 x 9, fp32 and bf16, each run twice for equal bits; their
-   ms per forward (29 calls) beside the plain versions', the library calls'
-   (F.layer_norm with a 1x1 and a depthwise F.conv2d; F.layer_norm with two
-   F.linear) and the bound;
+16. kernels K4 (``naf_prefix``) and K5 (``naf_ffn``, both on the tensor
+   cores through K1's passes) against their plain versions at NAFNet-w64's
+   c = 512 stage of a 128 x 128 input (B = 1, 2, 8) and a ragged 15 x 9, fp32
+   and bf16, each run twice for equal bits; their ms per forward (29 calls)
+   beside the plain versions', the library calls' (F.layer_norm with a 1x1
+   and a depthwise F.conv2d; F.layer_norm with two F.linear) and the bound
+   (3xTF32 on the tensor cores, and the SIMT fp32 bound); at B = 8 each
+   call's ms and device time beside the library call's, and its device time
+   by pass (``tools/swin_ab.py::pass_split``);
 17. the eval path of ``test_NAFNet_5d.yml`` through ``test_pipeline`` on the
    route that ``DCPT_TPU_PALLAS=1 DCPT_TPU_NAF_BLOCK=0`` selects, in a fresh
    process with both set: 29 K4 and 29 K5 launches per image checked (and K3
@@ -153,7 +156,8 @@ Phases, each of which raises on failure (exit code 1):
    stages c <= 512; K13 (``mdta_attention``) at the Restormer and PromptIR
    attentions (and enc1 at B = 8); fp32 and bf16, a ragged shape each, every
    call twice for equal bits; each kernel's ms beside its plain version's, a
-   library composite's and the bound.  Then the counted path: the shipped
+   library composite's and the bound; the device time a call at B = 8 of K11,
+   K14 and K5' beside the library composite's.  Then the counted path: the shipped
    ``test_Restormer_5d.yml`` and ``test_PromptIR_5d.yml`` nets at full width
    on seeded weights, one 128 x 128 forward each with every TransformerBlock
    through ``_standalone_transformer_forward`` (88 / 94 K14 and 44 / 47 K13
@@ -242,13 +246,12 @@ K1_PER_STEP, K2_PER_STEP, K3_PER_STEP = 72, 71, sum(K3_SHAPES.values())
 # K6's device functions; chunk_epi_kernel<6> runs only where a product is cut along its depth
 K6_FUNCTIONS = {"ln_fwd_kernel<6>", "tc_gemm_kernel<6>", "mdta_dw_kernel", "mdta_gram_kernel", "colsum_kernel<6>",
                 "mdta_attn_kernel", "mdta_av_kernel", "mdta_gate_kernel", "chunk_epi_kernel<6>"}
-K6_CUT_ONLY = {"chunk_epi_kernel<6>"}
 K7_FUNCTIONS = {"k7_pad_kernel", "tc_gemm_kernel<7>", "k7_gate_bwd_kernel", "k7_dw_bwd_kernel", "ln_bwd_kernel<7>",
                 "k7_dattn_kernel", "k7_cspace_kernel", "k7_dqkv_kernel", "colsum_kernel<7>"}
 # each kernel's device functions by name (``colsum_kernel<N>``, ``ln_bwd_kernel<N>`` and
 # ``tc_gemm_kernel<N>`` are the shared passes as kernel N launches them)
 DEVICE_FUNCTIONS = {
-    "naf_block_fused": {"ln_fwd_kernel<1>", "tc_gemm_kernel<1>", "naf_gate_kernel", "naf_sca_kernel",
+    "naf_block_fused": {"ln_fwd_kernel<1>", "tc_gemm_kernel<1>", "naf_gate_kernel<1>", "naf_sca_kernel",
                         "naf_scale_kernel", "chunk_epi_kernel<1>"},
     "naf_block_bwd": {"bwd_scale_kernel", "tc_gemm_kernel<2>", "bwd_f1_gate_kernel", "bwd_ln_kernel",
                       "bwd_a_scale_kernel", "bwd_sca_kernel", "bwd_sca_w_kernel", "bwd_d_kernel", "colsum_kernel<2>"},
@@ -259,9 +262,11 @@ DEVICE_FUNCTIONS = {
     "fused_window_attention": {"window_attention_kernel"},
     "swin_block_bwd": {"k9_ln_kernel", "tc_gemm_kernel<9>", "k9_attn_fwd_kernel", "k9_attn_bwd_kernel",
                        "ln_bwd_kernel<9>", "colsum_kernel<9>"},
-    "naf_prefix": {"naf_p1_kernel"},
-    "naf_ffn": {"naf_p2b_kernel", "naf_p2c_kernel"},
+    "naf_prefix": {"ln_fwd_kernel<4>", "tc_gemm_kernel<4>", "naf_gate_kernel<4>", "chunk_epi_kernel<4>"},
+    "naf_ffn": {"ln_fwd_kernel<5>", "tc_gemm_kernel<5>", "chunk_epi_kernel<5>"},
 }
+# the device functions that run only where a product is cut along its depth
+CUT_ONLY = {"chunk_epi_kernel<4>", "chunk_epi_kernel<5>", "chunk_epi_kernel<6>"}
 TRANSFORMER_YMLS = {"Restormer": ROOT / "options" / "all_in_one" / "test" / "test_Restormer_5d.yml",
                     "PromptIR": ROOT / "options" / "all_in_one" / "test" / "test_PromptIR_5d.yml"}
 # K6's flavours: (use_softmax, ln_bias, eps)
@@ -434,15 +439,16 @@ def k3_work(rows: int, c: int, io: int = 4) -> tuple[float, float]:
 
 def k4_work(c: int, pixels: int) -> tuple[float, float]:
     """(flops, bytes) of one K4 call: per pixel the expand's 2 C^2 and the 3x3
-    stencil's 18 C multiply-adds (the function's own; the halo's recomputed
-    expand is K4's overhead, not counted); x read, g written and the weights
-    read once."""
+    stencil's 18 C multiply-adds; x read, g written and the weights read once
+    (the expanded map K4 writes and reads back is its own overhead, not
+    counted)."""
     return pixels * (4 * c * c + 36 * c), 4 * (2 * pixels * c + 2 * c * c + 24 * c)
 
 
 def k5_work(c: int, rows: int) -> tuple[float, float]:
     """(flops, bytes) of one K5 call: per row the C x 2C and C x C products' 3 C^2
-    multiply-adds; y read, z written and the weights read once."""
+    multiply-adds; y read, z written and the weights read once (the hidden map
+    between the products is K5's own overhead, not counted)."""
     return rows * 6 * c * c, 4 * (2 * rows * c + 3 * c * c + 6 * c)
 
 
@@ -472,6 +478,17 @@ def random_block_params(c: int, gen, dtype, device):
             r(2 * c), r(c, c, scale=s), r(c), r(c)]
 
 
+def module_views(p: list) -> list:
+    """``random_block_params``' 18 tensors with the 1x1 and depthwise weights as a
+    module passes them (``NAFBlock.op_args``): views of contiguous (out, in) and
+    (2C, 3, 3) tensors, which a wrapper's transposes back copy for free."""
+    p = list(p)
+    for i in (2, 6, 8, 13, 15):
+        p[i] = p[i].t().contiguous().t()
+    p[4] = p[4].permute(2, 0, 1).contiguous().permute(1, 2, 0)
+    return p
+
+
 def cuda_ms(fn, iters: int = 10) -> float:
     import torch
 
@@ -487,7 +504,7 @@ def cuda_ms(fn, iters: int = 10) -> float:
 
 
 # device functions shared by several kernels, their first template argument the owner's number
-OWNED = ("colsum_kernel", "ln_bwd_kernel", "ln_fwd_kernel", "tc_gemm_kernel", "chunk_epi_kernel")
+OWNED = ("colsum_kernel", "ln_bwd_kernel", "ln_fwd_kernel", "tc_gemm_kernel", "chunk_epi_kernel", "naf_gate_kernel")
 
 
 def kernel_id(key: str) -> str:
@@ -1003,8 +1020,8 @@ def check_step_gradients(model, label: str = "[7]", batch_size: int = 8, float64
     * the network as it is, at ``float64_batch``: the kernel path's fp32
       gradients against the plain path in float64, each tensor within
       ``max(1e-3 of its max|ref|, K x its rounding sensitivity)``, the median
-      within 2e-2 and each loss within ``max(1e-5, K x the plain fp32 runs'
-      own departure from float64)``
+      within max(2e-2, 2 x the plain fp32 runs' own median) and each loss within
+      ``max(1e-5, K x the plain fp32 runs' own departure from float64)``
       (``dcpt_tpu_torch.tools.grad_check``: the sensitivity is the largest
       departure from float64 of the plain fp32 step run as it is and on
       parameters and inputs moved by one ulp, large where sums cancel or ReLU
@@ -1040,8 +1057,9 @@ def check_step_gradients(model, label: str = "[7]", batch_size: int = 8, float64
     kernel_errs, kernel_losses = grad_check.run_errors(model, batch, ref)
     model.feed_data(batch)
     report = grad_check.compare(grad_check.path_error(kernel_errs), kernel_losses, ref, ref_losses, sens,
-                                plain_loss=plain_loss)
-    as_is = grad_check.compare(kernel_errs[0], kernel_losses, ref, ref_losses, sens, plain_loss=plain_loss)
+                                plain_loss=plain_loss, plain_median=plain_median)
+    as_is = grad_check.compare(kernel_errs[0], kernel_losses, ref, ref_losses, sens, plain_loss=plain_loss,
+                               plain_median=plain_median)
     srel = sorted(sens[n] / max(g.abs().max().item(), 1e-30) for n, g in ref.items())
     runs = len(kernel_errs)
     print(f"{label} the network as it is, batch {float64_batch}, {len(ref)} gradients against the plain path in "
@@ -1051,7 +1069,8 @@ def check_step_gradients(model, label: str = "[7]", batch_size: int = 8, float64
           f"alone: worst {as_is['worst_rel']:.3e} ({as_is['worst']}), {as_is['worst_ratio']:.3f} of its limit; losses "
           f"kernel {kernel_losses}, float64 {ref_losses}; the plain fp32 runs' own loss departures from float64 "
           f"{_fmt(plain_loss)} (each loss's limit max({grad_check.LOSS_TOL:.0e}, K x its departure)); their own "
-          f"median error {plain_median:.3e}", flush=True)
+          f"median error {plain_median:.3e} (the median's limit max({grad_check.MEDIAN:.0e}, "
+          f"{grad_check.MEDIAN_K} x it))", flush=True)
     if not ks[ks_name] <= 1:
         raise RuntimeError(f"gradient {ks_name} through the kernels differs from the plain path by {rel[ks_name]:.3e} "
                            f"of its max|ref|, {ks[ks_name]:.3f} of its limit")
@@ -1071,8 +1090,8 @@ def float64_reference(model, batch: dict) -> tuple[dict, dict, dict, dict, float
     (``dcpt_tpu_torch.tools.grad_check``), each loss's largest departure
     in those runs from float64, which sets that loss's limit
     (``grad_check.compare``), and the plain runs' own median error over
-    tensors, the statistic the median rule holds a kernel path to (printed
-    beside it; not a limit)."""
+    tensors, which sets the limit of a kernel path's median:
+    max(``MEDIAN``, ``MEDIAN_K`` x it)."""
     import torch
 
     from dcpt_tpu_torch.tools import grad_check
@@ -1289,9 +1308,10 @@ def check_k6() -> dict:
             # each call is a few hundred microseconds of host work (allocations, a dozen launches),
             # so CUDA events around back-to-back calls can measure the host: time the device too
             k_funcs = device_ms_by_function(kernel, 10)[0]
-            if not K6_FUNCTIONS - K6_CUT_ONLY <= set(k_funcs) <= K6_FUNCTIONS:
+            if not K6_FUNCTIONS - CUT_ONLY <= set(k_funcs) <= K6_FUNCTIONS:
                 raise RuntimeError(f"{label}: the profile shows {sorted(k_funcs)}, expected "
-                                   f"{sorted(K6_FUNCTIONS - K6_CUT_ONLY)} and at most {sorted(K6_CUT_ONLY)} besides")
+                                   f"{sorted(K6_FUNCTIONS - CUT_ONLY)} and at most {sorted(K6_FUNCTIONS & CUT_ONLY)} "
+                                   f"besides")
             k_ms, p_ms = sum(k_funcs.values()), sum(device_ms_by_function(plain, 10)[0].values())
             k_call, p_call = cuda_ms(kernel), cuda_ms(plain)
             work = [(1, *k6_work(c, int(2.66 * c), c // heads, batch * h * w))]
@@ -2125,12 +2145,13 @@ def float64_states(states: int, arch: str = "SwinIR") -> dict:
         print(f"[float64 states] {arch} state {state} ({TRAIN_ITERS + 2 * state} steps), batch {batch_size}: the "
               f"plain fp32 runs' loss departures from float64 {_fmt(plain_loss)} (each loss's limit max("
               f"{grad_check.LOSS_TOL:.0e}, K x its departure)); their own median error over tensors "
-              f"{plain_median:.3e} (the routes' median limit {grad_check.MEDIAN:.0e})", flush=True)
+              f"{plain_median:.3e} (the routes' median limit max({grad_check.MEDIAN:.0e}, {grad_check.MEDIAN_K} x "
+              f"it))", flush=True)
         for route, ctx in routes.items():
             with ctx():
                 errs, losses = grad_check.run_errors(model, batch, ref)
             report = grad_check.compare(grad_check.path_error(errs), losses, ref, ref_losses, sens,
-                                        plain_loss=plain_loss)
+                                        plain_loss=plain_loss, plain_median=plain_median)
             passed[route] += report["ok"]
             ratios[route].append(report["worst_ratio"])
             medians[route].append(report["median"])
@@ -2148,11 +2169,10 @@ def float64_states(states: int, arch: str = "SwinIR") -> dict:
             "plain_losses": plain_losses, "plain_medians": plain_medians}
 
 
-def _k45_library(x, p):
-    """K4's and K5's functions as PyTorch calls on (B, H, W, C) x and the block
-    parameters in the op's layout: F.layer_norm, then a 1x1 and a depthwise
-    F.conv2d and the gate (K4); F.layer_norm, two F.linear, the gate and the
-    residual (K5).  Timed beside the kernels only; the port calls neither."""
+def _k4_library(x, p):
+    """K4's function as PyTorch calls on (B, H, W, C) x and the block parameters
+    in the op's layout: F.layer_norm, a 1x1 and a depthwise F.conv2d and the
+    gate.  Timed beside the kernel only; the port does not call it."""
     import torch.nn.functional as F
 
     c = x.shape[-1]
@@ -2160,38 +2180,54 @@ def _k45_library(x, p):
     t = F.layer_norm(x, (c,), n1w, n1b, 1e-6).permute(0, 3, 1, 2)
     t = F.conv2d(t, w1.t()[:, :, None, None], b1)
     t = F.conv2d(t, wdw.permute(2, 0, 1)[:, None], bdw, padding=1, groups=2 * c)
-    g = (t[:, :c] * t[:, c:]).permute(0, 2, 3, 1)
+    return (t[:, :c] * t[:, c:]).permute(0, 2, 3, 1)
+
+
+def _k5_library(x, p):
+    """K5's function as PyTorch calls: F.layer_norm, two F.linear, the gate and
+    the residual.  Timed beside the kernel only; the port does not call it."""
+    import torch.nn.functional as F
+
+    c = x.shape[-1]
     n2w, n2b, w4, b4, w5, b5, gamma = p[11:]
     h = F.linear(F.layer_norm(x, (c,), n2w, n2b, 1e-6), w4.t(), b4)
-    return g, x + gamma * F.linear(h[..., :c] * h[..., c:], w5.t(), b5)
+    return x + gamma * F.linear(h[..., :c] * h[..., c:], w5.t(), b5)
 
 
 def check_k4_k5() -> dict:
     """K4 and K5 against their plain versions at the c = 512 stage shapes, fp32 and
     bf16, each run twice for equal bits; per-forward totals (29 calls at B = 1,
-    CUDA events) beside the plain versions', the library calls' and the bound."""
+    CUDA events) beside the plain versions', the library calls' (``_k4_library``,
+    ``_k5_library``) and the bound (3xTF32 on the tensor cores, and the SIMT fp32
+    bound); at the train yml's B = 8 each kernel's and library call's ms a call
+    (CUDA events) and device ms a call (torch.profiler), and the kernel's device
+    time by pass (``swin_ab.pass_split``)."""
     import torch
 
     from dcpt_tpu_torch.ops.naf_ffn import naf_ffn, naf_ffn_ref
     from dcpt_tpu_torch.ops.naf_prefix import naf_prefix, naf_prefix_ref
+    from dcpt_tpu_torch.tools.swin_ab import pass_split, print_split
 
     gen = torch.Generator().manual_seed(16)
     c = K45_C
     out = {"naf_prefix": {"max_abs_err": 0.0, "bf16_max_abs_err": 0.0},
            "naf_ffn": {"max_abs_err": 0.0, "bf16_max_abs_err": 0.0}}
     print(f"  {'B':>3} {'H':>4} {'W':>4} {'dtype':>9} {'K4 rel':>10} {'K5 rel':>10} {'lib rel':>10} {'K4 ms':>8} "
-          f"{'plain':>8} {'library':>8} {'K5 ms':>8} {'plain':>8} {'library':>8}")
+          f"{'plain':>8} {'library':>8} {'K5 ms':>8} {'plain':>8} {'library':>8}  (CUDA events around back-to-back "
+          f"calls)")
     for dname in ("float32", "bfloat16"):
         dtype = getattr(torch, dname)
         for b, h, w in K45_CASES:
             x = torch.randn(b, h, w, c, generator=gen).to(device="cuda", dtype=dtype)
-            p = random_block_params(c, gen, dtype, "cuda")
+            p = module_views(random_block_params(c, gen, dtype, "cuda"))
             xf, pf = x.float(), [t.float() for t in p]
+            kernels = {"naf_prefix": (lambda: naf_prefix(x, *p[:6])), "naf_ffn": (lambda: naf_ffn(x, *p[11:]))}
+            library = {"naf_prefix": (lambda: _k4_library(x, p)), "naf_ffn": (lambda: _k5_library(x, p))}
             with torch.no_grad():
-                g, z = naf_prefix(x, *p[:6]), naf_ffn(x, *p[11:])
-                g2, z2 = naf_prefix(x, *p[:6]), naf_ffn(x, *p[11:])
+                g, z = kernels["naf_prefix"](), kernels["naf_ffn"]()
+                g2, z2 = kernels["naf_prefix"](), kernels["naf_ffn"]()
                 ref_g, ref_z = naf_prefix_ref(xf, *pf[:6]), naf_ffn_ref(xf, *pf[11:])
-                lib_g, lib_z = _k45_library(xf, pf)
+                lib_g, lib_z = _k4_library(xf, pf), _k5_library(xf, pf)
             torch.cuda.synchronize()
             if not (torch.equal(g, g2) and torch.equal(z, z2)):
                 raise RuntimeError(f"K4 / K5 at ({b}, {h}, {w}, {c}) {dname}: two runs on the same inputs differ")
@@ -2209,21 +2245,46 @@ def check_k4_k5() -> dict:
                 raise RuntimeError(f"K4 / K5 at ({b}, {h}, {w}, {c}) {dname}: errors {rels} (limit {TOL[dname]:.0e}), "
                                    f"library {lib_rel:.3e}")
             with torch.no_grad():
-                t = [cuda_ms(lambda: naf_prefix(x, *p[:6])), cuda_ms(lambda: naf_prefix_ref(x, *p[:6])),
-                     cuda_ms(lambda: _k45_library(x, p)[0]), cuda_ms(lambda: naf_ffn(x, *p[11:])),
-                     cuda_ms(lambda: naf_ffn_ref(x, *p[11:])), cuda_ms(lambda: _k45_library(x, p)[1])]
+                t = [cuda_ms(kernels["naf_prefix"]), cuda_ms(lambda: naf_prefix_ref(x, *p[:6])),
+                     cuda_ms(library["naf_prefix"]), cuda_ms(kernels["naf_ffn"]),
+                     cuda_ms(lambda: naf_ffn_ref(x, *p[11:])), cuda_ms(library["naf_ffn"])]
             print(f"  {b:>3} {h:>4} {w:>4} {dname:>9} {rels[0]:>10.3e} {rels[1]:>10.3e} {lib_rel:>10.3e} "
                   + " ".join(f"{v:>8.4f}" for v in t), flush=True)
+            times = {"naf_prefix": t[:3], "naf_ffn": t[3:]}
+            works = {"naf_prefix": k4_work(c, b * h * w), "naf_ffn": k5_work(c, b * h * w)}
             if (dname, b, h, w) == ("float32", 1, 16, 16):
                 n = K45_PER_FORWARD
-                for name, (k_ms, p_ms, l_ms), work in (("naf_prefix", t[:3], k4_work(c, h * w)),
-                                                        ("naf_ffn", t[3:], k5_work(c, h * w))):
-                    bound_ms, bound_by = bound([(n, *work)])
+                for name, (k_ms, p_ms, l_ms) in times.items():
+                    bound_ms, bound_by = bound([(n, *works[name])], PEAK_TF32_FLOPS / 3)
                     out[name].update(ms=n * k_ms, plain_ms=n * p_ms, library_ms=n * l_ms, bound_ms=bound_ms,
-                                     bound_by=bound_by)
+                                     bound_by=bound_by, simt_bound_ms=bound([(n, *works[name])])[0])
+            if (dname, b, h, w) == ("float32", 8, 16, 16):
+                for name, (k_ms, p_ms, l_ms) in times.items():
+                    with torch.no_grad():
+                        funcs = device_ms_by_function(kernels[name], 10)[0]
+                        lib_dev = sum(device_ms_by_function(library[name], 10)[0].values())
+                        split = pass_split(kernels[name])
+                    label = "K4" if name == "naf_prefix" else "K5"
+                    print_split(f"  {label} at B={b}, C={c}, {h}x{w}, {dname}, by pass", split)
+                    if not split:
+                        raise NoDeviceTime(f"torch.profiler recorded no device time for {name}'s passes")
+                    required = DEVICE_FUNCTIONS[name] - CUT_ONLY
+                    if not required <= set(funcs) <= DEVICE_FUNCTIONS[name]:
+                        raise RuntimeError(f"{label}'s profile at B={b} shows {sorted(funcs)}, expected "
+                                           f"{sorted(required)} and no other than {sorted(DEVICE_FUNCTIONS[name])}")
+                    k_dev = sum(funcs.values())
+                    print(f"  {label} at B={b}: {k_ms:.4f} ms a call (CUDA events), device {k_dev:.4f} ms; library "
+                          f"{l_ms:.4f} ms, device {lib_dev:.4f} ms", flush=True)
+                    out[name].update(b8_ms=k_ms, b8_plain_ms=p_ms, b8_library_ms=l_ms, b8_device_ms=k_dev,
+                                     b8_library_device_ms=lib_dev, b8_split=split,
+                                     b8_bound_ms=bound([(1, *works[name])], PEAK_TF32_FLOPS / 3)[0],
+                                     b8_simt_bound_ms=bound([(1, *works[name])])[0])
             if (dname, b, h, w) == ("bfloat16", 1, 16, 16):
-                for name, k_ms, p_ms in (("naf_prefix", t[0], t[1]), ("naf_ffn", t[3], t[4])):
+                for name, (k_ms, p_ms, _) in times.items():
                     out[name].update(bf16_ms=K45_PER_FORWARD * k_ms, bf16_plain_ms=K45_PER_FORWARD * p_ms)
+            if (dname, b, h, w) == ("bfloat16", 8, 16, 16):
+                for name, (k_ms, _, _) in times.items():
+                    out[name]["b8_bf16_ms"] = k_ms
     return out
 
 
@@ -2956,6 +3017,48 @@ def check_standalone() -> dict:
     out["mdta_attention"].update(b8_ms=b8[0], b8_plain_ms=b8[1], b8_library_ms=b8[2], b8_bound_ms=b8[3],
                                  bf16_ms=k13[(enc1, "bf16", False)][0], bf16_ms_fp32=k13[(enc1, RESTORMER_FLAVOUR)][0])
     print("  K11-K14 and K5' twice on the same inputs: equal bit for bit at every shape", flush=True)
+
+    # device time a call at the train ymls' batch 8 (torch.profiler) beside the library call's: K11 on
+    # SwinIR's map at shift 4; K14 at one enc1 TransformerBlock's qkv and project_in (C 48 on 128 x 128,
+    # WithBias, the flavour F.layer_norm computes); K5' at NAFNet-w64's c = 512 stage (16 x 16)
+    def device_pair(label, fn, library):
+        with torch.no_grad():
+            k_dev, l_dev = (sum(device_ms_by_function(f, 10)[0].values()) for f in (fn, library))
+        print(f"  {label} at B=8: device {k_dev:.4f} ms a call, library {l_dev:.4f} ms", flush=True)
+        return k_dev, l_dev
+
+    x, ws, shift = rand(8, 128, 128, SWIN_C), SWIN_WS, SWIN_WS // 2
+    win = ops.window_partition_fused(x, ws, shift)
+    k11_b8 = {
+        "window_partition_fused": device_pair(
+            "K11 partition", lambda: ops.window_partition_fused(x, ws, shift),
+            lambda: torch.roll(x, (-shift, -shift), (1, 2)).view(8, 128 // ws, ws, 128 // ws, ws, -1)
+            .permute(0, 1, 3, 2, 4, 5).contiguous()),
+        "window_reverse_fused": device_pair(
+            "K11 reverse", lambda: ops.window_reverse_fused(win, ws, 128, 128, shift),
+            lambda: torch.roll(win.view(8, 128 // ws, 128 // ws, ws, ws, -1).permute(0, 1, 3, 2, 4, 5)
+                               .reshape(x.shape), (shift, shift), (1, 2)))}
+    for name, (k_dev, l_dev) in k11_b8.items():
+        out[name].update(b8_device_ms=k_dev, b8_library_device_ms=l_dev)
+    del x, win
+    _, _, eps = PROMPTIR_FLAVOUR
+    c = next(iter(K6_BODY))[0]  # enc1's width, 48
+    x = rand(8 * 128 * 128, c, scale=2.0, shift=0.5)
+    ln_w, ln_b = rand(c, scale=0.3, shift=1.0), rand(c, scale=0.3)
+    k14_b8 = [0.0, 0.0]
+    for c_out in (3 * c, 2 * int(2.66 * c)):  # qkv, project_in
+        w = rand(c, c_out, scale=c ** -0.5)
+        pair = device_pair(f"K14 ({x.shape[0]}, {c}) -> {c_out}", lambda: ln_proj.fused_ln_proj(x, ln_w, ln_b, w, eps),
+                           lambda: F.linear(F.layer_norm(x, (c,), ln_w, ln_b, eps), w.t()))
+        k14_b8 = [a + b for a, b in zip(k14_b8, pair)]
+    out["fused_ln_proj"].update(b8_device_ms=k14_b8[0], b8_library_device_ms=k14_b8[1])
+    c = K45_C
+    x = rand(8 * 16 * 16, c, scale=2.0, shift=0.5)
+    ln_w, ln_b, w, b1 = rand(c, scale=0.3, shift=1.0), rand(c, scale=0.3), rand(c, 2 * c, scale=c ** -0.5), rand(2 * c)
+    k_dev, l_dev = device_pair(f"K5' ({x.shape[0]}, {c}) -> {2 * c}",
+                               lambda: naf_ffn.naf_expand(x, ln_w, ln_b, w, b1, 1e-6),
+                               lambda: F.linear(F.layer_norm(x, (c,), ln_w, ln_b, 1e-6), w.t(), b1))
+    out["naf_expand"].update(b8_device_ms=k_dev, b8_library_device_ms=l_dev)
     return out
 
 
@@ -3218,13 +3321,16 @@ def main() -> int:
 
     print(f"[16] K4 naf_prefix vs naf_prefix_ref and K5 naf_ffn vs naf_ffn_ref at C={K45_C}, TF32 off; limits 1e-4 "
           f"(fp32), 2e-2 (bf16) relative to max(1, max|ref|)", flush=True)
-    k45 = run_phase(check_k4_k5, profiles=False)
+    k45 = run_phase(check_k4_k5)
     for name in ("naf_prefix", "naf_ffn"):
         k = k45[name]
         print(f"[16] {name} per NAFNet-w64 forward (B=1, 128x128, {K45_PER_FORWARD} blocks at C={K45_C}): kernel "
               f"{k['ms']:.3f} ms (bf16 {k['bf16_ms']:.3f}), plain {k['plain_ms']:.3f} ms (bf16 "
               f"{k['bf16_plain_ms']:.3f}), library {k['library_ms']:.3f} ms, bound {k['bound_ms']:.3f} ms "
-              f"({k['bound_by']})", flush=True)
+              f"({k['bound_by']}, 3xTF32 on the tensor cores; SIMT fp32 {k['simt_bound_ms']:.3f} ms); one call at B=8: "
+              f"{k['b8_ms']:.4f} ms (device {k['b8_device_ms']:.4f} ms; bf16 {k['b8_bf16_ms']:.4f} ms), library "
+              f"{k['b8_library_ms']:.4f} ms (device {k['b8_library_device_ms']:.4f} ms), plain {k['b8_plain_ms']:.4f} "
+              f"ms, bound {k['b8_bound_ms']:.4f} ms (SIMT fp32 {k['b8_simt_bound_ms']:.4f} ms)", flush=True)
 
     pallas = run_phase(run_pallas_eval, force, env=PALLAS_ENV)
 
@@ -3263,7 +3369,7 @@ def main() -> int:
           "fused_bias_leaky_relu, K14 fused_ln_proj, K5' naf_expand, K13 mdta_attention vs their plain versions, TF32 "
           "off; limits: K11 exact, K12 / K14 / K5' 1e-5 (fp32), K13 1e-4 (fp32), 2e-2 (bf16), relative to max(1, "
           "max|ref|)", flush=True)
-    standalone = run_phase(check_standalone, profiles=False)
+    standalone = run_phase(check_standalone)
     path = run_phase(run_standalone_path, profiles=False)
     for name in ("window_partition_fused", "window_reverse_fused"):
         k = standalone[name]
@@ -3286,6 +3392,11 @@ def main() -> int:
     print(f"[22] naf_expand per NAFNet-w64 forward's worth (35 blocks at C <= 512, B=1, 128x128): {k['ms']:.3f} ms "
           f"(bf16 {k['bf16_ms']:.3f}), plain {k['plain_ms']:.3f}, F.layer_norm + F.linear {k['library_ms']:.3f}, "
           f"bound {k['bound_ms']:.3f} ms ({k['bound_by']})", flush=True)
+    print("[22] device time a call at B=8 (torch.profiler), kernel against the library call: " + "; ".join(
+        f"{name} {standalone[name]['b8_device_ms']:.4f} against {standalone[name]['b8_library_device_ms']:.4f} ms"
+        for name in ("window_partition_fused", "window_reverse_fused", "fused_ln_proj", "naf_expand"))
+        + " (K11 at 128x128x180, shift 4; K14 one enc1 block's qkv + project_in, C 48 at 128x128; K5' at C 512 on "
+        "16x16)", flush=True)
 
     launches = dict(train["launches"], mdta_block_fused=k6_launches["Restormer"],
                     mdta_block_bwd=transformer_train["Restormer"]["launches"]["mdta_block_bwd"],
@@ -3342,9 +3453,8 @@ def main() -> int:
                       **{"bf16_" + k: v for k, v in bwd16["mdta_block_bwd"].items()
                          if k.startswith("promptir_") and k != "promptir_bound_by"})
     for entry in kernels[8:10]:
-        entry.update(launches_per_image=K45_PER_FORWARD, bf16_ms=k45[entry["name"]]["bf16_ms"],
-                     bf16_plain_ms=k45[entry["name"]]["bf16_plain_ms"],
-                     bf16_max_abs_err=k45[entry["name"]]["bf16_max_abs_err"])
+        entry.update(launches_per_image=K45_PER_FORWARD,
+                     **{k: v for k, v in k45[entry["name"]].items() if k not in entry and k != "b8_split"})
     # the standalone ops: their extra columns (bf16, backward, B = 8, PromptIR), and the launches per net forward
     for entry in kernels[10:]:
         entry.update({k: v for k, v in standalone[entry["name"]].items() if k not in entry})

@@ -55,47 +55,16 @@
 //
 // Weights come in PyTorch's layout: every 1x1 as (out, in) row-major, the
 // depthwise 3x3 as (2C, 3, 3), so a module's parameters are passed as they are.
-// K4 (naf_prefix.cu) and K5 (naf_ffn.cu) are SIMT passes of the same
-// block (naf_common.cuh).
+// The gate pass and the W1, W4 and W5 epilogues are naf_common.cuh's, which
+// K4 (naf_prefix.cu) and K5 (naf_ffn.cu) run as their halves of the block.
 
 #include <algorithm>
 
-#include "common.cuh"
-#include "tc_gemm.cuh"
-#include "token_bwd.cuh"
+#include "naf_common.cuh"
 
 namespace {
 
-constexpr int kRowC = 32;  // gate: channels of a block (a warp's lanes)
-constexpr int kSeg = 32;   // gate: pixels of an image row a thread walks
 constexpr int kScaC = 64;  // SCA: output channels of a block
-
-__host__ __device__ inline int num_segments(int W) { return (W + kSeg - 1) / kSeg; }
-
-// gate: one thread a gate channel j walks kSeg pixels of an image row
-// (dw3x3_walk): a = dw(t)[j] + bdw[j], b = dw(t)[C + j] + bdw[C + j] (t zero
-// outside the image), g = a b, and the segment's sum of g into part (B, H *
-// segments, C).  A block: kRowC channels x kThreads / kRowC (row, segment)
-// pairs; grid (pair tiles, C / kRowC, B).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-naf_gate_kernel(const float* __restrict__ t, const T* __restrict__ wdw, const T* __restrict__ bdw, T* __restrict__ g,
-                float* __restrict__ part, int H, int W, int C, int nseg) {
-  const int j = blockIdx.y * kRowC + threadIdx.x % kRowC;
-  const int rs = blockIdx.x * (kThreads / kRowC) + threadIdx.x / kRowC;
-  if (j >= C || rs >= H * nseg) return;
-  const int y = rs / nseg, x0 = (rs % nseg) * kSeg;
-  const size_t img = (size_t)blockIdx.z * H * W;
-  const int ch[2] = {j, C + j};
-  const float bias[2] = {ld(bdw[j]), ld(bdw[C + j])};
-  float psum = 0.f;
-  dw3x3_walk<2>(t, wdw, ch, bias, img, y, x0, min(W, x0 + kSeg), H, W, 2 * C, [&](int x, const float (&s)[2]) {
-    const float gv = s[0] * s[1];
-    psum += gv;
-    g[(img + (size_t)y * W + x) * C + j] = st<T>(gv);
-  });
-  part[((size_t)blockIdx.z * H * nseg + rs) * C + j] = psum;
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -149,17 +118,6 @@ naf_scale_kernel(const T* __restrict__ g, const float* __restrict__ att, float* 
   ga[e] = ld(g[e]) * att[(p / HW) * C + c];
 }
 
-// t = acc + b1: W1's epilogue
-template <typename T>
-struct ExpandEpi {
-  const T* b1;
-  float* t;
-  int N;
-  __device__ __forceinline__ void operator()(int, int r, int n, float v0, float v1) const {
-    store_pair(t + (size_t)r * N + n, v0 + ld(b1[n]), v1 + ld(b1[n + 1]), true);  // N = 2C: even
-  }
-};
-
 // u = acc + b3, y = x + beta * u (and u_out): W3's epilogue (C even)
 template <typename T>
 struct SpatialEpi {
@@ -174,47 +132,10 @@ struct SpatialEpi {
   }
 };
 
-// W4's epilogue on the paired rows: column pair (2j, 2j + 1) is h1 = h[j] and
-// h2 = h[C + j] less their biases; hidden = h1 h2 (and h_out in the layout [h1 | h2])
-template <typename T>
-struct GateEpi {
-  const T* b4;
-  float *hidden, *h_out;
-  int C;
-  __device__ __forceinline__ void operator()(int, int r, int n, float v0, float v1) const {
-    const int j = n / 2;
-    const float h1 = v0 + ld(b4[j]), h2 = v1 + ld(b4[C + j]);
-    hidden[(size_t)r * C + j] = h1 * h2;
-    if (h_out) {
-      h_out[(size_t)r * 2 * C + j] = h1;
-      h_out[(size_t)r * 2 * C + C + j] = h2;
-    }
-  }
-};
-
-// o = acc + b5, z = y + gamma * o in the I/O type (and o_out): W5's epilogue (C even)
-template <typename T>
-struct OutEpi {
-  const float* y;
-  const T *b5, *gamma;
-  T* z;
-  float* o_out;
-  int C;
-  __device__ __forceinline__ void operator()(int, int r, int n, float v0, float v1) const {
-    const size_t q = (size_t)r * C + n;
-    const float o0 = v0 + ld(b5[n]), o1 = v1 + ld(b5[n + 1]);
-    z[q] = st<T>(y[q] + ld(gamma[n]) * o0);
-    z[q + 1] = st<T>(y[q + 1] + ld(gamma[n + 1]) * o1);
-    if (o_out) store_pair(o_out + q, o0, o1, true);
-  }
-};
-
 // What the passes write for the backward; every pointer null in eval.
 struct Saved {
   float *pooled, *t, *u, *h, *o;
 };
-
-inline size_t round64(size_t floats) { return (floats + 63) / 64 * 64; }  // 256-byte aligned offsets
 
 // The fp32 scratch (the caller's part): the gate's segment sums, a map of C
 // floats a pixel (LN1(x), then g * att, then LN2(y)), t in eval, and the
@@ -226,21 +147,16 @@ struct Scratch {
 inline Scratch scratch_plan(int B, int H, int W, int C) {
   const int npix = B * H * W;
   Scratch sc;
-  size_t off = 0;
-  auto take = [&](size_t floats) {
-    const size_t at = off;
-    off += round64(floats);
-    return at;
-  };
-  sc.sums = take((size_t)B * H * num_segments(W) * C);
-  sc.ln = take((size_t)npix * C);
-  sc.t = take((size_t)npix * 2 * C);
+  ScratchPlan plan;
+  sc.sums = plan.take((size_t)B * H * num_segments(W) * C);
+  sc.ln = plan.take((size_t)npix * C);
+  sc.t = plan.take((size_t)npix * 2 * C);
   size_t part = 0, sum = 0;
   const int prods[2][2] = {{C, 2 * C}, {C, C}};  // (depth, N): W1 and W4, W3 and W5
   for (const auto& pr : prods) product_floats(npix, pr[0], pr[1], &part, &sum, kForwardMinCutRows);
-  sc.prod_part = take(part);
-  sc.prod_sum = take(sum);
-  sc.total = off;
+  sc.prod_part = plan.take(part);
+  sc.prod_sum = plan.take(sum);
+  sc.total = plan.off;
   return sc;
 }
 
@@ -268,9 +184,7 @@ int naf_block_fwd(const T* x, const T* n1w, const T* n1b, const T* w1, const T* 
   // the spatial half
   CHECK(ln_fwd<1>(x, n1w, n1b, ln, npix, C, eps, 1, stream));
   CHECK(product_epi<1>(kmaj(ln), kmaj(w1, 2 * C), C, ExpandEpi<T>{b1, t, 2 * C}, ppart, psum, stream, cut));
-  naf_gate_kernel<T><<<dim3((H * nseg + kThreads / kRowC - 1) / (kThreads / kRowC), C / kRowC, B), kThreads, 0,
-                       stream>>>(t, wdw, bdw, g, sums, H, W, C, nseg);
-  CHECK(cudaGetLastError());
+  CHECK(naf_gate<1>(t, wdw, bdw, g, sums, B, H, W, C, stream));
   naf_sca_kernel<T><<<dim3(C / kScaC, B), kThreads, (C + kThreads) * (int)sizeof(float), stream>>>(
       sums, H * nseg, wsca, bsca, att, sv.pooled, C, (float)HW);
   CHECK(cudaGetLastError());
@@ -282,7 +196,7 @@ int naf_block_fwd(const T* x, const T* n1w, const T* n1b, const T* w1, const T* 
   CHECK(ln_fwd<1>(y, n2w, n2b, ln, npix, C, eps, 1, stream));
   // W4's rows read with each gate pair side by side (2j <- j, 2j + 1 <- C + j)
   CHECK(product_epi<1>(kmaj(ln), kmaj(w4, 2 * C, C), C, GateEpi<T>{b4, hidden, sv.h, C}, ppart, psum, stream, cut));
-  return product_epi<1>(kmaj(hidden), kmaj(w5, C), C, OutEpi<T>{y, b5, gamma, z, sv.o, C}, ppart, psum, stream, cut);
+  return product_epi<1>(kmaj(hidden), kmaj(w5, C), C, OutEpi<T, float>{y, b5, gamma, z, sv.o, C}, ppart, psum, stream, cut);
 #undef CHECK
 }
 

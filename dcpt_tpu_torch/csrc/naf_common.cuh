@@ -1,273 +1,133 @@
-// The NAFBlock's two halves as SIMT fp32 kernels that two CUDA sources share:
+// The NAFBlock passes that three CUDA sources share: K1 (naf_block.cu, the
+// whole block), K4 (naf_prefix.cu, LN1 -> W1 -> depthwise 3x3 -> gate) and K5
+// (naf_ffn.cu, LN2 -> W4 -> gate -> W5 -> residual).  Each runs its 1x1
+// products on the tensor cores (tc_gemm.cuh, through token_bwd.cuh's
+// product_epi) with these epilogues, and K1 and K4 their depthwise 3x3 and
+// SimpleGate with naf_gate_kernel:
 //
-//   naf_p1_kernel   LN1 -> 1x1 C->2C -> depthwise 3x3 -> SimpleGate on halo tiles
-//                   (with no tile-sum buffer, all of K4, naf_prefix.cu)
-//   naf_p2b_kernel  hidden = gate(LN2(y) . W4^T + b4)
-//   naf_p2c_kernel  z = y + gamma * (hidden . W5^T + b5)
-//                   (the two together are K5, naf_ffn.cu)
+//   ExpandEpi   t = acc + b1 (W1, C -> 2C), fp32
+//   GateEpi     W4 read as a paired operand (2j <- j, 2j + 1 <- C + j), so that
+//               h[j] and h[C + j] are one column pair: hidden = h1 h2, fp32
+//   OutEpi      o = acc + b5, z = y + gamma * o in the I/O type; y fp32 (K1's
+//               own) or in the I/O type (K5's input)
+//   gate        per (image row segment, 32 gate channels): the depthwise 3x3
+//               of t on channels j and C + j, zero outside the image, with its
+//               bias, then g = a b in the I/O type; with part, each segment's
+//               channel sums of g (K1's SCA; K4 passes null)
 //
-// Each is templated on the I/O type T of its weights and output, and the FFN
-// passes also on the type TY of y (K5 hands them the caller's map in T).  The
-// math is fp32 throughout.  Weights come in PyTorch's layout:
-// every 1x1 as (out, in) row-major, the depthwise 3x3 as (2C, 3, 3).
+// Every kernel is templated on Owner, the number of the kernel that launches
+// it, as token_bwd.cuh's are, so a profile tells K1's, K4's and K5's launches
+// apart.  Weights come in PyTorch's layout: every 1x1 as (out, in) row-major,
+// the depthwise 3x3 as (2C, 3, 3).  Every C is taken: ragged channels, rows
+// and segments are masked.
 #pragma once
 
 #include "common.cuh"
-#include "gemm.cuh"
+#include "tc_gemm.cuh"
+#include "token_bwd.cuh"
 
 namespace {
 
-constexpr int kTileH = 6, kTileW = 14;    // P1 output tile
-constexpr int kHaloW = kTileW + 2;        // P1 halo tile: 8 x 16 = 128 pixels
-constexpr int kNPX = (kTileH + 2) * kHaloW;
-constexpr int kCC = 64;                   // P1 gate channels per block (paired with C + j)
+constexpr int kRowC = 32;  // gate: channels of a block (a warp's lanes)
+constexpr int kSeg = 32;   // gate: pixels of an image row a thread walks
 
-// P1's dynamic shared memory in bytes
-constexpr int p1_smem_bytes() { return (2 * kNPX + 2 * kCC * (kNPX + 1)) * (int)sizeof(float); }
+__host__ __device__ inline int num_segments(int W) { return (W + kSeg - 1) / kSeg; }
 
-// P1, per (batch, 6x14 output tile with a 1-pixel halo, 64 gate channels): the
-// gated map g (B, H, W, C); with part, the tile's channel sums of g into
-// part (B, n_tiles, C); with t_out, the expanded map t (B, H, W, 2C) in fp32.
-// The dwconv border follows the reference: the EXPANDED map t is zero outside
-// the image (F.conv2d(t, padding=1)), so halo pixels outside the image are
-// zeroed after the 1x1 expand, never before it.  Ragged tiles are masked.
-template <typename T>
+inline size_t round64(size_t floats) { return (floats + 63) / 64 * 64; }  // 256-byte aligned offsets
+
+// Offsets of the stretches of a kernel's fp32 scratch, each 256-byte aligned;
+// off ends as the floats the whole takes.
+struct ScratchPlan {
+  size_t off = 0;
+  size_t take(size_t floats) {
+    const size_t at = off;
+    off += round64(floats);
+    return at;
+  }
+};
+
+// gate: one thread a gate channel j walks kSeg pixels of an image row
+// (dw3x3_walk): a = dw(t)[j] + bdw[j], b = dw(t)[C + j] + bdw[C + j] (t zero
+// outside the image), g = a b, and with part the segment's sum of g into part
+// (B, H * segments, C).  A block: kRowC channels x kThreads / kRowC (row,
+// segment) pairs; grid (pair tiles, channel tiles, B).
+template <int Owner, typename T>
 __global__ void __launch_bounds__(kThreads)
-naf_p1_kernel(const T* __restrict__ x, const T* __restrict__ n1w, const T* __restrict__ n1b,
-              const T* __restrict__ w1, const T* __restrict__ b1, const T* __restrict__ wdw,
-              const T* __restrict__ bdw, T* __restrict__ g, float* __restrict__ part,
-              float* __restrict__ t_out, int H, int W, int C, int ntx, float eps) {
-  extern __shared__ float smem[];
-  constexpr int lda = kNPX + 1;
-  float* sMu = smem;               // kNPX: LN1 mean of each halo pixel
-  float* sRs = sMu + kNPX;         // kNPX: LN1 1/sigma
-  float* sT = sRs + kNPX;          // 2*kCC x lda: expanded map, channel-major (aliases the product's buffers)
-
-  const int tile = blockIdx.x, c0 = blockIdx.y * kCC, b = blockIdx.z;
-  const int y0 = (tile / ntx) * kTileH - 1, x0 = (tile % ntx) * kTileW - 1;  // halo origin
-  const size_t hw = (size_t)H * W;
-  const T* xb = x + (size_t)b * hw * C;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  auto inside = [&](int q, int& yy, int& xx) {
-    yy = y0 + q / kHaloW;
-    xx = x0 + q % kHaloW;
-    return yy >= 0 && yy < H && xx >= 0 && xx < W;
-  };
-
-  // LN1 statistics of the halo pixels, one warp per pixel (biased variance)
-  for (int q = warp; q < kNPX; q += kThreads / 32) {
-    int yy, xx;
-    const bool in = inside(q, yy, xx);
-    const T* row = xb + (in ? ((size_t)yy * W + xx) * C : 0);
-    float s = 0.f;
-    if (in)
-      for (int c = lane; c < C; c += 32) s += ld(row[c]);
-    const float mu = warp_sum(s) / C;
-    float v = 0.f;
-    if (in)
-      for (int c = lane; c < C; c += 32) {
-        const float d = ld(row[c]) - mu;
-        v += d * d;
-      }
-    v = warp_sum(v);
-    if (lane == 0) {
-      sMu[q] = mu;
-      sRs[q] = 1.f / sqrtf(v / C + eps);
-    }
-  }
-
-  // t[q][j] = LN1(x)[q] . w1[c0 + j]  and  t2[q][j] = LN1(x)[q] . w1[C + c0 + j]
-  float acc[8][4], acc2[8][4];
-  gemm_block<8, true, false>(sT, w1, C, C, c0, C, [&](int q, int k) {
-    int yy, xx;
-    if (!inside(q, yy, xx)) return 0.f;
-    return (ld(xb[((size_t)yy * W + xx) * C + k]) - sMu[q]) * sRs[q] * ld(n1w[k]) + ld(n1b[k]);
-  }, acc, acc2);
-  __syncthreads();  // the product is done with its buffers before sT overwrites them
-
-  // bias, then zero the expanded map outside the image (the dwconv's border);
-  // for training, the tile's own in-image pixels of t go to t_out
-  {
-    const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      const int q = ty + 16 * r;
-      int yy, xx;
-      const bool in = inside(q, yy, xx);
-      const int qy = q / kHaloW, qx = q % kHaloW;
-      const bool own = in && t_out && qy >= 1 && qy <= kTileH && qx >= 1 && qx <= kTileW;
-      float* trow = own ? t_out + ((size_t)b * hw + (size_t)yy * W + xx) * 2 * C : nullptr;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int j = tx + 16 * i;
-        const float ta = in ? acc[r][i] + ld(b1[c0 + j]) : 0.f;
-        const float tb = in ? acc2[r][i] + ld(b1[C + c0 + j]) : 0.f;
-        sT[j * lda + q] = ta;
-        sT[(kCC + j) * lda + q] = tb;
-        if (own) {
-          trow[c0 + j] = ta;
-          trow[C + c0 + j] = tb;
-        }
-      }
-    }
-  }
-  __syncthreads();
-
-  // depthwise 3x3 (cross-correlation, as F.conv2d) on both halves, gate, tile sums
-  const int j = threadIdx.x & (kCC - 1), grp = threadIdx.x / kCC;
-  float wa[9], wb[9];
-#pragma unroll
-  for (int t = 0; t < 9; ++t) {
-    wa[t] = ld(wdw[(size_t)(c0 + j) * 9 + t]);
-    wb[t] = ld(wdw[(size_t)(C + c0 + j) * 9 + t]);
-  }
-  const float ba = ld(bdw[c0 + j]), bb = ld(bdw[C + c0 + j]);
-  const float* ta = sT + j * lda;
-  const float* tb = sT + (kCC + j) * lda;
+naf_gate_kernel(const float* __restrict__ t, const T* __restrict__ wdw, const T* __restrict__ bdw, T* __restrict__ g,
+                float* __restrict__ part, int H, int W, int C, int nseg) {
+  const int j = blockIdx.y * kRowC + threadIdx.x % kRowC;
+  const int rs = blockIdx.x * (kThreads / kRowC) + threadIdx.x / kRowC;
+  if (j >= C || rs >= H * nseg) return;
+  const int y = rs / nseg, x0 = (rs % nseg) * kSeg;
+  const size_t img = (size_t)blockIdx.z * H * W;
+  const int ch[2] = {j, C + j};
+  const float bias[2] = {ld(bdw[j]), ld(bdw[C + j])};
   float psum = 0.f;
-  for (int o = grp; o < kTileH * kTileW; o += kThreads / kCC) {
-    const int oy = o / kTileW, ox = o % kTileW;
-    const int yy = y0 + 1 + oy, xx = x0 + 1 + ox;
-    if (yy >= H || xx >= W) continue;
-    float da = ba, db = bb;
-#pragma unroll
-    for (int dy = 0; dy < 3; ++dy)
-#pragma unroll
-      for (int dx = 0; dx < 3; ++dx) {
-        const int q = (oy + dy) * kHaloW + ox + dx;
-        da = fmaf(ta[q], wa[dy * 3 + dx], da);
-        db = fmaf(tb[q], wb[dy * 3 + dx], db);
-      }
-    const float gv = da * db;
+  dw3x3_walk<2>(t, wdw, ch, bias, img, y, x0, min(W, x0 + kSeg), H, W, 2 * C, [&](int x, const float (&s)[2]) {
+    const float gv = s[0] * s[1];
     psum += gv;
-    g[((size_t)b * hw + (size_t)yy * W + xx) * C + c0 + j] = st<T>(gv);
-  }
-  if (!part) return;  // uniform across the block: no thread waits at the barrier below
-  float* sP = smem;  // kThreads floats over the (dead) LN1 statistics
-  sP[threadIdx.x] = psum;
-  __syncthreads();
-  if (threadIdx.x < kCC) {
-    float s = 0.f;
-    for (int k = 0; k < kThreads / kCC; ++k) s += sP[k * kCC + threadIdx.x];
-    part[((size_t)b * gridDim.x + tile) * C + c0 + threadIdx.x] = s;
-  }
+    g[(img + (size_t)y * W + x) * C + j] = st<T>(gv);
+  });
+  if (part) part[((size_t)blockIdx.z * H * nseg + rs) * C + j] = psum;
 }
 
-// P1 over the whole map on ``stream``; part and t_out may be null.
+// The gate over t (B, H, W, 2C) fp32 into g (B, H, W, C) on ``stream``; part,
+// the segment sums (B, H * num_segments(W), C), may be null.
+template <int Owner, typename T>
+cudaError_t naf_gate(const float* t, const T* wdw, const T* bdw, T* g, float* part, int B, int H, int W, int C,
+                     cudaStream_t stream) {
+  const int nseg = num_segments(W), per = kThreads / kRowC;
+  naf_gate_kernel<Owner, T><<<dim3((H * nseg + per - 1) / per, (C + kRowC - 1) / kRowC, B), kThreads, 0, stream>>>(
+      t, wdw, bdw, g, part, H, W, C, nseg);
+  return cudaGetLastError();
+}
+
+// t = acc + b1: W1's epilogue
 template <typename T>
-cudaError_t launch_p1(const T* x, const T* n1w, const T* n1b, const T* w1, const T* b1, const T* wdw, const T* bdw,
-                      T* g, float* part, float* t_out, int B, int H, int W, int C, float eps, cudaStream_t stream) {
-  const int ntx = (W + kTileW - 1) / kTileW, nty = (H + kTileH - 1) / kTileH;
-  cudaError_t err = cudaFuncSetAttribute(naf_p1_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, p1_smem_bytes());
-  if (err != cudaSuccess) return err;
-  naf_p1_kernel<T><<<dim3(ntx * nty, C / kCC, B), kThreads, p1_smem_bytes(), stream>>>(
-      x, n1w, n1b, w1, b1, wdw, bdw, g, part, t_out, H, W, C, ntx, eps);
-  return cudaGetLastError();
-}
+struct ExpandEpi {
+  const T* b1;
+  float* t;
+  int N;
+  __device__ __forceinline__ void operator()(int, int r, int n, float v0, float v1) const {
+    store_pair(t + (size_t)r * N + n, v0 + ld(b1[n]), v1 + ld(b1[n + 1]), true);  // N = 2C: even
+  }
+};
 
-// The P2 kernels share one grid: (pixel tiles of 16 * RM, C / kNB column blocks, B).
-#define P2_PROLOGUE                                                 \
-  constexpr int P = 16 * RM;                                        \
-  extern __shared__ float smem[];                                   \
-  const int b = blockIdx.z, p0 = blockIdx.x * P, n0 = blockIdx.y * kNB; \
-  const int np = min(P, HW - p0);                                   \
-  const size_t base = ((size_t)b * HW + p0) * C;                    \
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;           \
-  float acc[RM][4], acc2[RM][4];
-
-// hidden = (LN2(y) . w4[:C]^T + b4[:C]) * (LN2(y) . w4[C:]^T + b4[C:]), fp32;
-// with h_out, h = LN2(y) . W4^T + b4 (B, H, W, 2C) in fp32 as well
-template <typename TY, typename T, int RM>
-__global__ void __launch_bounds__(kThreads)
-naf_p2b_kernel(const TY* __restrict__ y, const T* __restrict__ n2w, const T* __restrict__ n2b,
-               const T* __restrict__ w4, const T* __restrict__ b4, float* __restrict__ hidden,
-               float* __restrict__ h_out, int HW, int C, float eps) {
-  P2_PROLOGUE
-  float* sMu = smem;  // P: LN2 mean of each pixel
-  float* sRs = smem + P;
-  // LN2 statistics, one warp per pixel (biased variance)
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int p = warp; p < P; p += kThreads / 32) {
-    const bool in = p < np;
-    const TY* row = y + base + (in ? (size_t)p * C : 0);
-    float s = 0.f;
-    if (in)
-      for (int c = lane; c < C; c += 32) s += ld(row[c]);
-    const float mu = warp_sum(s) / C;
-    float v = 0.f;
-    if (in)
-      for (int c = lane; c < C; c += 32) {
-        const float d = ld(row[c]) - mu;
-        v += d * d;
-      }
-    v = warp_sum(v);
-    if (lane == 0) {
-      sMu[p] = mu;
-      sRs[p] = 1.f / sqrtf(v / C + eps);
+// W4's epilogue on the paired rows: column pair (2j, 2j + 1) is h1 = h[j] and
+// h2 = h[C + j] less their biases; hidden = h1 h2 (and h_out in the layout [h1 | h2])
+template <typename T>
+struct GateEpi {
+  const T* b4;
+  float *hidden, *h_out;
+  int C;
+  __device__ __forceinline__ void operator()(int, int r, int n, float v0, float v1) const {
+    const int j = n / 2;
+    const float h1 = v0 + ld(b4[j]), h2 = v1 + ld(b4[C + j]);
+    hidden[(size_t)r * C + j] = h1 * h2;
+    if (h_out) {
+      h_out[(size_t)r * 2 * C + j] = h1;
+      h_out[(size_t)r * 2 * C + C + j] = h2;
     }
   }
-  gemm_block<RM, true, false>(smem + 2 * P, w4, C, C, n0, C, [&](int p, int k) {
-    return p < np ? (ld(y[base + (size_t)p * C + k]) - sMu[p]) * sRs[p] * ld(n2w[k]) + ld(n2b[k]) : 0.f;
-  }, acc, acc2);
-#pragma unroll
-  for (int r = 0; r < RM; ++r)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int p = ty + 16 * r, n = n0 + tx + 16 * i;
-      if (p < np) {
-        const float h1 = acc[r][i] + ld(b4[n]), h2 = acc2[r][i] + ld(b4[C + n]);
-        hidden[base + (size_t)p * C + n] = h1 * h2;
-        if (h_out) {
-          float* hrow = h_out + ((size_t)b * HW + p0 + p) * 2 * C;
-          hrow[n] = h1;
-          hrow[C + n] = h2;
-        }
-      }
-    }
-}
+};
 
-// z = y + gamma * (hidden . w5^T + b5); with o_out, o = hidden . W5^T + b5 in fp32
-template <typename TY, typename T, int RM>
-__global__ void __launch_bounds__(kThreads)
-naf_p2c_kernel(const float* __restrict__ hidden, const TY* __restrict__ y, const T* __restrict__ w5,
-               const T* __restrict__ b5, const T* __restrict__ gamma, T* __restrict__ z,
-               float* __restrict__ o_out, int HW, int C) {
-  P2_PROLOGUE
-  gemm_block<RM, false, false>(smem, w5, C, C, n0, 0, [&](int p, int k) {
-    return p < np ? hidden[base + (size_t)p * C + k] : 0.f;
-  }, acc, acc2);
-#pragma unroll
-  for (int r = 0; r < RM; ++r)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int p = ty + 16 * r, n = n0 + tx + 16 * i;
-      if (p < np) {
-        const size_t o = base + (size_t)p * C + n;
-        const float ov = acc[r][i] + ld(b5[n]);
-        z[o] = st<T>(ld(y[o]) + ld(gamma[n]) * ov);
-        if (o_out) o_out[o] = ov;
-      }
-    }
-}
-
-// 32-pixel tiles where the map has pixels enough to fill the card, 16-pixel ones on the deep stages
-inline int p2_rows(long long pixels) { return pixels >= 4096 ? 2 : 1; }
-
-// The FFN half (P2b then P2c) over (B, HW, C) on ``stream``; hidden (B, HW, C)
-// fp32 scratch; h_out and o_out may be null.
-template <typename TY, typename T, int RM>
-cudaError_t launch_ffn(const TY* y, const T* n2w, const T* n2b, const T* w4, const T* b4, const T* w5, const T* b5,
-                       const T* gamma, float* hidden, T* z, float* h_out, float* o_out, int B, int HW, int C,
-                       float eps, cudaStream_t stream) {
-  constexpr int P = 16 * RM;
-  const dim3 grid((HW + P - 1) / P, C / kNB, B);
-  const int smem = gemm_smem_floats(RM) * (int)sizeof(float);
-  naf_p2b_kernel<TY, T, RM><<<grid, kThreads, smem + 2 * P * (int)sizeof(float), stream>>>(
-      y, n2w, n2b, w4, b4, hidden, h_out, HW, C, eps);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  naf_p2c_kernel<TY, T, RM><<<grid, kThreads, smem, stream>>>(hidden, y, w5, b5, gamma, z, o_out, HW, C);
-  return cudaGetLastError();
-}
+// o = acc + b5, z = y + gamma * o in the I/O type T (and o_out): W5's
+// epilogue; y in TY, fp32 or T; column n + 1 masked at C
+template <typename T, typename TY>
+struct OutEpi {
+  const TY* y;
+  const T *b5, *gamma;
+  T* z;
+  float* o_out;
+  int C;
+  __device__ __forceinline__ void operator()(int, int r, int n, float v0, float v1) const {
+    const size_t q = (size_t)r * C + n;
+    const bool two = n + 1 < C;
+    const float o0 = v0 + ld(b5[n]), o1 = two ? v1 + ld(b5[n + 1]) : 0.f;
+    z[q] = st<T>(ld(y[q]) + ld(gamma[n]) * o0);
+    if (two) z[q + 1] = st<T>(ld(y[q + 1]) + ld(gamma[n + 1]) * o1);
+    if (o_out) store_pair(o_out + q, o0, o1, two);
+  }
+};
 
 }  // namespace

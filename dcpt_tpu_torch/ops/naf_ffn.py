@@ -8,8 +8,8 @@ transposed views, which the wrapper transposes back for free.
 
 * ``naf_ffn_ref``: plain PyTorch, dcpt_tpu's ``naf_ffn_ref``.
 * ``naf_ffn``: on a CUDA tensor it launches ``csrc/naf_ffn.cu`` (fp32 or bf16
-  I/O, fp32 math, C a multiple of 64) or raises; on a CPU tensor it returns
-  ``naf_ffn_ref``.  ``naf_ffn.launches`` counts the calls that launched the
+  I/O, fp32 math, the products on the tensor cores, any C up to 8192) or
+  raises; on a CPU tensor it returns ``naf_ffn_ref``.  ``naf_ffn.launches`` counts the calls that launched the
   kernel.  Under autograd it runs as ``NAFFFNFunction``: K5 forward, the plain
   version's VJP backward (dcpt_tpu has no backward kernel for it).
 
@@ -60,6 +60,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.naf_ffn_scratch_floats.argtypes = [ctypes.c_int] * 2
+    lib.naf_ffn_scratch_floats.restype = ctypes.c_longlong
     return lib
 
 
@@ -67,8 +69,8 @@ def _check(y: torch.Tensor, params: list[torch.Tensor]) -> None:
     if y.dtype not in _ENTRY:
         raise TypeError(f"naf_ffn: the kernel takes float32 or bfloat16, got {y.dtype}")
     c = y.shape[-1]
-    if c % 64 or not 64 <= c <= 8192:
-        raise ValueError(f"naf_ffn: the kernel takes C in 64..8192 in steps of 64, got C={c}")
+    if not 1 <= c <= 8192:
+        raise ValueError(f"naf_ffn: the kernel takes C in 1..8192, got C={c}")
     shapes = [(c,), (c,), (c, 2 * c), (2 * c,), (c, c), (c,), (c,)]
     for i, (p, shape) in enumerate(zip(params, shapes)):
         if tuple(p.shape) != shape:
@@ -78,14 +80,14 @@ def _check(y: torch.Tensor, params: list[torch.Tensor]) -> None:
 
 
 def _launch(lib, y, params, eps: float, stream: int) -> torch.Tensor:
-    """Allocate the output and the hidden map and run the kernel's C entry on ``stream``."""
+    """Allocate the output and the fp32 scratch and run the kernel's C entry on ``stream``."""
     c = y.shape[-1]
     y2 = y.contiguous().view(-1, c)
     ln_w, ln_b, w4, b4, w5, b5, gamma = params
     weights = [t.contiguous() for t in (ln_w, ln_b, w4.t(), b4, w5.t(), b5, gamma)]
-    hidden = torch.empty(y2.shape, dtype=torch.float32, device=y.device)
+    part = torch.empty(lib.naf_ffn_scratch_floats(y2.shape[0], c), dtype=torch.float32, device=y.device)
     z = torch.empty_like(y2)
-    err = getattr(lib, _ENTRY[y.dtype])(y2.data_ptr(), *(t.data_ptr() for t in weights), hidden.data_ptr(),
+    err = getattr(lib, _ENTRY[y.dtype])(y2.data_ptr(), *(t.data_ptr() for t in weights), part.data_ptr(),
                                         z.data_ptr(), y2.shape[0], c, eps, stream)
     if err != 0:
         raise RuntimeError(f"naf_ffn kernel launch failed with CUDA error {err}")

@@ -10,12 +10,12 @@ nothing for such views.
 * ``naf_prefix_ref``: plain PyTorch, dcpt_tpu's ``naf_prefix_ref`` without its
   ``DCPT_TPU_DW_DENSE`` A/B lever.
 * ``naf_prefix``: on a CUDA tensor it launches ``csrc/naf_prefix.cu`` (fp32 or
-  bf16 I/O, fp32 math, DW = 2C, C a multiple of 64) or raises; on a CPU tensor
-  it returns ``naf_prefix_ref``.  ``naf_prefix.launches`` counts the calls that
+  bf16 I/O, fp32 math, the expand on the tensor cores, DW = 2C, any C up to
+  8192) or raises; on a CPU tensor it returns ``naf_prefix_ref``.  ``naf_prefix.launches`` counts the calls that
   launched the kernel.  Under autograd it runs as ``NAFPrefixFunction``: K4
   forward, the plain version's VJP backward (dcpt_tpu has no backward kernel
   for it).  dcpt_tpu runs its kernel only where the whole map fits its VMEM
-  budget (``prefix_fits``); K4 tiles the map and takes any H x W.
+  budget (``prefix_fits``); K4 takes any H x W.
 """
 
 from __future__ import annotations
@@ -51,8 +51,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C entry points of a build of ``csrc/naf_prefix.cu``."""
     for name in _ENTRY.values():
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.naf_prefix_scratch_floats.argtypes = [ctypes.c_int] * 4
+    lib.naf_prefix_scratch_floats.restype = ctypes.c_longlong
     return lib
 
 
@@ -63,8 +65,8 @@ def _check(x: torch.Tensor, params: list[torch.Tensor]) -> None:
     if x.dtype not in _ENTRY:
         raise TypeError(f"naf_prefix: the kernel takes float32 or bfloat16, got {x.dtype}")
     c = x.shape[3]
-    if c % 64 or not 64 <= c <= 8192:
-        raise ValueError(f"naf_prefix: the kernel takes C in 64..8192 in steps of 64, got C={c}")
+    if not 1 <= c <= 8192:
+        raise ValueError(f"naf_prefix: the kernel takes C in 1..8192, got C={c}")
     shapes = [(c,), (c,), (c, 2 * c), (2 * c,), (3, 3, 2 * c), (2 * c,)]
     for i, (p, shape) in enumerate(zip(params, shapes)):
         if tuple(p.shape) != shape:
@@ -75,13 +77,14 @@ def _check(x: torch.Tensor, params: list[torch.Tensor]) -> None:
 
 
 def _launch(lib, x, params, eps: float, stream: int) -> torch.Tensor:
-    """Allocate the output and run the kernel's C entry on ``stream``."""
+    """Allocate the output and the fp32 scratch and run the kernel's C entry on ``stream``."""
     b, h, w, c = x.shape
     ln_w, ln_b, w1, b1, wdw, bdw = params
     weights = [t.contiguous() for t in (ln_w, ln_b, w1.t(), b1, wdw.permute(2, 0, 1), bdw)]
     g = torch.empty_like(x)
-    err = getattr(lib, _ENTRY[x.dtype])(x.data_ptr(), *(t.data_ptr() for t in weights), g.data_ptr(), b, h, w, c,
-                                        eps, stream)
+    part = torch.empty(lib.naf_prefix_scratch_floats(b, h, w, c), dtype=torch.float32, device=x.device)
+    err = getattr(lib, _ENTRY[x.dtype])(x.data_ptr(), *(t.data_ptr() for t in weights), g.data_ptr(),
+                                        part.data_ptr(), b, h, w, c, eps, stream)
     if err != 0:
         raise RuntimeError(f"naf_prefix kernel launch failed with CUDA error {err}")
     return g

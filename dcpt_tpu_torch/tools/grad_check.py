@@ -27,7 +27,11 @@ error):
    decide the check, while a fault of the path shows in every run;
 4. that error must stay within ``max(FLOOR * max|ref|, K * sensitivity)`` on
    every tensor; the median over tensors of the error relative to max|ref|
-   within ``MEDIAN``; each loss of the run as it is within
+   within ``max(MEDIAN, MEDIAN_K * the plain fp32 runs' own median)``
+   (``median_rel`` of their ``path_error``): on the card the plain Restormer
+   step's own median reads up to 3.95e-2 at some trained states and
+   PromptIR's 2.609e-2 (``PERF.md`` section 6), above a fixed 2e-2; each loss
+   of the run as it is within
    ``max(LOSS_TOL, K * departure)`` (relative to max(1, |loss|)) of the
    float64 loss, its departure the largest of the plain fp32 runs'
    (``loss_departure``): on the card the plain Restormer step's own l_pix
@@ -69,6 +73,7 @@ import torch
 K = 32                      # the error allowed, in units of a tensor's rounding sensitivity
 FLOOR = 1e-3                # of the tensor's max|ref|: what the sensitivity rule never goes below
 MEDIAN = 2e-2               # of max|ref|, the median over tensors
+MEDIAN_K = 2                # the median allowed, in units of the plain fp32 runs' own median
 LOSS_TOL = 1e-5             # of max(1, |loss|)
 PERTURB_SEEDS = (1, 2, 3, 4)
 
@@ -161,11 +166,13 @@ def median_rel(err: dict, ref: dict) -> float:
 
 
 def compare(err: dict, got_losses: dict, ref: dict, ref_losses: dict, sens: dict, k: float = K,
-            plain_loss: dict | None = None) -> dict:
+            plain_loss: dict | None = None, plain_median: float | None = None) -> dict:
     """The check of an fp32 path (``err``, its errors by tensor from
     ``path_error``, and its losses) against the float64 ``ref``; returns a report: ``ok``, the worst tensor by its error over
     its limit (``worst``, ``worst_ratio``, ``worst_rel`` of its max|ref|,
-    ``worst_sens`` of its max|ref|), the median error of max|ref| (``median``),
+    ``worst_sens`` of its max|ref|), the median error of max|ref| (``median``)
+    and its limit (``median_limit``: ``max(MEDIAN, MEDIAN_K * plain_median)``,
+    or ``MEDIAN`` without ``plain_median``, the plain fp32 runs' own median),
     the tensors over 1e-3 of max|ref| (``over_1e3``), the count held by the
     sensitivity rule rather than the floor (``by_sensitivity``), the worst
     loss error (``loss_err``) and the largest of a loss's error over its limit
@@ -182,11 +189,13 @@ def compare(err: dict, got_losses: dict, ref: dict, ref_losses: dict, sens: dict
         srel[n] = sens[n] / scale if scale > 0 else sens[n]
     worst = max(ratio, key=ratio.get)
     median = median_rel(err, ref)
+    median_limit = max(MEDIAN, MEDIAN_K * plain_median) if plain_median is not None else MEDIAN
     loss_errs = {key: abs(got_losses[key] - v) / max(1.0, abs(v)) for key, v in ref_losses.items()}
     loss_limits = {key: max(LOSS_TOL, k * plain_loss[key]) if plain_loss else LOSS_TOL for key in ref_losses}
     loss_ratio = max(loss_errs[key] / loss_limits[key] for key in ref_losses)
-    return {"ok": ratio[worst] <= 1 and median <= MEDIAN and loss_ratio <= 1, "worst": worst,
+    return {"ok": ratio[worst] <= 1 and median <= median_limit and loss_ratio <= 1, "worst": worst,
             "worst_ratio": ratio[worst], "worst_rel": rel[worst], "worst_sens": srel[worst], "median": median,
+            "median_limit": median_limit,
             "over_1e3": sum(v > 1e-3 for v in rel.values()), "by_sensitivity": by_sens, "tensors": len(ref),
             "loss_err": max(loss_errs.values()), "loss_limit": min(loss_limits.values()), "loss_ratio": loss_ratio,
             "max_rel": max(rel.values())}
@@ -196,6 +205,6 @@ def describe(report: dict) -> str:
     """One line of a ``compare`` report."""
     return (f"worst {report['worst_rel']:.3e} of max|ref| ({report['worst']}, sensitivity "
             f"{report['worst_sens']:.3e} of max|ref|), {report['worst_ratio']:.3f} of its limit; median "
-            f"{report['median']:.3e} (limit {MEDIAN:.0e}); largest {report['max_rel']:.3e}; {report['over_1e3']} of "
+            f"{report['median']:.3e} (limit {report['median_limit']:.3e}); largest {report['max_rel']:.3e}; {report['over_1e3']} of "
             f"{report['tensors']} above 1e-3; {report['by_sensitivity']} limits set by the sensitivity; loss error "
             f"{report['loss_err']:.3e}, {report['loss_ratio']:.3f} of its limit (the tightest {report['loss_limit']:.3e})")

@@ -1,6 +1,6 @@
 """Time the block kernels built from several copies of ``csrc`` side by side on one card.
 
-    python -m dcpt_tpu_torch.tools.swin_ab [--k9 | --k7 | --k2 | --k6 | --k1] [NAME=CSRC_DIR ...]
+    python -m dcpt_tpu_torch.tools.swin_ab [--k9 | --k7 | --k2 | --k6 | --k1 | --k45] [NAME=CSRC_DIR ...]
 
 Builds the kernels from the package's own ``csrc`` (named ``tree``) and from
 each other directory given (a parent commit's ``dcpt_tpu_torch/csrc``
@@ -28,17 +28,23 @@ nvcc.
   the softmax / WithBias one, B = 1, 2 and 8;
 * ``--k1``: K1 (``naf_block.cu``) at NAFNet-w64's C = 64 on 128 x 128 and
   C = 512 on 16 x 16, B = 1, 2 and 8;
+* ``--k45``: K4 (``naf_prefix.cu``) and K5 (``naf_ffn.cu``) at NAFNet-w64's
+  C = 512 on 16 x 16, B = 1, 2 and 8 (ten pairs of turns below B = 8, where
+  the host sets a call's time, with each version's median);
 
-and for these five, at B = 8, each version's device time by pass
-(``pass_split``: each launch of one call in order, torch.profiler).  A K6 or
-K1 build from before its scratch-size entry (``mdta_block_scratch_floats``,
-``naf_block_scratch_floats``) is sized by the entry it had.
+and for these six, at B = 8 (K4 and K5 at every batch), each version's
+device time by pass (``pass_split``: each launch of one call in order,
+torch.profiler).  A K6, K1, K4 or K5 build from before its scratch-size
+entry (``mdta_block_scratch_floats``, ``naf_block_scratch_floats``,
+``naf_prefix_scratch_floats``, ``naf_ffn_scratch_floats``) is sized by the
+entry it had (K4's then took no scratch, K5's an (N, C) hidden map).
 """
 
 from __future__ import annotations
 
 import ctypes
 import re
+import statistics
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -52,6 +58,8 @@ from ..ops import mdta_block as mb
 from ..ops import mdta_block_bwd as mbb
 from ..ops import naf_block as nb
 from ..ops import naf_block_bwd as nbb
+from ..ops import naf_ffn as nff
+from ..ops import naf_prefix as npf
 from ..ops import swin_block_bwd as sbb
 from ..ops import window_attention as wa
 
@@ -60,21 +68,22 @@ OUT = Path(__file__).resolve().parents[2] / "build" / "swin_ab"
 # the kernels of each mode: label -> (source, binder)
 FORWARD = {"K8": ("swin_block", wa._bind_block), "K10": ("window_attention", wa._bind_attn)}
 class _Sized:
-    """A build of K6 or K1 from before its scratch-size entry: ``name`` answered by
-    ``floats``, every other entry point by the build itself."""
+    """A build from before its scratch-size entry: the entry points in ``entries``
+    (the scratch size, and where the arguments changed, the kernel's own)
+    answered by those callables, every other one by the build itself."""
 
-    def __init__(self, lib: ctypes.CDLL, name: str, floats):
-        self._lib, self._name, self._floats = lib, name, floats
+    def __init__(self, lib: ctypes.CDLL, entries: dict):
+        self._lib, self._entries = lib, entries
 
     def __getattr__(self, attr: str):
-        return self._floats if attr == self._name else getattr(self._lib, attr)
+        return self._entries[attr] if attr in self._entries else getattr(self._lib, attr)
 
 
 def _bind_k6(lib: ctypes.CDLL):
     if not hasattr(lib, "mdta_block_scratch_floats"):  # the Gram partials were all its scratch
         old = lib.mdta_block_part_floats
         old.argtypes, old.restype = [ctypes.c_int] * 5, ctypes.c_longlong
-        lib = _Sized(lib, "mdta_block_scratch_floats", lambda b, h, w, c, f, heads: old(b, h, w, c, heads))
+        lib = _Sized(lib, {"mdta_block_scratch_floats": lambda b, h, w, c, f, heads: old(b, h, w, c, heads)})
     return mb._bind(lib)
 
 
@@ -82,14 +91,38 @@ def _bind_k1(lib: ctypes.CDLL):
     if not hasattr(lib, "naf_block_scratch_floats"):  # (B, tiles, C) tile sums were all its scratch
         old = lib.naf_block_num_tiles
         old.argtypes, old.restype = [ctypes.c_int] * 2, ctypes.c_int
-        lib = _Sized(lib, "naf_block_scratch_floats", lambda b, h, w, c: b * old(h, w) * c)
+        lib = _Sized(lib, {"naf_block_scratch_floats": lambda b, h, w, c: b * old(h, w) * c})
     return nb._bind(lib)
+
+
+def _bind_k4(lib: ctypes.CDLL):
+    if hasattr(lib, "naf_prefix_scratch_floats"):
+        return npf._bind(lib)
+    entries = {"naf_prefix_scratch_floats": lambda b, h, w, c: 0}
+    for name in npf._ENTRY.values():  # (x, 6 parameters, g, ..., eps, stream): no scratch argument
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        entries[name] = lambda *a, fn=fn: fn(*a[:8], *a[9:])
+    return _Sized(lib, entries)
+
+
+def _bind_k5(lib: ctypes.CDLL):
+    if hasattr(lib, "naf_ffn_scratch_floats"):
+        return nff._bind(lib)
+    for name in nff._ENTRY.values():  # the same arguments, the scratch an (N, C) hidden map
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return _Sized(lib, {"naf_ffn_scratch_floats": lambda n, c: n * c})
 
 
 BLOCK_MODES = {"--k9": {"K9": ("swin_block_bwd", sbb._bind)}, "--k7": {"K7": ("mdta_block_bwd", mbb._bind)},
             "--k2": {"K2": ("naf_block_bwd", nbb._bind)}, "--k6": {"K6": ("mdta_block", _bind_k6)},
-            "--k1": {"K1": ("naf_block", _bind_k1)}}
-BATCHES = {"K9": (2, 8), "K7": (2, 8), "K2": (2, 8), "K6": (1, 2, 8), "K1": (1, 2, 8)}
+            "--k1": {"K1": ("naf_block", _bind_k1)},
+            "--k45": {"K4": ("naf_prefix", _bind_k4), "K5": ("naf_ffn", _bind_k5)}}
+BATCHES = {"K9": (2, 8), "K7": (2, 8), "K2": (2, 8), "K6": (1, 2, 8), "K1": (1, 2, 8), "K4": (1, 2, 8),
+           "K5": (1, 2, 8)}
 K6_CASES = [(48, 128, 1, "relu"), (96, 128, 1, "softmax"), (384, 16, 8, "relu")]  # (C, H = W, heads, flavour)
 K7_SHAPES = [(96, 128, 1), (384, 16, 8)]  # (C, H = W, heads)
 K7_FLAVOURS = {"relu": (False, False, 1e-6), "softmax": (True, True, 1e-5)}  # (use_softmax, ln_bias, eps)
@@ -209,12 +242,16 @@ def _compare(label: str, calls: dict, refs: dict) -> None:
               f"{'the' if same else 'not the'} tree's bits", flush=True)
 
 
-def _turns(label: str, calls: dict, iters: int) -> None:
+def _turns(label: str, calls: dict, iters: int, pairs: int = 1) -> None:
+    """Each call's ms in ``pairs`` pairs of turns (every version, then every version
+    in reverse order); with more than one pair, each version's median too."""
     times = {key: [] for key in calls}
-    for key in [*calls, *reversed(list(calls))]:
-        times[key].append(_ms(calls[key], iters))
+    for _ in range(pairs):
+        for key in [*calls, *reversed(list(calls))]:
+            times[key].append(_ms(calls[key], iters))
     for (name, kernel), ms in times.items():
-        print(f"{label} {name} {kernel}: " + " / ".join(f"{t:.4f}" for t in ms) + " ms a call", flush=True)
+        median = f" (median {statistics.median(ms):.4f})" if pairs > 1 else ""
+        print(f"{label} {name} {kernel}: " + " / ".join(f"{t:.4f}" for t in ms) + f" ms a call{median}", flush=True)
 
 
 def forward_ab(libs: dict) -> None:
@@ -312,6 +349,22 @@ def _k1_case(gen, batch, dtype, stream):
         yield f" C={c} {s}x{s}", (ref,), (lambda lib, x=x, p=p: nb._launch(lib, x, p, 1e-6, stream))
 
 
+def _k4_case(gen, batch, dtype, stream):
+    """K4's inputs at the c = 512 stage (16 x 16)."""
+    p = _k1_params(gen, dtype, 512)[:6]
+    x = _rand(gen, dtype, batch, 16, 16, 512, scale=1.0)
+    ref = npf.naf_prefix_ref(x.float(), *[t.float() for t in p])
+    yield " C=512 16x16", (ref,), (lambda lib: npf._launch(lib, x, p, 1e-6, stream))
+
+
+def _k5_case(gen, batch, dtype, stream):
+    """K5's inputs at the c = 512 stage (16 x 16)."""
+    p = _k1_params(gen, dtype, 512)[11:]
+    y = _rand(gen, dtype, batch, 16, 16, 512, scale=1.0)
+    ref = nff.naf_ffn_ref(y.float(), *[t.float() for t in p])
+    yield " C=512 16x16", (ref,), (lambda lib: nff._launch(lib, y, p, 1e-6, stream))
+
+
 def _k2_case(gen, batch, dtype, stream):
     """K2's inputs at each K2_SHAPES stage, from the tree's K1 residuals."""
     for c, s in K2_SHAPES:
@@ -322,11 +375,12 @@ def _k2_case(gen, batch, dtype, stream):
         yield f" C={c} {s}x{s}", ref, (lambda lib: nbb._launch(lib, x, p, pooled, att, dz, maps, 1e-6, stream))
 
 
-CASES = {"K9": _k9_case, "K7": _k7_case, "K2": _k2_case, "K6": _k6_case, "K1": _k1_case}
+CASES = {"K9": _k9_case, "K7": _k7_case, "K2": _k2_case, "K6": _k6_case, "K1": _k1_case, "K4": _k4_case,
+         "K5": _k5_case}
 
 
 def block_ab(libs: dict, kernel: str) -> None:
-    """``kernel`` (K9, K7, K2, K6 or K1) of every build at each of its BATCHES, and its passes at B = 8."""
+    """``kernel`` (K9, K7, K2, K6, K1, K4 or K5) of every build at each of its BATCHES, and its passes at B = 8."""
     gen = torch.Generator().manual_seed(14)
     stream = torch.cuda.current_stream().cuda_stream
     for batch in BATCHES[kernel]:
@@ -336,8 +390,9 @@ def block_ab(libs: dict, kernel: str) -> None:
                 label = f"B={batch} {dname}{shape}"
                 _compare(label, calls, {kernel: ref})
                 del ref
-                _turns(label, calls, 4 if batch == 8 else 10)
-                if batch == 8:
+                # K4's and K5's calls below B = 8 are a few launches each, set by the host: ten pairs of turns
+                _turns(label, calls, 4 if batch == 8 else 10, 10 if kernel in ("K4", "K5") and batch < 8 else 1)
+                if batch == 8 or kernel in ("K4", "K5"):  # K4 and K5 below B = 8: a wave's depth walk, or the host
                     for (name, _), fn in calls.items():
                         print_split(f"{label} {name} by pass", pass_split(fn))
                 torch.cuda.empty_cache()
@@ -355,7 +410,8 @@ def main(argv: list[str]) -> int:
         libs = dict(zip(dirs, pool.map(lambda item: _build(*item, kernels), dirs.items())))
     torch.backends.cuda.matmul.allow_tf32 = False
     if mode:
-        block_ab(libs, next(iter(kernels)))
+        for kernel in kernels:
+            block_ab(libs, kernel)
     else:
         forward_ab(libs)
     return 0

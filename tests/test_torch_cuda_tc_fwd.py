@@ -1,7 +1,7 @@
-"""K6 (the TransformerBlock forward) and K1 (the NAFBlock forward) on the card,
-whose 1x1 products run on the tensor cores (``csrc/tc_gemm.cuh``): each at
-the train ymls' batch 8 against its plain version, twice for equal bits, and
-its launches by pass.
+"""K6 (the TransformerBlock forward), K1 (the NAFBlock forward), and K4 and K5
+(the NAFBlock's prefix and FFN half) on the card, whose 1x1 products run on
+the tensor cores (``csrc/tc_gemm.cuh``): each at the train ymls' batch 8
+against its plain version, twice for equal bits, and its launches by pass.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU: a CUDA
 kernel has no CPU mode.  The file imports neither JAX nor dcpt_tpu; from the
@@ -20,6 +20,8 @@ import torch
 
 from dcpt_tpu_torch.ops import mdta_block as tmb
 from dcpt_tpu_torch.ops import naf_block as tnb
+from dcpt_tpu_torch.ops import naf_ffn as tnff
+from dcpt_tpu_torch.ops import naf_prefix as tnpf
 from dcpt_tpu_torch.tools.swin_ab import pass_split
 
 pytestmark = pytest.mark.cuda
@@ -109,3 +111,32 @@ def test_products_run_on_the_tensor_cores(cuda, kernel):
     assert names, "torch.profiler recorded no device time"
     assert sum(n.startswith(f"tc_gemm_kernel<{owner},") for n in names) == 4, names
     assert not [n for n in names if n.startswith(RETIRED)], names
+
+
+@pytest.mark.parametrize("kernel", ["K4", "K5"])
+def test_k4_k5_at_batch_8_on_the_tensor_cores(cuda, kernel):
+    """K4 and K5 at the c = 512 stage (16 x 16) at batch 8, fp32, against their plain
+    versions twice for equal bits; one call's launches in order are the passes
+    they share with K1 (``naf_common.cuh``) under their own owner's number: LN,
+    then K4's expand and gate, or K5's W4 and W5 (W5 cut along its depth at
+    2048 rows, its chunks added by ``chunk_epi_kernel<5>``)."""
+    c, dtype = 512, torch.float32
+    rng = np.random.default_rng(c)
+    r = lambda *shape, scale=0.5, shift=0.0: _rand(rng, cuda, dtype, *shape, scale=scale, shift=shift)  # noqa: E731
+    x = r(8, 16, 16, c, scale=1.0)
+    # the 1x1 and depthwise weights as the module passes them: views of PyTorch's layouts, no copies
+    w1, w4, w5 = r(2 * c, c, scale=c ** -0.5).t(), r(2 * c, c, scale=c ** -0.5).t(), r(c, c, scale=c ** -0.5).t()
+    wdw = r(2 * c, 3, 3, scale=1 / 3).permute(1, 2, 0)
+    if kernel == "K4":
+        params = [r(c, shift=1.0), r(c), w1, r(2 * c), wdw, r(2 * c)]
+        launch, ref, owner = (lambda: tnpf.naf_prefix(x, *params)), tnpf.naf_prefix_ref(x, *params), 4
+        want = ["ln_fwd_kernel", "tc_gemm_kernel", "naf_gate_kernel"]
+    else:
+        params = [r(c, shift=1.0), r(c), w4, r(2 * c), w5, r(c), r(c)]
+        launch, ref, owner = (lambda: tnff.naf_ffn(x, *params)), tnff.naf_ffn_ref(x, *params), 5
+        want = ["ln_fwd_kernel", "tc_gemm_kernel", "tc_gemm_kernel", "chunk_epi_kernel"]
+    _held(launch, ref, dtype)
+    with torch.no_grad():
+        names = [name for name, _ in pass_split(launch)]
+    assert [n.split("<")[0] for n in names] == want, names
+    assert all(n.startswith(f"{w}<{owner},") for n, w in zip(names, want)), names

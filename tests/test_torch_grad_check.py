@@ -7,7 +7,8 @@ sensitivity the largest error of five plain fp32 runs (as it is and on
 parameters and inputs moved by one ulp), the path's error the median of its
 own five runs.  Here the unplanted fp32 step passes it, and a 1 % error
 planted in the step's gradient of any one tensor whose limit is below 1 % of
-its max fails it.
+its max fails it; the median over tensors is held to max(2e-2, 2 x the plain
+fp32 runs' own median), and a median planted above both limits fails.
 """
 
 import numpy as np
@@ -72,6 +73,25 @@ def test_planted_loss_error_fails_the_check(step):
     planted = {k: v * (1 + 1e-4) for k, v in losses.items()}
     assert not grad_check.compare(err, planted, ref, ref_losses, sens)["ok"]
     assert np.isclose(grad_check.compare(err, losses, ref, ref_losses, sens)["loss_err"], 0.0, atol=1e-6)
+
+
+def test_median_limit_follows_the_plain_runs(step):
+    """The median over tensors is held to max(MEDIAN, MEDIAN_K x the plain fp32
+    runs' own median).  With every tensor's own limit opened wide, an error
+    planted at 0.1 of each tensor's max|ref| passes where the plain runs' median
+    is 0.06 (a limit of 0.12), and fails where it is 0.04 (0.08), as it fails
+    without the plain runs' median (MEDIAN alone)."""
+    _, _, _, ref, ref_losses, _, _, losses = step
+    planted = {n: 0.1 * g.abs().max().item() for n, g in ref.items()}
+    assert grad_check.median_rel(planted, ref) == pytest.approx(0.1)
+    # a sensitivity of each tensor's max|ref|: no tensor's own limit decides, only the median rule
+    wide = {n: g.abs().max().item() for n, g in ref.items()}
+    passed = grad_check.compare(planted, losses, ref, ref_losses, wide, plain_median=0.06)
+    assert passed["ok"] and passed["median_limit"] == pytest.approx(0.12), grad_check.describe(passed)
+    for plain_median in (0.04, None, 1e-4):
+        report = grad_check.compare(planted, losses, ref, ref_losses, wide, plain_median=plain_median)
+        assert not report["ok"] and report["worst_ratio"] <= 1, (plain_median, grad_check.describe(report))
+        assert report["median_limit"] == max(grad_check.MEDIAN, grad_check.MEDIAN_K * (plain_median or 0))
 
 
 @pytest.fixture(scope="module")
