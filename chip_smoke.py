@@ -156,8 +156,10 @@ Phases, each of which raises on failure (exit code 1):
    stages c <= 512; K13 (``mdta_attention``) at the Restormer and PromptIR
    attentions (and enc1 at B = 8); fp32 and bf16, a ragged shape each, every
    call twice for equal bits; each kernel's ms beside its plain version's, a
-   library composite's and the bound; the device time a call at B = 8 of K11,
-   K14 and K5' beside the library composite's.  Then the counted path: the shipped
+   library composite's and the bound (K14 and K5' at 3xTF32 on the tensor
+   cores, beside the SIMT fp32 one); the device time a call at B = 8 of K11
+   beside the library composite's, and of K14 and K5' by pass beside the
+   library calls' passes.  Then the counted path: the shipped
    ``test_Restormer_5d.yml`` and ``test_PromptIR_5d.yml`` nets at full width
    on seeded weights, one 128 x 128 forward each with every TransformerBlock
    through ``_standalone_transformer_forward`` (88 / 94 K14 and 44 / 47 K13
@@ -2760,12 +2762,14 @@ def check_standalone() -> dict:
     (SwinIR's map; StyleGAN2's width; Restormer's and PromptIR's projections and
     attentions, NAFNet-w64's stages, of a 128 x 128 input) plus a ragged shape
     each; CUDA-event ms of the kernel, the plain version and one library
-    composite (timed only: the port calls none) beside the bound."""
+    composite (timed only: the port calls none) beside the bound; at B = 8 the
+    device time a call (torch.profiler), K14's and K5''s by pass."""
     import torch
     import torch.nn.functional as F
 
     from dcpt_tpu_torch import ops
     from dcpt_tpu_torch.ops import fused_act, ln_proj, mdta, naf_ffn, window_process
+    from dcpt_tpu_torch.tools.swin_ab import pass_split, print_split
 
     gen = torch.Generator().manual_seed(22)
     out = {name: {"max_abs_err": 0.0, "bf16_max_abs_err": 0.0} for name in
@@ -2885,9 +2889,10 @@ def check_standalone() -> dict:
                 if dname == "float32":
                     out["fused_bias_leaky_relu"]["bound_by"] = fwd_by
 
-    # K14 and K5'; the plain versions in fp32 on the same rounded inputs, the library in fp32
+    # K14 and K5'; the plain versions in fp32 on the same rounded inputs, the library in fp32; the fp32
+    # bound at 3xTF32 on the tensor cores (PEAK_TF32_FLOPS / 3), beside it the SIMT fp32 one
     print(f"  K14 {'rows':>6} {'C':>4} {'C_out':>5} {'flavour':>9} {'dtype':>9} {'rel':>9} {'lib rel':>9} {'ms':>8} "
-          f"{'plain':>8} {'library':>8} {'bound':>8}")
+          f"{'plain':>8} {'library':>8} {'bound':>8} {'simt':>8}")
     k14 = {}
 
     def proj_case(name, rows, c, c_out, flavour, dname, timed):
@@ -2922,11 +2927,12 @@ def check_standalone() -> dict:
                     if lib_rel > max(LIBRARY_TOL, STANDALONE_TOL[dname]):
                         raise RuntimeError(f"[22] {name}'s library composite differs by {lib_rel:.3e}")
                 t = [cuda_ms(lambda: fn(x, *params)), cuda_ms(lambda: ref_fn(x, *params)), cuda_ms(library)]
-        peak = PEAK_FP32_FLOPS if dname == "float32" else PEAK_BF16_FLOPS
-        b_ms, b_by = bound([(1, *k14_work(rows, c, c_out, x.element_size(), name == "naf_expand"))], peak)
+        work = [(1, *k14_work(rows, c, c_out, x.element_size(), name == "naf_expand"))]
+        b_ms, b_by = bound(work, PEAK_TF32_FLOPS / 3 if dname == "float32" else PEAK_BF16_FLOPS)
+        simt_ms = bound(work)[0]
         print(f"  {'K14' if name == 'fused_ln_proj' else 'K5p'} {rows:>6} {c:>4} {c_out:>5} "
               f"{'WithBias' if ln_bias else 'BiasFree':>9} {dname:>9} {rel:>9.2e} {lib_rel:>9.2e} "
-              + " ".join(f"{v:>8.4f}" for v in (*t, b_ms)), flush=True)
+              + " ".join(f"{v:>8.4f}" for v in (*t, b_ms, simt_ms)), flush=True)
         return t + [b_ms, b_by]
 
     for c, s, _, flavour in _k14_shapes():
@@ -2946,9 +2952,11 @@ def check_standalone() -> dict:
         ms, plain_ms = (sum(n * k14[(c, s, c_out, flavour)][i] for n, c, s, c_out in calls) for i in (0, 1))
         # F.layer_norm computes the WithBias flavour; its time at the same shapes stands for both
         lib_ms = sum(n * k14[(c, s, c_out, PROMPTIR_FLAVOUR)][2] for n, c, s, c_out in calls)
-        b_ms, b_by = bound([(n, *k14_work(s * s, c, c_out)) for n, c, s, c_out in calls])
+        work = [(n, *k14_work(s * s, c, c_out)) for n, c, s, c_out in calls]
+        b_ms, b_by = bound(work, PEAK_TF32_FLOPS / 3)
         out["fused_ln_proj"].update({net + "ms": ms, net + "plain_ms": plain_ms, net + "library_ms": lib_ms,
-                                     net + "bound_ms": b_ms, net + "bound_by": b_by})
+                                     net + "bound_ms": b_ms, net + "bound_by": b_by,
+                                     net + "simt_bound_ms": bound(work)[0]})
     # one qkv and one project_in call at each of those levels, bf16 beside fp32
     out["fused_ln_proj"]["bf16_ms"] = sum(k14[(c, "bf16", c_out, RESTORMER_FLAVOUR)][0] for c, _ in bf16_stages
                                           for c_out in (3 * c, 2 * int(2.66 * c)))
@@ -2960,8 +2968,10 @@ def check_standalone() -> dict:
             k5p[(dname, c)] = proj_case("naf_expand", s * s, c, 2 * c, PROMPTIR_FLAVOUR[:2] + (1e-6,), dname, True)
         proj_case("naf_expand", *K5P_RAGGED, PROMPTIR_FLAVOUR[:2] + (1e-6,), dname, False)
     ms, plain_ms, lib_ms = (sum(n * k5p[("float32", c)][i] for c, _, n in K5P_STAGES) for i in range(3))
-    b_ms, b_by = bound([(n, *k14_work(s * s, c, 2 * c, 4, True)) for c, s, n in K5P_STAGES])
+    work = [(n, *k14_work(s * s, c, 2 * c, 4, True)) for c, s, n in K5P_STAGES]
+    b_ms, b_by = bound(work, PEAK_TF32_FLOPS / 3)
     out["naf_expand"].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                             simt_bound_ms=bound(work)[0],
                              bf16_ms=sum(n * k5p[("bfloat16", c)][0] for c, _, n in K5P_STAGES),
                              bf16_plain_ms=sum(n * k5p[("bfloat16", c)][1] for c, _, n in K5P_STAGES))
 
@@ -3041,24 +3051,45 @@ def check_standalone() -> dict:
     for name, (k_dev, l_dev) in k11_b8.items():
         out[name].update(b8_device_ms=k_dev, b8_library_device_ms=l_dev)
     del x, win
+
+    # K14 and K5' by pass (swin_ab.pass_split: each launch of one call in order), beside the library
+    # calls' passes, and the call's bound at 3xTF32 and SIMT fp32
+    def by_pass(label, fn, library, work):
+        with torch.no_grad():
+            split, lib_split = pass_split(fn, 10), pass_split(library, 10)
+        if not split or not lib_split:
+            raise NoDeviceTime(f"torch.profiler recorded no device time for {label}'s passes")
+        b_tc, b_simt = bound([(1, *work)], PEAK_TF32_FLOPS / 3)[0], bound([(1, *work)])[0]
+        print_split(f"  {label} at B=8, by pass", split)
+        print_split(f"  {label} at B=8, F.layer_norm + F.linear by pass", lib_split)
+        print(f"  {label} at B=8: bound {b_tc:.4f} ms (3xTF32), SIMT fp32 {b_simt:.4f} ms", flush=True)
+        return split, lib_split, b_tc, b_simt
+
     _, _, eps = PROMPTIR_FLAVOUR
     c = next(iter(K6_BODY))[0]  # enc1's width, 48
     x = rand(8 * 128 * 128, c, scale=2.0, shift=0.5)
     ln_w, ln_b = rand(c, scale=0.3, shift=1.0), rand(c, scale=0.3)
-    k14_b8 = [0.0, 0.0]
+    k14_b8 = {"b8_split": [], "b8_library_split": [], "b8_bound_ms": 0.0, "b8_simt_bound_ms": 0.0}
     for c_out in (3 * c, 2 * int(2.66 * c)):  # qkv, project_in
         w = rand(c, c_out, scale=c ** -0.5)
-        pair = device_pair(f"K14 ({x.shape[0]}, {c}) -> {c_out}", lambda: ln_proj.fused_ln_proj(x, ln_w, ln_b, w, eps),
-                           lambda: F.linear(F.layer_norm(x, (c,), ln_w, ln_b, eps), w.t()))
-        k14_b8 = [a + b for a, b in zip(k14_b8, pair)]
-    out["fused_ln_proj"].update(b8_device_ms=k14_b8[0], b8_library_device_ms=k14_b8[1])
+        split, lib_split, b_tc, b_simt = by_pass(
+            f"K14 ({x.shape[0]}, {c}) -> {c_out}", lambda: ln_proj.fused_ln_proj(x, ln_w, ln_b, w, eps),
+            lambda: F.linear(F.layer_norm(x, (c,), ln_w, ln_b, eps), w.t()), k14_work(x.shape[0], c, c_out))
+        k14_b8["b8_split"] += split
+        k14_b8["b8_library_split"] += lib_split
+        k14_b8["b8_bound_ms"] += b_tc
+        k14_b8["b8_simt_bound_ms"] += b_simt
+    k14_b8.update(b8_device_ms=sum(ms for _, ms in k14_b8["b8_split"]),
+                  b8_library_device_ms=sum(ms for _, ms in k14_b8["b8_library_split"]))
+    out["fused_ln_proj"].update(k14_b8)
     c = K45_C
     x = rand(8 * 16 * 16, c, scale=2.0, shift=0.5)
     ln_w, ln_b, w, b1 = rand(c, scale=0.3, shift=1.0), rand(c, scale=0.3), rand(c, 2 * c, scale=c ** -0.5), rand(2 * c)
-    k_dev, l_dev = device_pair(f"K5' ({x.shape[0]}, {c}) -> {2 * c}",
-                               lambda: naf_ffn.naf_expand(x, ln_w, ln_b, w, b1, 1e-6),
-                               lambda: F.linear(F.layer_norm(x, (c,), ln_w, ln_b, 1e-6), w.t(), b1))
-    out["naf_expand"].update(b8_device_ms=k_dev, b8_library_device_ms=l_dev)
+    split, lib_split, b_tc, b_simt = by_pass(
+        f"K5' ({x.shape[0]}, {c}) -> {2 * c}", lambda: naf_ffn.naf_expand(x, ln_w, ln_b, w, b1, 1e-6),
+        lambda: F.linear(F.layer_norm(x, (c,), ln_w, ln_b, 1e-6), w.t(), b1), k14_work(x.shape[0], c, 2 * c, 4, True))
+    out["naf_expand"].update(b8_device_ms=sum(ms for _, ms in split), b8_library_device_ms=sum(ms for _, ms in lib_split),
+                             b8_split=split, b8_library_split=lib_split, b8_bound_ms=b_tc, b8_simt_bound_ms=b_simt)
     return out
 
 
@@ -3394,9 +3425,10 @@ def main() -> int:
           f"bound {k['bound_ms']:.3f} ms ({k['bound_by']})", flush=True)
     print("[22] device time a call at B=8 (torch.profiler), kernel against the library call: " + "; ".join(
         f"{name} {standalone[name]['b8_device_ms']:.4f} against {standalone[name]['b8_library_device_ms']:.4f} ms"
+        + (f" (bound {standalone[name]['b8_bound_ms']:.4f} ms, 3xTF32)" if name in ("fused_ln_proj", "naf_expand") else "")
         for name in ("window_partition_fused", "window_reverse_fused", "fused_ln_proj", "naf_expand"))
-        + " (K11 at 128x128x180, shift 4; K14 one enc1 block's qkv + project_in, C 48 at 128x128; K5' at C 512 on "
-        "16x16)", flush=True)
+        + " (K11 at 128x128x180, shift 4; K14 one enc1 block's qkv + project_in, C 48 at 128x128, by pass; K5' at "
+        "C 512 on 16x16, by pass)", flush=True)
 
     launches = dict(train["launches"], mdta_block_fused=k6_launches["Restormer"],
                     mdta_block_bwd=transformer_train["Restormer"]["launches"]["mdta_block_bwd"],
@@ -3457,7 +3489,7 @@ def main() -> int:
                      **{k: v for k, v in k45[entry["name"]].items() if k not in entry and k != "b8_split"})
     # the standalone ops: their extra columns (bf16, backward, B = 8, PromptIR), and the launches per net forward
     for entry in kernels[10:]:
-        entry.update({k: v for k, v in standalone[entry["name"]].items() if k not in entry})
+        entry.update({k: v for k, v in standalone[entry["name"]].items() if k not in entry and not k.endswith("_split")})
     kernels[12]["bwd_launches"] = path["launches"]["fused_bias_leaky_relu_bwd"]
     for entry in (kernels[13], kernels[15]):
         entry.update(launches_per_restormer_forward=path["per_net"]["Restormer"][entry["name"]],

@@ -6,6 +6,9 @@
 // through it (K2 and K7 by token_bwd.cuh's product and wgrad), and the
 // forwards K6 (csrc/mdta_block.cu) and K1 (csrc/naf_block.cu) their 1x1
 // products (token_bwd.cuh's product_epi); it takes no kernel-specific argument.
+// K14 and K5' (csrc/ln_proj.cu) run their own kernel on its pieces (Operand,
+// stage, pair, mma_term, templated on the tile with today's 96 x 96 as the
+// default), applying the LayerNorm as each fragment of x is read.
 //
 // Each operand is read from device memory in either layout (Operand<T, K>):
 //   k-major   (K) element (r, k) at ptr[r ld + k]: A = a (T, K) of a product,
@@ -87,11 +90,13 @@ Operand<T, K> operand(const T* ptr, long long ld, int rows, int pair = 0) {
   return Operand<T, K>{ptr, ld, rows, ld % 4 == 0 && reinterpret_cast<uintptr_t>(ptr) % (4 * sizeof(T)) == 0, pair};
 }
 
-// Depth [k0, k1) of rows [r0, r0 + kBM) into a stage: (r, k) at buf[r kKLD + k - k0]
-// (k-major) or buf[(k - k0) kRLD + r], zero past the rows and k1.
-template <typename T, bool K>
+// Depth [k0, k1) of rows [r0, r0 + R) into a stage: (r, k) at buf[r kKLD + k - k0]
+// (k-major) or buf[(k - k0) (R + 4) + r], zero past the rows and k1.  R is the
+// tile's rows (kBM here; csrc/ln_proj.cu stages other tiles).
+template <typename T, bool K, int R = kBM>
 __device__ __forceinline__ void stage(const Operand<T, K>& op, T* buf, int r0, int k0, int k1) {
-  constexpr int kUnits = kBM * kKC / 4;  // 4-element units of a chunk
+  constexpr int kUnits = R * kKC / 4;  // 4-element units of a chunk
+  constexpr int kRowLd = R + 4;        // a depth-major chunk's row stride (kRLD for kBM)
   for (int u = threadIdx.x; u < kUnits; u += kThreads) {
     int r, k, dst, n;  // the unit's first element, where it lands, its live elements
     if (K) {
@@ -100,9 +105,9 @@ __device__ __forceinline__ void stage(const Operand<T, K>& op, T* buf, int r0, i
       dst = (u / (kKC / 4)) * kKLD + 4 * (u % (kKC / 4));
       n = r < op.rows ? min(4, max(0, k1 - k)) : 0;
     } else {
-      k = k0 + u / (kBM / 4);
-      r = r0 + 4 * (u % (kBM / 4));
-      dst = (u / (kBM / 4)) * kRLD + 4 * (u % (kBM / 4));
+      k = k0 + u / (R / 4);
+      r = r0 + 4 * (u % (R / 4));
+      dst = (u / (R / 4)) * kRowLd + 4 * (u % (R / 4));
       n = k < k1 ? min(4, max(0, op.rows - r)) : 0;
     }
     const long long row = K && op.pair ? (long long)(r & 1) * op.pair + (r >> 1) : r;
@@ -119,26 +124,28 @@ __device__ __forceinline__ void stage(const Operand<T, K>& op, T* buf, int r0, i
   }
 }
 
-// The staged elements (r, k) and (r, k + 1) of a chunk
-template <bool K>
+// The staged elements (r, k) and (r, k + 1) of a chunk; RLD the row stride of a
+// depth-major one (R + 4 for a stage of R rows)
+template <bool K, int RLD = kRLD>
 __device__ __forceinline__ float2 pair(const float* buf, int r, int k) {
   if (K) return *reinterpret_cast<const float2*>(buf + r * kKLD + k);
-  return make_float2(buf[k * kRLD + r], buf[(k + 1) * kRLD + r]);
+  return make_float2(buf[k * RLD + r], buf[(k + 1) * RLD + r]);
 }
-template <bool K>
+template <bool K, int RLD = kRLD>
 __device__ __forceinline__ float2 pair(const __nv_bfloat16* buf, int r, int k) {
   if (K) return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(buf + r * kKLD + k));
-  return make_float2(__bfloat162float(buf[k * kRLD + r]), __bfloat162float(buf[(k + 1) * kRLD + r]));
+  return make_float2(__bfloat162float(buf[k * RLD + r]), __bfloat162float(buf[(k + 1) * RLD + r]));
 }
 
 typedef float Acc[kMT][kNT][4];
 
-// acc += one term: a (the warp's row tiles) times b (its column tiles)
-__device__ __forceinline__ void mma_term(Acc& acc, const float (&a)[kMT][4], const float (&b)[kNT][2]) {
+// acc += one term: a (the warp's MT row tiles) times b (its NT column tiles)
+template <int MT = kMT, int NT = kNT>
+__device__ __forceinline__ void mma_term(float (&acc)[MT][NT][4], const float (&a)[MT][4], const float (&b)[NT][2]) {
 #pragma unroll
-  for (int mi = 0; mi < kMT; ++mi)
+  for (int mi = 0; mi < MT; ++mi)
 #pragma unroll
-    for (int nj = 0; nj < kNT; ++nj) mma_tf32(acc[mi][nj], a[mi], b[nj]);
+    for (int nj = 0; nj < NT; ++nj) mma_tf32(acc[mi][nj], a[mi], b[nj]);
 }
 
 // acc += the staged chunk's first 8 `steps` depths of A's rows times B's

@@ -17,10 +17,19 @@ called with ``pre_norm`` (``archs/restormer_arch.py``).
   kernel forward, the plain version's VJP backward, as dcpt_tpu's custom VJP
   differentiates ``ln_proj_ref``.
 
+The kernel runs its product on the tensor cores (``mma.sync`` TF32, 3xTF32
+for fp32 operands, through ``csrc/tc_gemm.cuh``'s pieces), one launch a
+call, the LayerNorm applied in registers as each staged pair of x is read
+into an MMA fragment.  It reads w (c, c_out) in either layout without a
+copy: contiguous (dcpt_tpu's (in, out)), or a transposed view of PyTorch's
+(out, in) 1x1 weight such as ``_ln_conv1x1`` passes
+(``archs/restormer_arch.py``); a weight with other strides is copied.
+
 dcpt_tpu drops to ``ln_proj_ref`` at c > 512, c % 16 != 0 or a weight over
 6 MB (VMEM limits of the TPU); the kernel takes every shape.  Bound on the
-H100: 2·c·c_out flops a row against (c + c_out) itemsize bytes, operations
-at all but the narrowest Restormer widths (``csrc/ln_proj.cu``).
+H100: 2·c·c_out flops a row against (c + c_out) itemsize bytes: at
+Restormer's first level (c 48) the bytes it writes, elsewhere operations
+(``csrc/ln_proj.cu``).
 """
 
 from __future__ import annotations
@@ -55,41 +64,84 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C entry points of a build of ``csrc/ln_proj.cu`` (K14, and naf_expand's)."""
     for suffix in _SUFFIX.values():
         proj, expand = getattr(lib, "ln_proj_" + suffix), getattr(lib, "naf_expand_" + suffix)
-        proj.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-        expand.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+        weight = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int]  # x, ln_w, ln_b, w, its ld, k-major
+        proj.argtypes = weight + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.c_int] * 2 \
+            + [ctypes.c_void_p]
+        expand.argtypes = weight + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int,
+                                                                                 ctypes.c_void_p]
         proj.restype = expand.restype = ctypes.c_int
+    lib.ln_proj_tile.argtypes, lib.ln_proj_tile.restype = [ctypes.c_int] * 4, ctypes.c_int
     return lib
+
+
+@functools.cache
+def _entry(name: str, dtype: torch.dtype):
+    """The ctypes function ``name``_f32 or _bf16 of the nvcc build, resolved once."""
+    return getattr(_lib(), f"{name}_{_SUFFIX[dtype]}")
 
 
 def check(name: str, x: torch.Tensor, params: list[torch.Tensor], shapes: list[tuple]) -> None:
     """Raise unless x is fp32 or bf16 and each parameter has its shape, x's dtype and device."""
-    if x.dtype not in _SUFFIX:
-        raise TypeError(f"{name}: the kernel takes float32 or bfloat16, got {x.dtype}")
+    dtype, device = x.dtype, x.device
+    if dtype not in _SUFFIX:
+        raise TypeError(f"{name}: the kernel takes float32 or bfloat16, got {dtype}")
     if x.dim() < 1:
         raise ValueError(f"{name}: x must be (..., c)")
     for i, (p, shape) in enumerate(zip(params, shapes)):
-        if tuple(p.shape) != shape:
+        if p.shape != shape:
             raise ValueError(f"{name}: parameter {i + 1} has shape {tuple(p.shape)}, the kernel takes {shape}")
-        if p.device != x.device or p.dtype != x.dtype:
-            raise TypeError(f"{name}: parameter {i + 1} is {p.dtype} on {p.device}, x is {x.dtype} on {x.device}")
+        if p.dtype != dtype or p.device != device:
+            raise TypeError(f"{name}: parameter {i + 1} is {p.dtype} on {p.device}, x is {dtype} on {device}")
 
 
-def launch(lib, x, ln_w, ln_b, w, eps: float, stream: int, biasfree: bool = False, bias=None) -> torch.Tensor:
-    """LN(x) @ w (+ bias) on ``stream``: ``fused_ln_proj``'s entry, or with
-    ``bias`` naf_expand's (WithBias, its LN in fp32); x (..., c), w (c, c_out)."""
+def _dense(t: torch.Tensor) -> torch.Tensor:
+    return t if t.is_contiguous() else t.contiguous()
+
+
+def weight_layout(w: torch.Tensor) -> tuple[torch.Tensor, int, int]:
+    """(w, ld, k_major) of w (c, c_out) as the kernel reads it: contiguous, element
+    (k, n) at k·c_out + n (k_major 0); a transposed view of a contiguous (c_out,
+    c) weight, at n·c + k (k_major 1); any other strides, a contiguous copy."""
     c, c_out = w.shape
-    x2 = x.contiguous().view(-1, c)
-    out = torch.empty(x2.shape[0], c_out, dtype=x.dtype, device=x.device)
-    args = [x2.data_ptr(), ln_w.contiguous().data_ptr(), ln_b.contiguous().data_ptr(), w.contiguous().data_ptr()]
+    if w.is_contiguous():
+        return w, c_out, 0
+    if w.stride() == (1, c):  # both sizes over 1 here: is_contiguous took the others
+        return w, c, 1
+    return w.contiguous(), c_out, 0
+
+
+def launch(lib, x, ln_w, ln_b, w, eps: float, stream: int, biasfree: bool = False, bias=None, entry=None,
+           tile: int = -1) -> torch.Tensor:
+    """LN(x) @ w (+ bias) on ``stream``: ``fused_ln_proj``'s entry, or with
+    ``bias`` naf_expand's (WithBias, its LN in fp32); x (..., c), w (c, c_out)
+    in either layout (``weight_layout``).  ``entry``, where given, is the C
+    function itself (the wrappers' cached one); otherwise it is looked up in lib.
+    ``tile`` -1 lets the kernel pick its block tile by shape; 0-2 force one
+    (``csrc/ln_proj.cu::pick_tile``: tests and A/B tools)."""
+    c, c_out = w.shape
+    x = _dense(x)
+    rows = x.numel() // c if c else 0
+    out = torch.empty(*x.shape[:-1], c_out, dtype=x.dtype, device=x.device)
+    w, ldw, k_major = weight_layout(w)
+    if entry is None:
+        entry = getattr(lib, ("ln_proj_" if bias is None else "naf_expand_") + _SUFFIX[x.dtype])
+    args = [x.data_ptr(), _dense(ln_w).data_ptr(), _dense(ln_b).data_ptr(), w.data_ptr(), ldw, k_major]
     if bias is None:
-        err = getattr(lib, "ln_proj_" + _SUFFIX[x.dtype])(*args, out.data_ptr(), x2.shape[0], c, c_out, eps,
-                                                         int(not biasfree), stream)
+        err = entry(*args, out.data_ptr(), rows, c, c_out, eps, int(not biasfree), tile, stream)
     else:
-        err = getattr(lib, "naf_expand_" + _SUFFIX[x.dtype])(*args, bias.contiguous().data_ptr(), out.data_ptr(),
-                                                            x2.shape[0], c, c_out, eps, stream)
+        err = entry(*args, _dense(bias).data_ptr(), out.data_ptr(), rows, c, c_out, eps, tile, stream)
     if err != 0:
         raise RuntimeError(f"{'ln_proj' if bias is None else 'naf_expand'} kernel launch failed with CUDA error {err}")
-    return out.view(*x.shape[:-1], c_out)
+    return out
+
+
+def on_device(x: torch.Tensor, run):
+    """``run(stream)`` on x's device and its current stream: no device switch when x
+    is on the current device (the B = 1 calls are set by the host)."""
+    if x.device.index == torch.cuda.current_device():
+        return run(torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(x.device):
+        return run(torch.cuda.current_stream().cuda_stream)
 
 
 def _forward(x, ln_w, ln_b, w, eps: float, biasfree: bool) -> torch.Tensor:
@@ -98,8 +150,8 @@ def _forward(x, ln_w, ln_b, w, eps: float, biasfree: bool) -> torch.Tensor:
     c = x.shape[-1]
     check("fused_ln_proj", x, [ln_w, ln_b, w], [(c,), (c,), (c, w.shape[-1])])
     fused_ln_proj.launches += 1
-    with torch.cuda.device(x.device):
-        return launch(_lib(), x, ln_w, ln_b, w, eps, torch.cuda.current_stream().cuda_stream, biasfree=biasfree)
+    entry = _entry("ln_proj", x.dtype)
+    return on_device(x, lambda stream: launch(None, x, ln_w, ln_b, w, eps, stream, biasfree=biasfree, entry=entry))
 
 
 class LNProjFunction(torch.autograd.Function):

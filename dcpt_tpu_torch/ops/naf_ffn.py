@@ -18,8 +18,10 @@ transposed views, which the wrapper transposes back for free.
 variance, eps 1e-6 by default) and w1 (c, c_out).  ``naf_expand_ref`` follows
 dcpt_tpu's ``naf_expand_ref``, its math in x's dtype.  On a CUDA tensor it
 launches ``csrc/ln_proj.cu``'s WithBias entry with the output bias (K14's
-kernel, its LN in fp32 in both dtypes) or raises; on a CPU tensor it returns
-the plain version.  ``naf_expand.launches`` counts the calls that launched the
+kernel: one launch, the product on the tensor cores, 3xTF32 in fp32, its LN in
+fp32 in both dtypes; w1 contiguous or a transposed view of an (out, in)
+weight, neither copied) or raises; on a CPU tensor it returns the plain
+version.  ``naf_expand.launches`` counts the calls that launched the
 kernel; under autograd ``NAFExpandFunction`` runs the kernel forward and the
 plain version's VJP backward, as dcpt_tpu's custom VJP.  dcpt_tpu wires it
 into no NAFBlock (``naf_ffn.py:131-141``), and neither does the port.
@@ -149,9 +151,9 @@ def _expand_forward(x, ln_w, ln_b, w1, b1, eps: float) -> torch.Tensor:
     c, c_out = x.shape[-1], w1.shape[-1]
     ln_proj.check("naf_expand", x, [ln_w, ln_b, w1, b1], [(c,), (c,), (c, c_out), (c_out,)])
     naf_expand.launches += 1
-    with torch.cuda.device(x.device):
-        return ln_proj.launch(ln_proj._lib(), x, ln_w, ln_b, w1, eps, torch.cuda.current_stream().cuda_stream,
-                              bias=b1)
+    entry = ln_proj._entry("naf_expand", x.dtype)
+    return ln_proj.on_device(x, lambda stream: ln_proj.launch(None, x, ln_w, ln_b, w1, eps, stream, bias=b1,
+                                                              entry=entry))
 
 
 class NAFExpandFunction(torch.autograd.Function):

@@ -1,6 +1,7 @@
 """Time the block kernels built from several copies of ``csrc`` side by side on one card.
 
-    python -m dcpt_tpu_torch.tools.swin_ab [--k9 | --k7 | --k2 | --k6 | --k1 | --k45] [NAME=CSRC_DIR ...]
+    python -m dcpt_tpu_torch.tools.swin_ab [--k9 | --k7 | --k2 | --k6 | --k1 | --k45 | --k14] [--bits]
+        [NAME=CSRC_DIR ...]
 
 Builds the kernels from the package's own ``csrc`` (named ``tree``) and from
 each other directory given (a parent commit's ``dcpt_tpu_torch/csrc``
@@ -31,18 +32,33 @@ nvcc.
 * ``--k45``: K4 (``naf_prefix.cu``) and K5 (``naf_ffn.cu``) at NAFNet-w64's
   C = 512 on 16 x 16, B = 1, 2 and 8 (ten pairs of turns below B = 8, where
   the host sets a call's time, with each version's median);
+* ``--k14``: K14 (``fused_ln_proj``) and K5' (``naf_expand``), the two entries
+  of ``ln_proj.cu``, at B = 1 and 8: K14 at Restormer's first level (C 48 on
+  128 x 128 -> 144 and 254, BiasFree) and its latent (C 384 on 16 x 16 ->
+  1152, WithBias), K5' at NAFNet-w64's C = 512 on 16 x 16 -> 1024; the
+  weight contiguous (c, c_out), and for the tree also as the transposed view
+  a module passes (bit for bit the same output); beside each, ``F.layer_norm``
+  + ``F.linear`` on the same inputs; each build's tile at each shape
+  (``ln_proj_tile``), and each build that picks one also at each of its tiles
+  forced (the same bits), ten pairs of turns at B = 1, and at B = 8 the device
+  time by pass of each build and of the library calls;
 
 and for these six, at B = 8 (K4 and K5 at every batch), each version's
 device time by pass (``pass_split``: each launch of one call in order,
 torch.profiler).  A K6, K1, K4 or K5 build from before its scratch-size
 entry (``mdta_block_scratch_floats``, ``naf_block_scratch_floats``,
 ``naf_prefix_scratch_floats``, ``naf_ffn_scratch_floats``) is sized by the
-entry it had (K4's then took no scratch, K5's an (N, C) hidden map).
+entry it had (K4's then took no scratch, K5's an (N, C) hidden map), and a
+``ln_proj.cu`` build from before the weight's layout arguments by its old
+entries (a contiguous weight only).  ``--bits`` runs the checks alone: each
+build's error against the plain version and whether it has the tree's bits,
+no timing.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import re
 import statistics
 import subprocess
@@ -54,6 +70,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import cuda_build
+from ..ops import ln_proj as lp
 from ..ops import mdta_block as mb
 from ..ops import mdta_block_bwd as mbb
 from ..ops import naf_block as nb
@@ -117,10 +134,31 @@ def _bind_k5(lib: ctypes.CDLL):
     return _Sized(lib, {"naf_ffn_scratch_floats": lambda n, c: n * c})
 
 
+def _bind_k14(lib: ctypes.CDLL):
+    if hasattr(lib, "ln_proj_tile"):
+        return lp._bind(lib)
+    entries = {"ln_proj_tile": lambda rows, c, n, which: 0}  # the SIMT kernel: no tensor-core tile
+    for suffix in lp._SUFFIX.values():  # no weight layout arguments: w contiguous (c, c_out)
+        proj, expand = getattr(lib, "ln_proj_" + suffix), getattr(lib, "naf_expand_" + suffix)
+        proj.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        expand.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+        proj.restype = expand.restype = ctypes.c_int
+
+        def old(*a, fn):  # (x, ln_w, ln_b, w, ldw, k_major, ..., tile, stream) -> (x, ln_w, ln_b, w, ..., stream)
+            if a[5]:
+                raise ValueError("a build from before the weight's layout arguments takes a contiguous weight only")
+            return fn(*a[:4], *a[6:-2], a[-1])
+
+        entries["ln_proj_" + suffix] = functools.partial(old, fn=proj)
+        entries["naf_expand_" + suffix] = functools.partial(old, fn=expand)
+    return _Sized(lib, entries)
+
+
 BLOCK_MODES = {"--k9": {"K9": ("swin_block_bwd", sbb._bind)}, "--k7": {"K7": ("mdta_block_bwd", mbb._bind)},
             "--k2": {"K2": ("naf_block_bwd", nbb._bind)}, "--k6": {"K6": ("mdta_block", _bind_k6)},
             "--k1": {"K1": ("naf_block", _bind_k1)},
-            "--k45": {"K4": ("naf_prefix", _bind_k4), "K5": ("naf_ffn", _bind_k5)}}
+            "--k45": {"K4": ("naf_prefix", _bind_k4), "K5": ("naf_ffn", _bind_k5)},
+            "--k14": {"K14": ("ln_proj", _bind_k14)}}
 BATCHES = {"K9": (2, 8), "K7": (2, 8), "K2": (2, 8), "K6": (1, 2, 8), "K1": (1, 2, 8), "K4": (1, 2, 8),
            "K5": (1, 2, 8)}
 K6_CASES = [(48, 128, 1, "relu"), (96, 128, 1, "softmax"), (384, 16, 8, "relu")]  # (C, H = W, heads, flavour)
@@ -128,6 +166,11 @@ K7_SHAPES = [(96, 128, 1), (384, 16, 8)]  # (C, H = W, heads)
 K7_FLAVOURS = {"relu": (False, False, 1e-6), "softmax": (True, True, 1e-5)}  # (use_softmax, ln_bias, eps)
 K2_SHAPES = [(64, 128), (512, 16)]  # (C, H = W)
 _MARKERS = 16  # pass_split's marker launches
+# --k14: (kernel, C, H = W, C_out, flavour): Restormer's enc1 qkv and project_in, its latent qkv; K5' at c = 512
+K14_CASES = [("K14", 48, 128, 144, "relu"), ("K14", 48, 128, 254, "relu"), ("K14", 384, 16, 1152, "softmax"),
+             ("K5'", 512, 16, 1024, None)]
+K14_TILES = ["96x96", "64x128", "32x64", "128x128"]  # ln_proj.cu's tiles, in pick_tile's numbering
+BITS_ONLY = False  # --bits: the checks alone
 
 
 def _build(name: str, csrc: Path, kernels: dict) -> dict:
@@ -390,6 +433,8 @@ def block_ab(libs: dict, kernel: str) -> None:
                 label = f"B={batch} {dname}{shape}"
                 _compare(label, calls, {kernel: ref})
                 del ref
+                if BITS_ONLY:
+                    continue
                 # K4's and K5's calls below B = 8 are a few launches each, set by the host: ten pairs of turns
                 _turns(label, calls, 4 if batch == 8 else 10, 10 if kernel in ("K4", "K5") and batch < 8 else 1)
                 if batch == 8 or kernel in ("K4", "K5"):  # K4 and K5 below B = 8: a wave's depth walk, or the host
@@ -398,18 +443,84 @@ def block_ab(libs: dict, kernel: str) -> None:
                 torch.cuda.empty_cache()
 
 
+def _k14_case(gen, batch, dtype, stream):
+    """K14's and K5''s inputs at each K14_CASES shape: (label, kernel, plain output,
+    launch(lib, w), the weight contiguous, its transposed view, the library call,
+    (rows, C, C_out))."""
+    for kernel, c, s, c_out, act in K14_CASES:
+        x = _rand(gen, dtype, batch * s * s, c, scale=2.0, shift=0.5)
+        ln_w, ln_b, w_pt = _rand(gen, dtype, c, shift=1.0), _rand(gen, dtype, c), _rand(gen, dtype, c_out, c,
+                                                                                       scale=c ** -0.5)
+        bias = _rand(gen, dtype, c_out) if kernel == "K5'" else None
+        _, ln_bias, eps = K7_FLAVOURS[act] if act else (False, True, 1e-6)
+        if not ln_bias:
+            ln_b = torch.zeros_like(ln_b)
+        dense = w_pt.t().contiguous()
+        f32 = [t.float() for t in (x, ln_w, ln_b, dense)]
+        ref = nff.naf_expand_ref(*f32, bias.float(), eps) if bias is not None else \
+            lp.ln_proj_ref(*f32, eps, not ln_bias)
+
+        def launch(lib, w, tile=-1, eps=eps, ln_bias=ln_bias, x=x, ln_w=ln_w, ln_b=ln_b, bias=bias):
+            return lp.launch(lib, x, ln_w, ln_b, w, eps, stream, biasfree=not ln_bias, bias=bias, tile=tile)
+
+        def library(x=x, ln_w=ln_w, ln_b=ln_b, w_pt=w_pt, bias=bias, eps=eps, c=c):
+            return F.linear(F.layer_norm(x, (c,), ln_w, ln_b, eps), w_pt, bias)
+
+        label = f" C={c} {s}x{s} -> {c_out} {'WithBias' if ln_bias else 'BiasFree'}"
+        yield label, kernel, ref, launch, dense, w_pt.t(), library, (x.shape[0], c, c_out)
+
+
+def k14_ab(libs: dict) -> None:
+    """K14 and K5' of every build at B = 1 and 8 beside the library calls."""
+    gen = torch.Generator().manual_seed(15)
+    stream = torch.cuda.current_stream().cuda_stream
+    with torch.no_grad():
+        for batch in (1, 8):
+            for dname in ("float32", "bfloat16"):
+                for shape, kernel, ref, launch, dense, view, library, dims in _k14_case(gen, batch,
+                                                                                         getattr(torch, dname), stream):
+                    label = f"B={batch} {dname}{shape}"
+                    for name, lib in libs.items():
+                        tile = [lib["K14"].ln_proj_tile(*dims, i) for i in range(2)]
+                        print(f"{label} {name} tile: " + (f"{tile[0]} x {tile[1]}" if tile[0] else "none (SIMT)"),
+                              flush=True)
+                    calls = {(name, kernel): (lambda lib=lib: launch(lib["K14"], dense)) for name, lib in libs.items()}
+                    for name, lib in libs.items():  # every tile of each build that picks one: the same bits
+                        if lib["K14"].ln_proj_tile(*dims, 0):
+                            for tile, tname in enumerate(K14_TILES):
+                                calls[(f"{name} {tname}", kernel)] = lambda lib=lib, tile=tile: launch(lib["K14"],
+                                                                                                       dense, tile)
+                    _compare(label, calls, {kernel: (ref,)})
+                    same = torch.equal(launch(libs["tree"]["K14"], view), launch(libs["tree"]["K14"], dense))
+                    print(f"{label} tree {kernel}: the transposed view's output {'equals' if same else 'DIFFERS FROM'} "
+                          "the contiguous weight's bit for bit", flush=True)
+                    if BITS_ONLY:
+                        continue
+                    calls[("tree", kernel + " view")] = lambda: launch(libs["tree"]["K14"], view)
+                    calls[("library", "F.layer_norm + F.linear")] = library
+                    _turns(label, calls, 10, 10 if batch == 1 else 1)
+                    if batch == 8:
+                        for (name, what), fn in calls.items():
+                            print_split(f"{label} {name} {what} by pass", pass_split(fn))
+                    torch.cuda.empty_cache()
+
+
 def main(argv: list[str]) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
+    global BITS_ONLY
+    BITS_ONLY = "--bits" in argv
     mode = next((a for a in argv if a in BLOCK_MODES), None)
     dirs = {"tree": cuda_build.CSRC,
-            **{a.split("=", 1)[0]: Path(a.split("=", 1)[1]) for a in argv if a not in BLOCK_MODES}}
+            **{a.split("=", 1)[0]: Path(a.split("=", 1)[1]) for a in argv if "=" in a}}
     kernels = BLOCK_MODES[mode] if mode else FORWARD
     with ThreadPoolExecutor(len(dirs)) as pool:
         libs = dict(zip(dirs, pool.map(lambda item: _build(*item, kernels), dirs.items())))
     torch.backends.cuda.matmul.allow_tf32 = False
-    if mode:
+    if mode == "--k14":
+        k14_ab(libs)
+    elif mode:
         for kernel in kernels:
             block_ab(libs, kernel)
     else:

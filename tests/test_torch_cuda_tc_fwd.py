@@ -1,7 +1,9 @@
-"""K6 (the TransformerBlock forward), K1 (the NAFBlock forward), and K4 and K5
-(the NAFBlock's prefix and FFN half) on the card, whose 1x1 products run on
-the tensor cores (``csrc/tc_gemm.cuh``): each at the train ymls' batch 8
-against its plain version, twice for equal bits, and its launches by pass.
+"""K6 (the TransformerBlock forward), K1 (the NAFBlock forward), K4 and K5
+(the NAFBlock's prefix and FFN half), and K14 and K5' (``csrc/ln_proj.cu``:
+the LayerNorm fused with a 1x1 projection) on the card, whose 1x1 products
+run on the tensor cores (``csrc/tc_gemm.cuh`` and its pieces): each at the
+train ymls' batch 8 against its plain version, twice for equal bits, and its
+launches by pass.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU: a CUDA
 kernel has no CPU mode.  The file imports neither JAX nor dcpt_tpu; from the
@@ -10,14 +12,15 @@ repo root:
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda_tc_fwd.py
 
 Limits, relative to max(1, max|ref|), as ``chip_smoke.py`` holds the kernels:
-fp32 1e-4, bf16 2e-2 (the bf16 kernel against the plain version in fp32 on
-the same rounded inputs).
+fp32 1e-4 (K14 and K5' 1e-5, ``STANDALONE_TOL``), bf16 2e-2 (the bf16 kernel
+against the plain version in fp32 on the same rounded inputs).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from dcpt_tpu_torch.ops import ln_proj as tlp
 from dcpt_tpu_torch.ops import mdta_block as tmb
 from dcpt_tpu_torch.ops import naf_block as tnb
 from dcpt_tpu_torch.ops import naf_ffn as tnff
@@ -72,14 +75,15 @@ def _k1_call(device, b, s, c, dtype):
     return (lambda: tnb._kernel_forward(x, params, 1e-6)), ref
 
 
-def _held(launch, ref, dtype) -> None:
+def _held(launch, ref, dtype, limit=None) -> torch.Tensor:
     with torch.no_grad():
         got, again = launch(), launch()
     torch.cuda.synchronize()
     assert torch.equal(got, again), "two runs on the same inputs differ"
     assert got.shape == ref.shape and got.dtype == dtype and torch.isfinite(got).all()
     err = (got.float() - ref).abs().max().item() / max(1.0, ref.abs().max().item())
-    assert err <= LIMIT[dtype], err
+    assert err <= (limit or LIMIT[dtype]), err
+    return got
 
 
 # (C, H = W, heads, flavour, dtype) at B = 8: Restormer's two 128 x 128 stages, its latent
@@ -140,3 +144,36 @@ def test_k4_k5_at_batch_8_on_the_tensor_cores(cuda, kernel):
         names = [name for name, _ in pass_split(launch)]
     assert [n.split("<")[0] for n in names] == want, names
     assert all(n.startswith(f"{w}<{owner},") for n, w in zip(names, want)), names
+
+
+# (kernel, C, H = W, C_out, ln_bias, dtype) at B = 8: Restormer's enc1 qkv (BiasFree) and
+# project_in (WithBias, PromptIR's flavour), K5' at NAFNet-w64's c = 512 stage
+@pytest.mark.parametrize("kernel,c,s,c_out,ln_bias,dtype", [
+    ("K14", 48, 128, 144, False, torch.float32), ("K14", 48, 128, 254, True, torch.bfloat16),
+    ("K5'", 512, 16, 1024, True, torch.float32), ("K5'", 512, 16, 1024, True, torch.bfloat16),
+], ids=["k14-qkv-biasfree-f32", "k14-project-in-withbias-bf16", "k5p-c512-f32", "k5p-c512-bf16"])
+def test_k14_k5p_at_batch_8_one_launch(cuda, kernel, c, s, c_out, ln_bias, dtype):
+    """K14 and K5' at batch 8 against their plain versions, twice for equal bits,
+    with the weight as the module passes it (the transposed view of the (c_out,
+    c) 1x1 weight, ``_ln_conv1x1``) and contiguous: equal bits; one call is one
+    launch of ``ln_proj_kernel`` (no LayerNorm pass, no weight copy)."""
+    rng = np.random.default_rng(c + c_out)
+    r = lambda *shape, scale=0.5, shift=0.0: _rand(rng, cuda, dtype, *shape, scale=scale, shift=shift)  # noqa: E731
+    x = r(8, s, s, c, scale=2.0, shift=0.5)
+    ln_w, ln_b, view = r(c, shift=1.0), r(c), r(c_out, c, scale=c ** -0.5).t()
+    eps = 1e-5 if kernel == "K14" else 1e-6
+    if not ln_bias:
+        ln_b = torch.zeros_like(ln_b)
+    f32 = [t.float() for t in (x, ln_w, ln_b, view)]
+    if kernel == "K14":
+        call = lambda w: tlp.fused_ln_proj(x, ln_w, ln_b, w, eps, not ln_bias)  # noqa: E731
+        ref = tlp.ln_proj_ref(*f32, eps, not ln_bias)
+    else:
+        b1 = r(c_out)
+        call = lambda w: tnff.naf_expand(x, ln_w, ln_b, w, b1, eps)  # noqa: E731
+        ref = tnff.naf_expand_ref(*f32, b1.float(), eps)
+    got = _held(lambda: call(view), ref, dtype, 1e-5 if dtype == torch.float32 else None)
+    with torch.no_grad():
+        assert torch.equal(got, call(view.contiguous())), "the transposed view and the contiguous weight differ"
+        names = [name for name, _ in pass_split(lambda: call(view))]
+    assert len(names) == 1 and names[0].startswith("ln_proj_kernel<"), names
