@@ -156,10 +156,11 @@ Phases, each of which raises on failure (exit code 1):
    stages c <= 512; K13 (``mdta_attention``) at the Restormer and PromptIR
    attentions (and enc1 at B = 8); fp32 and bf16, a ragged shape each, every
    call twice for equal bits; each kernel's ms beside its plain version's, a
-   library composite's and the bound (K14 and K5' at 3xTF32 on the tensor
-   cores, beside the SIMT fp32 one); the device time a call at B = 8 of K11
-   beside the library composite's, and of K14 and K5' by pass beside the
-   library calls' passes.  Then the counted path: the shipped
+   library composite's and the bound (K13, K14 and K5' at 3xTF32 on the
+   tensor cores, beside the SIMT fp32 one); the device time a call at B = 8
+   of K11 beside the library composite's, of K14 and K5' by pass beside the
+   library calls' passes, and of K13 by pass at (8, 48, 16384) and (4, 176,
+   256) beside the library's, its launches a call checked.  Then the counted path: the shipped
    ``test_Restormer_5d.yml`` and ``test_PromptIR_5d.yml`` nets at full width
    on seeded weights, one 128 x 128 forward each with every TransformerBlock
    through ``_standalone_transformer_forward`` (88 / 94 K14 and 44 / 47 K13
@@ -175,9 +176,10 @@ workers' start.
 
 On the H100 machines torch.profiler at times stops recording device time for
 the rest of a process.  A phase whose profile records none then runs once more
-in a fresh process on the same card, as do the later phases that take a
-profile (``run_phase``); one whose profile records none there too runs in one
-more fresh process, and a profile there that records none fails the script.
+in a fresh process on the same card (``--serve``), and the later phases that
+take a profile run in that same process, one after another (``run_phase``);
+if a profile records none there too, one more fresh process takes that phase
+and the later ones, and a profile there that records none fails the script.
 
 The line before the last is a JSON object with each kernel's launches, error,
 times and bound; the last line is ``{"ok": true, "device": {...}}``.  Without a
@@ -2083,7 +2085,7 @@ def float64_states(states: int, arch: str = "SwinIR") -> dict:
     forward kernel from the backward one, to show which makes the check fail
     or come near its limit where it does.
 
-        python3 chip_smoke.py --phase float64_states '[12, "SwinIR"]'
+        echo '["float64_states", [12, "SwinIR"]]' | python3 chip_smoke.py --serve
 
     The shipped DCPT yml trains TRAIN_ITERS steps at batch 8 on the PNGs of
     [7]; state k is that model after 2 k more steps on seeded batches.  On
@@ -2977,7 +2979,7 @@ def check_standalone() -> dict:
 
     # K13; the plain version in fp32 on the same rounded inputs
     print(f"  K13 {'BH':>3} {'c':>4} {'L':>6} {'act':>7} {'dtype':>9} {'rel':>9} {'lib rel':>9} {'ms':>8} {'plain':>8} "
-          f"{'library':>8} {'bound':>8}")
+          f"{'library':>8} {'bound':>8} {'simt':>8}")
     k13 = {}
 
     def attn_case(bh, c, length, use_softmax, dname, timed):
@@ -3002,10 +3004,11 @@ def check_standalone() -> dict:
                     raise RuntimeError(f"[22] K13's library composite differs by {lib_rel:.3e}")
                 times = [cuda_ms(lambda: mdta.mdta_attention(q, k, v, t, use_softmax)),
                          cuda_ms(lambda: mdta.mdta_ref(q, k, v, t, use_softmax)), cuda_ms(library)]
-        peak = PEAK_FP32_FLOPS if dname == "float32" else PEAK_BF16_FLOPS
-        b_ms, b_by = bound([(1, *k13_work(bh, c, length, q.element_size()))], peak)
+        # fp32 at 3xTF32 on the tensor cores (PEAK_TF32_FLOPS / 3), beside it the SIMT fp32 bound
+        work = [(1, *k13_work(bh, c, length, q.element_size()))]
+        b_ms, b_by = bound(work, PEAK_TF32_FLOPS / 3 if dname == "float32" else PEAK_BF16_FLOPS)
         print(f"  K13 {bh:>3} {c:>4} {length:>6} {act:>7} {dname:>9} {rel:>9.2e} {lib_rel:>9.2e} "
-              + " ".join(f"{v:>8.4f}" for v in (*times, b_ms)), flush=True)
+              + " ".join(f"{v:>8.4f}" for v in (*times, b_ms, bound(work)[0])), flush=True)
         return times + [b_ms, b_by]
 
     for shape, _, flavour in _k13_shapes():
@@ -3021,9 +3024,11 @@ def check_standalone() -> dict:
     for net, flavour in (("", RESTORMER_FLAVOUR), ("promptir_", PROMPTIR_FLAVOUR)):
         calls = [(shape, n) for shape, n, fl in _k13_shapes() if fl == flavour]
         ms, plain_ms, lib_ms = (sum(n * k13[(shape, flavour)][i] for shape, n in calls) for i in range(3))
-        b_ms, b_by = bound([(n, *k13_work(*shape)) for shape, n in calls])
+        work = [(n, *k13_work(*shape)) for shape, n in calls]
+        b_ms, b_by = bound(work, PEAK_TF32_FLOPS / 3)
         out["mdta_attention"].update({net + "ms": ms, net + "plain_ms": plain_ms, net + "library_ms": lib_ms,
-                                      net + "bound_ms": b_ms, net + "bound_by": b_by})
+                                      net + "bound_ms": b_ms, net + "bound_by": b_by,
+                                      net + "simt_bound_ms": bound(work)[0]})
     out["mdta_attention"].update(b8_ms=b8[0], b8_plain_ms=b8[1], b8_library_ms=b8[2], b8_bound_ms=b8[3],
                                  bf16_ms=k13[(enc1, "bf16", False)][0], bf16_ms_fp32=k13[(enc1, RESTORMER_FLAVOUR)][0])
     print("  K11-K14 and K5' twice on the same inputs: equal bit for bit at every shape", flush=True)
@@ -3054,14 +3059,14 @@ def check_standalone() -> dict:
 
     # K14 and K5' by pass (swin_ab.pass_split: each launch of one call in order), beside the library
     # calls' passes, and the call's bound at 3xTF32 and SIMT fp32
-    def by_pass(label, fn, library, work):
+    def by_pass(label, fn, library, work, library_label="F.layer_norm + F.linear"):
         with torch.no_grad():
             split, lib_split = pass_split(fn, 10), pass_split(library, 10)
         if not split or not lib_split:
             raise NoDeviceTime(f"torch.profiler recorded no device time for {label}'s passes")
         b_tc, b_simt = bound([(1, *work)], PEAK_TF32_FLOPS / 3)[0], bound([(1, *work)])[0]
         print_split(f"  {label} at B=8, by pass", split)
-        print_split(f"  {label} at B=8, F.layer_norm + F.linear by pass", lib_split)
+        print_split(f"  {label} at B=8, {library_label} by pass", lib_split)
         print(f"  {label} at B=8: bound {b_tc:.4f} ms (3xTF32), SIMT fp32 {b_simt:.4f} ms", flush=True)
         return split, lib_split, b_tc, b_simt
 
@@ -3090,6 +3095,29 @@ def check_standalone() -> dict:
         lambda: F.linear(F.layer_norm(x, (c,), ln_w, ln_b, 1e-6), w.t(), b1), k14_work(x.shape[0], c, 2 * c, 4, True))
     out["naf_expand"].update(b8_device_ms=sum(ms for _, ms in split), b8_library_device_ms=sum(ms for _, ms in lib_split),
                              b8_split=split, b8_library_split=lib_split, b8_bound_ms=b_tc, b8_simt_bound_ms=b_simt)
+    # K13 by pass at enc1 at the train ymls' batch (ReLU) and PromptIR's noise_level3 (softmax), beside
+    # F.normalize, torch.bmm, act, torch.bmm; the launches of a call as mdta.launches_per_call reckons them
+    for key, (bh, c, length), use_softmax in (("b8", (8, 48, 16384), False), ("noise3", (4, 176, 256), True)):
+        q, k, v = (rand(bh, c, length) for _ in range(3))
+        t = (torch.rand(bh, 1, 1, generator=gen) + 0.5).to("cuda")
+
+        def library():
+            a = torch.bmm(F.normalize(q, dim=-1), F.normalize(k, dim=-1).transpose(1, 2)) * t
+            return torch.bmm(a.softmax(-1) if use_softmax else F.relu(a), v)
+
+        split, lib_split, b_tc, b_simt = by_pass(
+            f"K13 ({bh}, {c}, {length}) {'softmax' if use_softmax else 'relu'}",
+            lambda: mdta.mdta_attention(q, k, v, t, use_softmax), library, k13_work(bh, c, length),
+            "F.normalize + torch.bmm + act + torch.bmm")
+        if len(split) != mdta.launches_per_call(bh, c, length):
+            raise RuntimeError(f"[22] K13 at {(bh, c, length)}: {len(split)} launches a call, expected "
+                               f"{mdta.launches_per_call(bh, c, length)}")
+        out["mdta_attention"].update({key + "_device_ms": sum(ms for _, ms in split),
+                                      key + "_library_device_ms": sum(ms for _, ms in lib_split),
+                                      key + "_split": split, key + "_launches_per_call": len(split),
+                                      key + "_bound_ms": b_tc, key + "_simt_bound_ms": b_simt})
+    print(f"  K13: {out['mdta_attention']['b8_launches_per_call']} and {out['mdta_attention']['noise3_launches_per_call']} "
+          "launches a call, as mdta.launches_per_call reckons", flush=True)
     return out
 
 
@@ -3176,29 +3204,104 @@ def run_standalone_path() -> dict:
     return {"launches": launches, "per_net": per_net}
 
 PHASE_RESULT = "CHIP_SMOKE_PHASE_RESULT "
+PHASE_LOST = "CHIP_SMOKE_PHASE_NO_DEVICE_TIME"  # a --serve process's line when a profile recorded no device time
 NO_DEVICE_TIME = 3  # a fresh process's exit code when a profile of its phase recorded no device time
 # set once torch.profiler has recorded no device time in this process
 _profiler_lost = False
+# the fresh process (--serve) that runs the profiling phases one after another once this process's
+# profiler is lost: one interpreter, CUDA context and cuDNN cache for all of them, not one a phase
+_server = None
 
 
-def run_phase(fn, *args, env: dict | None = None, profiles: bool = True):
-    """``fn(*args)``, a phase whose arguments and result are JSON.  If a profile
-    of the phase records no device time, the phase runs once more in a fresh
-    process on the same card, its output passed on, and so does every phase
-    after it that ``profiles`` (one that takes no torch.profiler trace runs
-    here all the same); if a profile there records none too (the child exits
-    with NO_DEVICE_TIME), one more fresh process runs it, and a profile there
-    that records none fails the script.
-    With ``env`` the phase runs in a fresh process with those variables set
-    (the port reads its routes' switches at import)."""
-    global _profiler_lost
+def _start_server(env: dict | None = None):
+    """A --serve process on the same card, with ``env``'s variables set over this one's."""
     import gc
     import os
 
     import torch
 
+    gc.collect()  # the earlier phases' tensors, before the child takes its memory from the same card
+    torch.cuda.empty_cache()
+    return subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--serve"], stdin=subprocess.PIPE,
+                            stdout=subprocess.PIPE, text=True, env=None if env is None else {**os.environ, **env})
+
+
+def _stop(proc) -> None:
+    proc.stdin.close()
+    try:
+        proc.wait(timeout=120)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+
+
+def _stop_server() -> None:
+    global _server
+    if _server is not None:
+        _stop(_server)
+        _server = None
+
+
+def _on_server(proc, fn, args):
+    """``fn(*args)`` on the --serve process ``proc``, its output passed on.  Returns the result,
+    or None when a profile there recorded no device time (the process then ends); raises if the
+    phase failed."""
+    proc.stdin.write(json.dumps([fn.__name__, args]) + "\n")
+    proc.stdin.flush()
+    for line in proc.stdout:
+        if line.startswith(PHASE_RESULT):
+            return json.loads(line[len(PHASE_RESULT):])
+        if line.startswith(PHASE_LOST):
+            return None
+        print(line, end="", flush=True)
+    raise RuntimeError(f"{fn.__name__} failed in a fresh process (exit code {proc.wait()})")
+
+
+def _serve() -> int:
+    """--serve: run each phase named on a line of stdin (``[name, args]``), print its output, then its
+    result line; end at the end of stdin, or after a profile that recorded no device time."""
+    import gc
+
+    import torch
+
+    for line in sys.stdin:
+        name, args = json.loads(line)
+        try:
+            result = globals()[name](*args)
+        except NoDeviceTime as e:
+            print(f"  {e}", flush=True)
+            print(PHASE_LOST, flush=True)
+            return NO_DEVICE_TIME
+        print(PHASE_RESULT + json.dumps(result), flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return 0
+
+
+def run_phase(fn, *args, env: dict | None = None, profiles: bool = True):
+    """``fn(*args)``, a phase whose arguments and result are JSON.  If a profile
+    of the phase records no device time, the phase runs once more in a fresh
+    process on the same card (``--serve``), its output passed on, and so does
+    every phase after it that ``profiles``, in that same process (one that
+    takes no torch.profiler trace runs here all the same); if a profile there
+    records none too, one more fresh process runs it and the later ones, and a
+    profile there that records none fails the script.
+    With ``env`` the phase runs in a --serve process of its own with those
+    variables set (the port reads its routes' switches at import), stopped
+    after it."""
+    global _profiler_lost, _server
     t0 = time.perf_counter()
-    if (not _profiler_lost or not profiles) and env is None:
+    if env is not None:
+        proc = _start_server(env)
+        try:
+            result = _on_server(proc, fn, list(args))
+        finally:
+            _stop(proc)
+        if result is None:
+            raise RuntimeError(f"{fn.__name__}: torch.profiler recorded no device time in its fresh process")
+        print(f"  ({fn.__name__}, fresh process: {time.perf_counter() - t0:.1f} s)", flush=True)
+        return result
+    if not _profiler_lost or not profiles:
         try:
             result = fn(*args)
             print(f"  ({fn.__name__}: {time.perf_counter() - t0:.1f} s)", flush=True)
@@ -3206,25 +3309,18 @@ def run_phase(fn, *args, env: dict | None = None, profiles: bool = True):
         except NoDeviceTime as e:
             print(f"  {e}: {fn.__name__} again in a fresh process", flush=True)
             _profiler_lost = True
-        gc.collect()  # the failed attempt's tensors, before the child takes its memory from the same card
-    torch.cuda.empty_cache()
     for attempt in range(2):
-        proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--phase", fn.__name__,
-                                 json.dumps(args)], stdout=subprocess.PIPE, text=True,
-                                env=None if env is None else {**os.environ, **env})
-        result = None
-        for line in proc.stdout:
-            if line.startswith(PHASE_RESULT):
-                result = json.loads(line[len(PHASE_RESULT):])
-            else:
-                print(line, end="", flush=True)
-        if proc.wait() != NO_DEVICE_TIME or attempt:
-            break
-        print(f"  {fn.__name__} again in another fresh process: the profiler recorded no device time", flush=True)
-    if proc.returncode != 0 or result is None:
-        raise RuntimeError(f"{fn.__name__} failed in a fresh process (exit code {proc.returncode})")
-    print(f"  ({fn.__name__}, fresh process: {time.perf_counter() - t0:.1f} s)", flush=True)
-    return result
+        if _server is None:
+            _server = _start_server()
+        result = _on_server(_server, fn, list(args))
+        if result is not None:
+            print(f"  ({fn.__name__}, fresh process: {time.perf_counter() - t0:.1f} s)", flush=True)
+            return result
+        _stop_server()
+        if attempt == 0:
+            print(f"  {fn.__name__} again in another fresh process: the profiler recorded no device time",
+                  flush=True)
+    raise RuntimeError(f"{fn.__name__}: torch.profiler recorded no device time in two fresh processes")
 
 
 def main() -> int:
@@ -3243,13 +3339,15 @@ def main() -> int:
     # loaders of forked workers (fork or forkserver) torch.profiler records no
     # device time in this process, which the later phases' profiles need
     multiprocessing.set_start_method("spawn")
-    if sys.argv[1:2] == ["--phase"]:  # run_phase's fresh process
-        try:
-            print(PHASE_RESULT + json.dumps(globals()[sys.argv[2]](*json.loads(sys.argv[3]))), flush=True)
-        except NoDeviceTime as e:
-            print(f"  {e}", flush=True)
-            return NO_DEVICE_TIME
-        return 0
+    if sys.argv[1:2] == ["--serve"]:  # run_phase's fresh process: phases named on stdin
+        return _serve()
+    try:
+        return _main(torch)
+    finally:
+        _stop_server()
+
+
+def _main(torch) -> int:
 
     card = card_line()
     print(f"[1] card: {card}", flush=True)
@@ -3425,10 +3523,11 @@ def main() -> int:
           f"bound {k['bound_ms']:.3f} ms ({k['bound_by']})", flush=True)
     print("[22] device time a call at B=8 (torch.profiler), kernel against the library call: " + "; ".join(
         f"{name} {standalone[name]['b8_device_ms']:.4f} against {standalone[name]['b8_library_device_ms']:.4f} ms"
-        + (f" (bound {standalone[name]['b8_bound_ms']:.4f} ms, 3xTF32)" if name in ("fused_ln_proj", "naf_expand") else "")
-        for name in ("window_partition_fused", "window_reverse_fused", "fused_ln_proj", "naf_expand"))
+        + (f" (bound {standalone[name]['b8_bound_ms']:.4f} ms, 3xTF32)" if name in ("fused_ln_proj", "naf_expand",
+                                                                                  "mdta_attention") else "")
+        for name in ("window_partition_fused", "window_reverse_fused", "fused_ln_proj", "naf_expand", "mdta_attention"))
         + " (K11 at 128x128x180, shift 4; K14 one enc1 block's qkv + project_in, C 48 at 128x128, by pass; K5' at "
-        "C 512 on 16x16, by pass)", flush=True)
+        "C 512 on 16x16, by pass; K13 at (8, 48, 16384), ReLU, by pass)", flush=True)
 
     launches = dict(train["launches"], mdta_block_fused=k6_launches["Restormer"],
                     mdta_block_bwd=transformer_train["Restormer"]["launches"]["mdta_block_bwd"],

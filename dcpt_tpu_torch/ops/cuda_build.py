@@ -5,11 +5,17 @@ root of the checkout (listed in ``.gitignore``); the hash covers the sources,
 the shared headers of ``csrc`` and the compiler flags, so an edited kernel is
 rebuilt and an unchanged one is loaded as it is.  The sources expose a plain C interface: no PyTorch headers,
 so a build takes seconds.  Nothing here runs at import time.
+
+Two helpers give the wrappers one host path a call: ``entry`` resolves a C
+entry point of a build once per process, and ``on_device`` runs a launch on
+a tensor's device and current stream without a device switch when that
+device is the current one (a B = 1 call is set by the host).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -17,6 +23,8 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -69,3 +77,24 @@ def build_library(name: str, sources: list[str]) -> tuple[Path, float]:
 def load_library(name: str, sources: list[str]) -> ctypes.CDLL:
     lib_path, _ = build_library(name, sources)
     return ctypes.CDLL(str(lib_path))
+
+
+@functools.cache
+def entry(lib, name: str):
+    """The C function ``name`` of ``lib()``, an ops module's cached loader, resolved once."""
+    return getattr(lib(), name)
+
+
+# the current stream's handle as an int, without building a torch.cuda.Stream (a CUDA build of
+# PyTorch has it; the public path below stands in where it does not)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def on_device(x: torch.Tensor, run):
+    """``run(stream)`` on x's device and its current stream: no device switch when x
+    is on the current device."""
+    index = x.get_device()
+    if index == torch.cuda.current_device():
+        return run(_raw_stream(index) if _raw_stream else torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(index):
+        return run(torch.cuda.current_stream().cuda_stream)

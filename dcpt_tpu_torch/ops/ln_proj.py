@@ -39,7 +39,7 @@ import functools
 
 import torch
 
-from .cuda_build import load_library
+from .cuda_build import entry, load_library, on_device
 
 
 def ln_proj_ref(x, ln_w, ln_b, w, eps: float = 1e-6, biasfree: bool = False):
@@ -72,12 +72,6 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         proj.restype = expand.restype = ctypes.c_int
     lib.ln_proj_tile.argtypes, lib.ln_proj_tile.restype = [ctypes.c_int] * 4, ctypes.c_int
     return lib
-
-
-@functools.cache
-def _entry(name: str, dtype: torch.dtype):
-    """The ctypes function ``name``_f32 or _bf16 of the nvcc build, resolved once."""
-    return getattr(_lib(), f"{name}_{_SUFFIX[dtype]}")
 
 
 def check(name: str, x: torch.Tensor, params: list[torch.Tensor], shapes: list[tuple]) -> None:
@@ -135,23 +129,14 @@ def launch(lib, x, ln_w, ln_b, w, eps: float, stream: int, biasfree: bool = Fals
     return out
 
 
-def on_device(x: torch.Tensor, run):
-    """``run(stream)`` on x's device and its current stream: no device switch when x
-    is on the current device (the B = 1 calls are set by the host)."""
-    if x.device.index == torch.cuda.current_device():
-        return run(torch.cuda.current_stream().cuda_stream)
-    with torch.cuda.device(x.device):
-        return run(torch.cuda.current_stream().cuda_stream)
-
-
 def _forward(x, ln_w, ln_b, w, eps: float, biasfree: bool) -> torch.Tensor:
     if x.device.type == "cpu":
         return ln_proj_ref(x, ln_w, ln_b, w, eps, biasfree)
     c = x.shape[-1]
     check("fused_ln_proj", x, [ln_w, ln_b, w], [(c,), (c,), (c, w.shape[-1])])
     fused_ln_proj.launches += 1
-    entry = _entry("ln_proj", x.dtype)
-    return on_device(x, lambda stream: launch(None, x, ln_w, ln_b, w, eps, stream, biasfree=biasfree, entry=entry))
+    fn = entry(_lib, "ln_proj_" + _SUFFIX[x.dtype])
+    return on_device(x, lambda stream: launch(None, x, ln_w, ln_b, w, eps, stream, biasfree=biasfree, entry=fn))
 
 
 class LNProjFunction(torch.autograd.Function):

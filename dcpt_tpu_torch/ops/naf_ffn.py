@@ -37,7 +37,7 @@ import functools
 import torch
 
 from . import ln_proj
-from .cuda_build import load_library
+from .cuda_build import entry, load_library, on_device
 from .naf_block import layer_norm_last
 
 
@@ -151,9 +151,8 @@ def _expand_forward(x, ln_w, ln_b, w1, b1, eps: float) -> torch.Tensor:
     c, c_out = x.shape[-1], w1.shape[-1]
     ln_proj.check("naf_expand", x, [ln_w, ln_b, w1, b1], [(c,), (c,), (c, c_out), (c_out,)])
     naf_expand.launches += 1
-    entry = ln_proj._entry("naf_expand", x.dtype)
-    return ln_proj.on_device(x, lambda stream: ln_proj.launch(None, x, ln_w, ln_b, w1, eps, stream, bias=b1,
-                                                              entry=entry))
+    fn = entry(ln_proj._lib, "naf_expand_" + ln_proj._SUFFIX[x.dtype])
+    return on_device(x, lambda stream: ln_proj.launch(None, x, ln_w, ln_b, w1, eps, stream, bias=b1, entry=fn))
 
 
 class NAFExpandFunction(torch.autograd.Function):

@@ -13,7 +13,8 @@ by +shift included.  Source pixel of window row i, column j:
   they launch ``csrc/window_process.cu`` (one block per window, any dtype,
   copied bit for bit in units of up to 16 bytes) or raise; on a CPU tensor
   they return the plain versions.  ``.launches`` on each counts the calls that
-  launched the kernel.
+  launched the kernel.  The C entry is resolved once, and a tensor on the
+  current device takes no device switch (``cuda_build.on_device``).
 
 Where the port departs from dcpt_tpu: dcpt_tpu divides H and W by ws with
 ``//``, so on a ragged map its partition drops the uncovered rows and columns
@@ -33,7 +34,7 @@ import functools
 
 import torch
 
-from .cuda_build import load_library
+from .cuda_build import entry, load_library, on_device
 
 
 def _grid(name: str, h: int, w: int, ws: int) -> tuple[int, int]:
@@ -81,15 +82,16 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def _launch(lib, src: torch.Tensor, out: torch.Tensor, b: int, h: int, w: int, c: int, ws: int, shift: int,
-            reverse: bool, stream: int) -> torch.Tensor:
-    """Run the kernel's C entry on ``stream``: src (contiguous) into the preallocated out.
+            reverse: bool, stream: int, fn=None) -> torch.Tensor:
+    """Run the kernel's C entry on ``stream`` (``fn``, the wrappers' cached one, or
+    else lib's): src (contiguous) into the preallocated out.
     A pixel's c elements move as the widest unit of 16, 8, 4, 2 or 1 bytes that
     divides the pixel and aligns both buffers (16 bytes for SwinIR's 180 fp32
     channels), so any dtype is copied bit for bit."""
     pixel = c * src.element_size()
     unit = next(u for u in (16, 8, 4, 2, 1) if pixel % u == 0 and src.data_ptr() % u == 0 and out.data_ptr() % u == 0)
-    err = lib.window_process(src.data_ptr(), out.data_ptr(), b, h, w, pixel // unit, ws, shift % h, shift % w, unit,
-                             int(reverse), stream)
+    err = (fn or lib.window_process)(src.data_ptr(), out.data_ptr(), b, h, w, pixel // unit, ws, shift % h, shift % w,
+                                     unit, int(reverse), stream)
     if err != 0:
         raise RuntimeError(f"window_process kernel launch failed with CUDA error {err}")
     return out
@@ -114,9 +116,9 @@ def window_partition_fused(x: torch.Tensor, window_size: int, shift: int = 0) ->
     ny, nx = _grid("window_partition_fused", h, w, window_size)
     out = torch.empty(b * ny * nx, window_size * window_size, c, dtype=x.dtype, device=x.device)
     window_partition_fused.launches += 1
-    with torch.cuda.device(x.device):
-        return _launch(_lib(), x.contiguous(), out, b, h, w, c, window_size, shift, False,
-                       torch.cuda.current_stream().cuda_stream)
+    fn = entry(_lib, "window_process")
+    return on_device(x, lambda stream: _launch(None, x.contiguous(), out, b, h, w, c, window_size, shift, False, stream,
+                                               fn))
 
 
 def window_reverse_fused(windows: torch.Tensor, window_size: int, h: int, w: int, shift: int = 0) -> torch.Tensor:
@@ -132,9 +134,9 @@ def window_reverse_fused(windows: torch.Tensor, window_size: int, h: int, w: int
     b, c = windows.shape[0] // (ny * nx), windows.shape[-1]
     out = torch.empty(b, h, w, c, dtype=windows.dtype, device=windows.device)
     window_reverse_fused.launches += 1
-    with torch.cuda.device(windows.device):
-        return _launch(_lib(), windows.contiguous(), out, b, h, w, c, window_size, shift, True,
-                       torch.cuda.current_stream().cuda_stream)
+    fn = entry(_lib, "window_process")
+    return on_device(windows, lambda stream: _launch(None, windows.contiguous(), out, b, h, w, c, window_size, shift,
+                                                     True, stream, fn))
 
 
 window_partition_fused.launches = 0

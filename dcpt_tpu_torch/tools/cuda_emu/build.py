@@ -16,7 +16,10 @@ points as nvcc's build: load it with ctypes and call an ops wrapper's
 then compare with the plain version (``tests/test_torch_cuda_emu.py`` does
 this for K3).  One CPU core runs every CUDA thread: use shapes of a few tiles.
 Static ``__shared__`` arrays are not emulated.  It catches indexing and
-barrier faults, not nvcc's own complaints.
+barrier faults, and a launch past the card's limits (1024 threads, 232448
+bytes of shared memory, 65535 blocks along y or z), not nvcc's own
+complaints.  Each library also exports ``cuda_emu_launches()``: the kernel
+launches it has run, for a test to count.
 """
 
 from __future__ import annotations

@@ -39,6 +39,7 @@ template <class F> inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute,
 inline cudaError_t cudaGetDevice(int* dev) { *dev = 0; return 0; }
 namespace emu {
 inline int last_error = 0;
+inline long long launches = 0;  // kernel launches that ran, for a test to count
 // the running fiber's indices and block
 inline dim3 tl_threadIdx, tl_blockIdx;
 inline dim3 g_gridDim, g_blockDim;
@@ -90,7 +91,8 @@ template <class F> struct Launcher {
   F f; dim3 g, b; size_t s;
   Launcher(F f_, dim3 g_, dim3 b_, size_t s_ = 0, cudaStream_t = nullptr) : f(f_), g(g_), b(b_), s(s_) {}
   template <class... A> void operator()(A... a) {
-    if (b.x > 1024 || s > 232448) { last_error = 9; return; }
+    if (b.x > 1024 || s > 232448 || g.y > 65535 || g.z > 65535) { last_error = 9; return; }
+    ++launches;
     g_gridDim = g; g_blockDim = b;
     const int n = b.x;
     std::unique_ptr<char[]> stacks(new char[n * kStack]);
@@ -133,6 +135,8 @@ template <class F> struct Launcher {
 };
 }  // namespace emu
 inline cudaError_t cudaGetLastError() { int e = emu::last_error; emu::last_error = 0; return e; }
+// The library's kernel launches so far (a C entry of every emulated build)
+extern "C" long long cuda_emu_launches() { return emu::launches; }
 #define threadIdx (emu::tl_threadIdx)
 #define blockIdx (emu::tl_blockIdx)
 #define gridDim (emu::g_gridDim)

@@ -1,7 +1,7 @@
 """Time the block kernels built from several copies of ``csrc`` side by side on one card.
 
-    python -m dcpt_tpu_torch.tools.swin_ab [--k9 | --k7 | --k2 | --k6 | --k1 | --k45 | --k14] [--bits]
-        [NAME=CSRC_DIR ...]
+    python -m dcpt_tpu_torch.tools.swin_ab [--k9 | --k7 | --k2 | --k6 | --k1 | --k45 | --k14 | --k13]
+        [--bits] [NAME=CSRC_DIR ...]
 
 Builds the kernels from the package's own ``csrc`` (named ``tree``) and from
 each other directory given (a parent commit's ``dcpt_tpu_torch/csrc``
@@ -42,6 +42,23 @@ nvcc.
   (``ln_proj_tile``), and each build that picks one also at each of its tiles
   forced (the same bits), ten pairs of turns at B = 1, and at B = 8 the device
   time by pass of each build and of the library calls;
+* ``--k13``: K13 (``mdta.cu``) at (BH, c, L) = (8, 48, 16384) ReLU (Restormer's
+  enc1 at the train ymls' batch), (4, 176, 256) softmax (PromptIR's
+  noise_level3), (1, 96, 16384) softmax (PromptIR's dec1 and refinement) and
+  (1, 48, 16384) ReLU (enc1 at B = 1), fp32, and bf16 at enc1 and Restormer's
+  latent (8, 48, 256); each build at its own tile and the tree at each tile
+  forced (the same bits), beside ``F.normalize``, ``torch.bmm``, act,
+  ``torch.bmm`` on the same inputs, and the tree through its wrapper
+  ``mdta_attention`` (the host path a caller takes); ten pairs of turns, and
+  the device time by pass of each build and of the library composition; the
+  tree's wrapper and the library at every K13 shape of a 128 x 128 Restormer
+  and PromptIR forward, summed per forward;
+  then K11 (``window_process.cu``) through its wrappers at B = 1 on SwinIR's
+  128 x 128 x 180 map, shifts 0 and 4, beside ``permute().contiguous()``
+  and ``torch.roll`` + ``permute().contiguous()``, and beside the same launch
+  under a ``torch.cuda.device`` context with the library looked up on every
+  call (the host path K11's wrappers took before they shared K14's); ten
+  pairs of turns, and each one's device time by pass;
 
 and for these six, at B = 8 (K4 and K5 at every batch), each version's
 device time by pass (``pass_split``: each launch of one call in order,
@@ -71,6 +88,7 @@ import torch.nn.functional as F
 
 from ..ops import cuda_build
 from ..ops import ln_proj as lp
+from ..ops import mdta as md
 from ..ops import mdta_block as mb
 from ..ops import mdta_block_bwd as mbb
 from ..ops import naf_block as nb
@@ -79,6 +97,7 @@ from ..ops import naf_ffn as nff
 from ..ops import naf_prefix as npf
 from ..ops import swin_block_bwd as sbb
 from ..ops import window_attention as wa
+from ..ops import window_process as wp
 
 C, HEADS, WS, HIDDEN, SHIFT = 180, 6, 8, 360, 4
 OUT = Path(__file__).resolve().parents[2] / "build" / "swin_ab"
@@ -154,11 +173,53 @@ def _bind_k14(lib: ctypes.CDLL):
     return _Sized(lib, entries)
 
 
+class _OldK13:
+    """A ``mdta.cu`` build from before its tile argument (the SIMT kernel):
+    ``launch`` runs it as its wrapper did, the workspace sized by its own entry."""
+
+    def __init__(self, lib: ctypes.CDLL):
+        self.lib = lib
+        for suffix in md._SUFFIX.values():
+            fn = getattr(lib, "mdta_" + suffix)
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        lib.mdta_workspace_floats.argtypes, lib.mdta_workspace_floats.restype = [ctypes.c_int] * 3, ctypes.c_longlong
+
+    def launch(self, q, k, v, t, use_softmax, stream, tile=-1):
+        bh, c, length = q.shape
+        out = torch.empty_like(v)
+        ws = torch.empty(self.lib.mdta_workspace_floats(bh, c, length), dtype=torch.float32, device=q.device)
+        err = getattr(self.lib, "mdta_" + md._SUFFIX[q.dtype])(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                                              t.reshape(bh).contiguous().data_ptr(), out.data_ptr(),
+                                                              ws.data_ptr(), bh, c, length, int(use_softmax), stream)
+        if err:
+            raise RuntimeError(f"mdta kernel launch failed with CUDA error {err}")
+        return out
+
+
+class _NewK13:
+    """A ``mdta.cu`` build with its tile argument, run by the tree's ``_launch`` (a candidate must
+    cut L into the tree's chunks: the workspace is sized by ``mdta.workspace_floats``)."""
+
+    def __init__(self, lib: ctypes.CDLL):
+        self.lib = md._bind(lib)
+
+    def launch(self, q, k, v, t, use_softmax, stream, tile=-1):
+        return md._launch(self.lib, q, k, v, t, use_softmax, stream, tile=tile)
+
+
+def _bind_k13(lib: ctypes.CDLL):
+    # both export the same entries; the SIMT build's workspace also holds the chunks' sums and
+    # colsum's scratch, so it differs from the tree's reckoning at (1, 1, 1)
+    lib.mdta_workspace_floats.argtypes, lib.mdta_workspace_floats.restype = [ctypes.c_int] * 3, ctypes.c_longlong
+    return _NewK13(lib) if lib.mdta_workspace_floats(1, 1, 1) == md.workspace_floats(1, 1, 1) else _OldK13(lib)
+
+
 BLOCK_MODES = {"--k9": {"K9": ("swin_block_bwd", sbb._bind)}, "--k7": {"K7": ("mdta_block_bwd", mbb._bind)},
             "--k2": {"K2": ("naf_block_bwd", nbb._bind)}, "--k6": {"K6": ("mdta_block", _bind_k6)},
             "--k1": {"K1": ("naf_block", _bind_k1)},
             "--k45": {"K4": ("naf_prefix", _bind_k4), "K5": ("naf_ffn", _bind_k5)},
-            "--k14": {"K14": ("ln_proj", _bind_k14)}}
+            "--k14": {"K14": ("ln_proj", _bind_k14)}, "--k13": {"K13": ("mdta", _bind_k13)}}
 BATCHES = {"K9": (2, 8), "K7": (2, 8), "K2": (2, 8), "K6": (1, 2, 8), "K1": (1, 2, 8), "K4": (1, 2, 8),
            "K5": (1, 2, 8)}
 K6_CASES = [(48, 128, 1, "relu"), (96, 128, 1, "softmax"), (384, 16, 8, "relu")]  # (C, H = W, heads, flavour)
@@ -170,6 +231,13 @@ _MARKERS = 16  # pass_split's marker launches
 K14_CASES = [("K14", 48, 128, 144, "relu"), ("K14", 48, 128, 254, "relu"), ("K14", 384, 16, 1152, "softmax"),
              ("K5'", 512, 16, 1024, None)]
 K14_TILES = ["96x96", "64x128", "32x64", "128x128"]  # ln_proj.cu's tiles, in pick_tile's numbering
+# --k13: (BH, c, L, softmax) in fp32, then in bf16
+K13_CASES = [(8, 48, 16384, False), (4, 176, 256, True), (1, 96, 16384, True), (1, 48, 16384, False)]
+K13_BF16 = [(1, 48, 16384, False), (8, 48, 256, False)]
+K13_TILES = ["48", "96"]  # mdta.cu's tile families, in its numbering: the Gram's square block tile
+# the K13 calls of one 128 x 128 Restormer (ReLU) and PromptIR (softmax) forward: (BH, c, L) -> calls
+K13_RESTORMER = {(1, 48, 16384): 4, (2, 48, 4096): 12, (4, 48, 1024): 12, (8, 48, 256): 8, (1, 96, 16384): 8}
+K13_PROMPTIR = {**K13_RESTORMER, (4, 176, 256): 1, (4, 80, 1024): 1, (4, 40, 4096): 1}
 BITS_ONLY = False  # --bits: the checks alone
 
 
@@ -505,6 +573,93 @@ def k14_ab(libs: dict) -> None:
                     torch.cuda.empty_cache()
 
 
+def k13_ab(libs: dict) -> None:
+    """K13 of every build beside the library composition and the tree's wrapper; then K11's host path."""
+    gen = torch.Generator().manual_seed(16)
+    stream = torch.cuda.current_stream().cuda_stream
+    with torch.no_grad():
+        for dname, cases in (("float32", K13_CASES), ("bfloat16", K13_BF16)):
+            dtype = getattr(torch, dname)
+            for bh, c, length, use_softmax in cases:
+                q, k, v = (_rand(gen, dtype, bh, c, length, scale=1.0) for _ in range(3))
+                t = (torch.rand(bh, 1, 1, generator=gen) + 0.5).to("cuda", dtype)
+                ref = md.mdta_ref(q.float(), k.float(), v.float(), t.float(), use_softmax)
+                label = f"{dname} ({bh}, {c}, {length}) {'softmax' if use_softmax else 'relu'}"
+                calls = {(name, "K13"): (lambda lib=lib: lib["K13"].launch(q, k, v, t, use_softmax, stream))
+                         for name, lib in libs.items()}
+                for name, lib in libs.items():  # every tile of each build that picks one: the same bits
+                    if isinstance(lib["K13"], _NewK13):
+                        for tile, tname in enumerate(K13_TILES):
+                            calls[(f"{name} {tname}", "K13")] = (
+                                lambda lib=lib, tile=tile: lib["K13"].launch(q, k, v, t, use_softmax, stream, tile))
+                _compare(label, calls, {"K13": (ref,)})
+                if BITS_ONLY:
+                    continue
+
+                def library():
+                    a = torch.bmm(F.normalize(q, dim=-1), F.normalize(k, dim=-1).transpose(1, 2)) * t
+                    return torch.bmm(a.softmax(-1) if use_softmax else F.relu(a), v)
+
+                calls = {key: fn for key, fn in calls.items() if " " not in key[0]}
+                calls[("tree", "K13 wrapper")] = lambda: md.mdta_attention(q, k, v, t, use_softmax)
+                calls[("library", "F.normalize + torch.bmm")] = library
+                _turns(label, calls, 10, 10)
+                for (name, what), fn in calls.items():
+                    print_split(f"{label} {name} {what} by pass", pass_split(fn, 10))
+                torch.cuda.empty_cache()
+        if BITS_ONLY:
+            return
+        # per forward at B = 1: each shape's ms a call (the tree's wrapper, the library) times its calls
+        for net, calls, use_softmax in (("Restormer", K13_RESTORMER, False), ("PromptIR", K13_PROMPTIR, True)):
+            totals = [0.0, 0.0]
+            for (bh, c, length), n in calls.items():
+                q, k, v = (_rand(gen, torch.float32, bh, c, length, scale=1.0) for _ in range(3))
+                t = (torch.rand(bh, 1, 1, generator=gen) + 0.5).to("cuda")
+                a = md.mdta_attention(q, k, v, t, use_softmax)
+
+                def library():
+                    a = torch.bmm(F.normalize(q, dim=-1), F.normalize(k, dim=-1).transpose(1, 2)) * t
+                    return torch.bmm(a.softmax(-1) if use_softmax else F.relu(a), v)
+
+                if (a - library()).abs().max().item() > 1e-3 * max(1.0, a.abs().max().item()):
+                    raise RuntimeError(f"K13 and the library differ at {(bh, c, length)}")
+                ms = [_ms(lambda: md.mdta_attention(q, k, v, t, use_softmax)), _ms(library)]
+                print(f"K13 {net} ({bh}, {c}, {length}) x {n}: wrapper {ms[0]:.4f}, library {ms[1]:.4f} ms a call",
+                      flush=True)
+                totals = [tot + n * m for tot, m in zip(totals, ms)]
+            print(f"K13 per {net} forward (B = 1, fp32): {totals[0]:.3f} ms, library {totals[1]:.3f} ms", flush=True)
+        wp._lib()  # built before the first timing
+        for shift in (0, 4):
+            x = _rand(gen, torch.float32, 1, 128, 128, C, scale=1.0)
+            win = wp.window_partition_fused(x, WS, shift)
+            n = 128 // WS
+
+            def switched(src, reverse, x=x, shift=shift):  # the launch under a device context, the library looked up
+                out = torch.empty(n * n, WS * WS, C, device="cuda") if not reverse else torch.empty_like(x)
+                with torch.cuda.device(src.device):
+                    return wp._launch(wp._lib(), src.contiguous(), out, 1, 128, 128, C, WS, shift, reverse,
+                                      torch.cuda.current_stream().cuda_stream)
+
+            calls = {
+                ("K11", "partition"): lambda x=x, shift=shift: wp.window_partition_fused(x, WS, shift),
+                ("K11 switched", "partition"): lambda x=x: switched(x, False),
+                ("library", "partition permute().contiguous()"):
+                    lambda x=x: x.view(1, n, WS, n, WS, C).permute(0, 1, 3, 2, 4, 5).contiguous(),
+                ("library", "partition roll + permute().contiguous()"):
+                    lambda x=x, shift=shift: torch.roll(x, (-shift, -shift), (1, 2)).view(1, n, WS, n, WS, C)
+                    .permute(0, 1, 3, 2, 4, 5).contiguous(),
+                ("K11", "reverse"): lambda win=win, shift=shift: wp.window_reverse_fused(win, WS, 128, 128, shift),
+                ("K11 switched", "reverse"): lambda win=win: switched(win, True),
+                ("library", "reverse permute().contiguous()"):
+                    lambda win=win: win.view(1, n, n, WS, WS, C).permute(0, 1, 3, 2, 4, 5).contiguous(),
+                ("library", "reverse permute().contiguous() + roll"):
+                    lambda win=win, shift=shift: torch.roll(win.view(1, n, n, WS, WS, C).permute(0, 1, 3, 2, 4, 5)
+                                                            .reshape(1, 128, 128, C), (shift, shift), (1, 2))}
+            _turns(f"K11 B=1 shift={shift}", calls, 20, 10)
+            for (name, what), fn in calls.items():
+                print_split(f"K11 B=1 shift={shift} {name} {what} by pass", pass_split(fn, 10))
+
+
 def main(argv: list[str]) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -520,6 +675,8 @@ def main(argv: list[str]) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     if mode == "--k14":
         k14_ab(libs)
+    elif mode == "--k13":
+        k13_ab(libs)
     elif mode:
         for kernel in kernels:
             block_ab(libs, kernel)
