@@ -165,7 +165,21 @@ Phases, each of which raises on failure (exit code 1):
    on seeded weights, one 128 x 128 forward each with every TransformerBlock
    through ``_standalone_transformer_forward`` (88 / 94 K14 and 44 / 47 K13
    launches checked, the output within 1e-4 of the K6 route's), K11's round
-   trip, K12 under autograd and K5' at the NAFNet stages.
+   trip, K12 under autograd and K5' at the NAFNet stages;
+23. DCPT's stage 2 and stage 3: the shipped ``train_NAFNet_dc_probe_5d.yml``
+   (DCModel) and ``train_NAFNet_dcdist_5d.yml`` (DCDistModel) through
+   ``train_pipeline`` at full width, batch 8, gt_size 128, from [7]'s stage-1
+   snapshots, on synthetic sets whose dehaze set is JPEG (``run_probe_finetune``):
+   the probe 3 iterations with a top-1 validation every 2, a SIGTERM during
+   iteration 2 (2.state saved, the run returns) and ``--auto_resume`` to the end;
+   the fine-tune 3 iterations with ``accumulate_steps`` 2 (one step in two),
+   PSNR / SSIM on the EMA net after the final save; K1 / K2 / K3 launches of
+   every run against the reckoned counts, both validations on the plain path
+   (top-1 equal, PSNR within 1e-3 dB), the fine-tune's step gradients against
+   the plain path (``check_step_gradients`` at batch 8, float64 at batch 2), one
+   fp32 and one mixed step of each with the launches counted on their own (no
+   plain version run in the mixed one), ms a step and peak memory of both in
+   fp32 and bf16.
 
 The entry points turn cuDNN's algorithm timing on
 (``torch.backends.cudnn.benchmark``), as the reference's do; every phase from
@@ -202,6 +216,8 @@ ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "chip_smoke"
 YML = ROOT / "options" / "all_in_one" / "test" / "test_NAFNet_5d.yml"
 TRAIN_YML = ROOT / "options" / "all_in_one" / "train" / "train_NAFNet_dcpt_5d.yml"
+PROBE_YML = ROOT / "options" / "all_in_one" / "train" / "train_NAFNet_dc_probe_5d.yml"
+DIST_YML = ROOT / "options" / "all_in_one" / "train" / "train_NAFNet_dcdist_5d.yml"
 # name, source, the TPU kernel's public function it replaces
 KERNELS = {
     "naf_block_fused": ("dcpt_tpu_torch/csrc/naf_block.cu", "dcpt_tpu/ops/naf_block.py:353"),
@@ -912,30 +928,43 @@ def check_k3() -> dict:
     return k3_shapes("float32", torch.Generator().manual_seed(6))
 
 
-def write_train_sets(root: Path, n: int = 8, size: int = 160) -> list[str]:
+def write_train_sets(root: Path, n: int = 8, size: int = 160, jpeg_dehaze: bool = False, phase: str = "train",
+                     seed: int = 7) -> list[str]:
     """n synthetic size x size PNGs (pairs where the dataset has an lq folder) per
-    dataset of the train yml; returns the --force_yml dataroot overrides."""
+    dataset of the train yml; returns the --force_yml dataroot overrides of
+    ``datasets:<phase>``.  With ``jpeg_dehaze`` the dehaze set is written as
+    JPEGs through cv2, as the shipped ymls' ``.jpg`` suffix reads it."""
     import numpy as np
 
     from dcpt_tpu_torch.utils.img_util import imwrite
     from dcpt_tpu_torch.utils.options import yaml_load
 
-    rng = np.random.default_rng(7)
+    def write(img, path: Path):
+        if path.suffix == ".jpg":
+            import cv2
+
+            path.parent.mkdir(parents=True, exist_ok=True)
+            cv2.imwrite(str(path), img, [cv2.IMWRITE_JPEG_QUALITY, 95])
+        else:
+            imwrite(img, str(path))
+
+    rng = np.random.default_rng(seed)
     force = []
     yy, xx = np.mgrid[0:size, 0:size] / size
     for key, ds in yaml_load(str(TRAIN_YML))["datasets"]["train"]["datasets"].items():
         gt_dir, lq_dir = root / key / "gt", root / key / "lq"
+        ext = ".jpg" if jpeg_dehaze and ds["type"] == "PairedImageDehazeDataset" else ".png"
         for i in range(n):
             base = 0.5 + 0.4 * np.sin(2 * np.pi * (rng.random(3) * 3 * yy[..., None] + rng.random(3) * 3 * xx[..., None]))
             gt = np.clip(base + rng.normal(0, 0.02, (size, size, 3)), 0, 1)
-            imwrite((gt * 255).round().astype(np.uint8), str(gt_dir / f"img{i}.png"))
+            write((gt * 255).round().astype(np.uint8), gt_dir / f"img{i}{ext}")
             if "dataroot_lq" in ds:
                 lq = np.clip(0.7 * gt + 0.15 + rng.normal(0, 0.05, gt.shape), 0, 1)
-                name = f"img{i}_hazy.png" if ds["type"] == "PairedImageDehazeDataset" else f"img{i}.png"
-                imwrite((lq * 255).round().astype(np.uint8), str(lq_dir / name))
-        force.append(f"datasets:train:datasets:{key}:dataroot_gt={gt_dir}")
+                name = f"img{i}_hazy{ext}" if ds["type"] == "PairedImageDehazeDataset" else f"img{i}.png"
+                write((lq * 255).round().astype(np.uint8), lq_dir / name)
+        force.append(f"datasets:{phase}:datasets:{key}:dataroot_gt={gt_dir}")
         if "dataroot_lq" in ds:
-            force.append(f"datasets:train:datasets:{key}:dataroot_lq={lq_dir}")
+            force.append(f"datasets:{phase}:datasets:{key}:dataroot_lq={lq_dir}")
     return force
 
 
@@ -3203,6 +3232,273 @@ def run_standalone_path() -> dict:
         raise RuntimeError(f"[22] a kernel of the path was not launched: {launches}")
     return {"launches": launches, "per_net": per_net}
 
+def _flat_force(prefix: str, opt: dict) -> list[str]:
+    """--force_yml entries that set the nested ``opt`` under ``prefix``."""
+    out = []
+    for k, v in opt.items():
+        if isinstance(v, dict):
+            out += _flat_force(f"{prefix}:{k}", v)
+        elif isinstance(v, list):
+            out.append(f"{prefix}:{k}=[{','.join(str(x) for x in v)}]")
+        else:
+            out.append(f"{prefix}:{k}={v}")
+    return out
+
+
+def _launch_counts() -> dict:
+    from dcpt_tpu_torch.ops.layernorm2d import layer_norm_2d
+    from dcpt_tpu_torch.ops.naf_block import naf_block_fused
+    from dcpt_tpu_torch.ops.naf_block_bwd import naf_block_bwd
+
+    return {"naf_block_fused": naf_block_fused.launches, "naf_block_bwd": naf_block_bwd.launches,
+            "layer_norm_2d": layer_norm_2d.launches + layer_norm_2d.bwd_launches}
+
+
+def _zero_launches() -> None:
+    from dcpt_tpu_torch.ops.layernorm2d import layer_norm_2d
+    from dcpt_tpu_torch.ops.naf_block import naf_block_fused
+    from dcpt_tpu_torch.ops.naf_block_bwd import naf_block_bwd
+
+    naf_block_fused.launches = naf_block_bwd.launches = layer_norm_2d.launches = layer_norm_2d.bwd_launches = 0
+
+
+def _check_launches(label: str, want: dict) -> dict:
+    got = _launch_counts()
+    print(f"{label} launches K1 {got['naf_block_fused']}, K2 {got['naf_block_bwd']}, K3 {got['layer_norm_2d']} "
+          f"(forward + backward); reckoned {want}", flush=True)
+    if got != want:
+        raise RuntimeError(f"{label} launches {got}, reckoned {want}")
+    return got
+
+
+def _params_sum(net) -> float:
+    import torch
+
+    with torch.no_grad():
+        return sum(p.double().abs().sum().item() for p in net.parameters())
+
+
+def run_probe_finetune() -> dict:
+    """[23] DCPT's stage 2 and stage 3 through train_pipeline at full width, batch 8,
+    gt_size 128, on synthetic sets with the dehaze set as .jpg (the ymls' suffix):
+
+    * the probe, ``train_NAFNet_dc_probe_5d.yml`` (DCModel: net_g frozen, its
+      skip-tail forward under no_grad on K1's inference route, the classifier
+      trained, K3 forward and backward): 3 iterations from [7]'s stage-1
+      snapshot, top-1 validation every 2 on a ConcatDataset of 2 images a
+      class, a SIGTERM sent during iteration 2 (the run saves 2.state and
+      returns), ``--auto_resume`` to the end; the validation once more on the
+      plain path, top-1 equal;
+    * the fine-tune, ``train_NAFNet_dcdist_5d.yml`` (DCDistModel: the classifier
+      frozen, gradients through it into net_g's taps) with ``accumulate_steps``
+      2: 3 iterations from [7]'s snapshots, the parameters unchanged after
+      micro-iteration 1 and changed after 2, PSNR / SSIM on 2 images through K1
+      on the EMA net after the final save, against the plain route; one step's
+      gradients through the kernels against the plain path at batch 8
+      (``check_step_gradients``, float64 at batch 2);
+    * one fp32 and one mixed-precision step of each model, K1 / K2 / K3 counted
+      on their own (the kernels line's launches a step), no plain version run in
+      the mixed one; ms a step (fp32, bf16) and peak memory of both.
+
+    K1 / K2 / K3 launches of every run equal the reckoned counts: per probe step
+    36 / 0 / 2 x 16, per fine-tune step 36 / 36 / 2 x 16, per validation batch
+    36 / 0 / 16 (probe) and 36 / 0 / 0 (fine-tune)."""
+    import os
+    import shutil
+    import signal
+
+    import cv2
+    import numpy as np
+    import torch
+
+    from dcpt_tpu_torch.models.degradation_classification_distillation_model import DCDistModel
+    from dcpt_tpu_torch.models.degradation_classification_model import DCModel
+    from dcpt_tpu_torch.ops import layernorm2d as ln
+    from dcpt_tpu_torch.ops import naf_block as nb
+    from dcpt_tpu_torch.ops import naf_block_bwd as nbb
+    from dcpt_tpu_torch.train import train_pipeline
+    from dcpt_tpu_torch.utils.options import yaml_load
+
+    stage1 = ROOT / "build" / "chip_smoke_train" / "experiments" / "NAFNet_dcpt_5d_pretrain" / "models"
+    if not (stage1 / "net_g_latest.pth").exists():
+        raise RuntimeError(f"[23] no stage-1 snapshot in {stage1}: [7] writes it")
+    work = ROOT / "build" / "chip_smoke_stages"
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    force = write_train_sets(work / "train", jpeg_dehaze=True) + ["datasets:train:num_worker_per_gpu=0"]
+    val_batch, val_images = 2, 2
+    val_force = write_train_sets(work / "val", n=val_images, jpeg_dehaze=True, phase="val", seed=9)
+    sets = yaml_load(str(PROBE_YML))["datasets"]["train"]["datasets"]
+    val_force += _flat_force("datasets:val", {
+        "name": "dcpt_5d_val", "type": "ConcatDataset", "batch_size_per_gpu": val_batch, "num_worker_per_gpu": 0,
+        "datasets": {k: {kk: vv for kk, vv in v.items() if not kk.startswith("dataroot")} for k, v in sets.items()}})
+    print(f"[23] wrote 5 x 8 synthetic 160x160 train sets and 5 x {val_images} val sets, the dehaze set as JPEG "
+          f"(cv2 {cv2.__version__}) in {time.perf_counter() - t0:.1f} s", flush=True)
+    common = ["logger:use_tb_logger=false", "logger:print_freq=1", "logger:save_checkpoint_freq=100",
+              "train:scheduler:periods=[3]"]
+    val_batches = 5 * val_images // val_batch
+    out = {}
+
+    # -- the probe --------------------------------------------------------------------
+    probe_args = ["-opt", str(PROBE_YML), "--force_yml", *force, *val_force, *common, "val:val_freq=2",
+                  "train:total_iter=3", f"path:pretrain_network_g={stage1 / 'net_g_latest.pth'}"]
+    real_step = DCModel.optimize_parameters
+
+    def signalled_step(self, current_iter):
+        if current_iter == 2:
+            os.kill(os.getpid(), signal.SIGTERM)  # during iteration 2: the handler records it, the step goes on
+        real_step(self, current_iter)
+
+    _zero_launches()
+    t0 = time.perf_counter()
+    handler = signal.getsignal(signal.SIGTERM)
+    with mock.patch.object(DCModel, "optimize_parameters", signalled_step):
+        stopped = train_pipeline(str(work), args=probe_args)
+    torch.cuda.synchronize()
+    exp = work / "experiments" / "NAFNet_dc_probe_5d"
+    states = sorted(os.listdir(exp / "training_states"))
+    step = stopped.optimizer_dc.state_dict()["state"][0]["step"].item()
+    print(f"[23] probe, {PROBE_YML.name} from [7]'s stage-1 net_g, SIGTERM during iteration 2: returned after "
+          f"{time.perf_counter() - t0:.1f} s with training states {states}, optimizer at step {step:.0f}, losses "
+          f"{dict(stopped.log_dict)}, top-1 at 2: {stopped.metric_results['top-1']:.2f} %", flush=True)
+    if states != ["2.state"] or step != 2 or not (exp / "models" / "net_dc_2.pth").exists():
+        raise RuntimeError(f"[23] the SIGTERM save: states {states}, optimizer step {step}")
+    if signal.getsignal(signal.SIGTERM) != handler:
+        raise RuntimeError(f"[23] the SIGTERM handler was not restored: {signal.getsignal(signal.SIGTERM)}")
+    probe_per_step = {"naf_block_fused": 36, "naf_block_bwd": 0, "layer_norm_2d": 2 * K3_PER_STEP}
+    probe_per_val = {"naf_block_fused": 36 * val_batches, "naf_block_bwd": 0,
+                     "layer_norm_2d": K3_PER_STEP * val_batches}
+    _check_launches("[23] probe iterations 1-2 and the validation at 2:",
+                    {k: 2 * probe_per_step[k] + probe_per_val[k] for k in probe_per_step})
+    del stopped
+
+    _zero_launches()
+    seen = []
+    real_val = DCModel.nondist_validation
+
+    def recorded_val(self, dataloader, current_iter, tb_logger, save_img=False, clamp=True):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        real_val(self, dataloader, current_iter, tb_logger, save_img, clamp)
+        torch.cuda.synchronize()
+        seen.append((dataloader, current_iter, self.metric_results["top-1"], 1e3 * (time.perf_counter() - t)))
+
+    with mock.patch.object(DCModel, "nondist_validation", recorded_val):
+        probe = train_pipeline(str(work), args=["--auto_resume", *probe_args])
+    torch.cuda.synchronize()
+    step = probe.optimizer_dc.state_dict()["state"][0]["step"].item()
+    loader, _, top1, probe_val_ms = seen[-1]
+    print(f"[23] probe --auto_resume from 2.state: optimizer at step {step:.0f}, losses {dict(probe.log_dict)}, "
+          f"top-1 after the final save {top1:.2f} % over {len(loader)} batches of {val_batch} "
+          f"({probe_val_ms:.1f} ms)", flush=True)
+    if step != 3 or not (exp / "models" / "net_dc_latest.pth").exists() or [s[1] for s in seen] != [4]:
+        raise RuntimeError(f"[23] probe resume: optimizer step {step}, validations at {[s[1] for s in seen]}")
+    _check_launches("[23] probe iteration 3 and the validation after the final save:",
+                    {k: probe_per_step[k] + probe_per_val[k] for k in probe_per_step})
+    with plain_path():
+        probe.nondist_validation(loader, 4, None)
+    print(f"[23] probe top-1 on the plain path {probe.metric_results['top-1']:.2f} % (kernels {top1:.2f} %)",
+          flush=True)
+    if probe.metric_results["top-1"] != top1 or len(loader) != val_batches:
+        raise RuntimeError(f"[23] probe top-1 {top1} through the kernels, {probe.metric_results['top-1']} plain")
+    out["probe"] = {"top1": top1, "val_ms": probe_val_ms,
+                    "loss": dict(probe.log_dict)}
+
+    # -- the fine-tune --------------------------------------------------------------------
+    dist_val = _flat_force("datasets:val", {"name": "derain_val", "type": "PairedImageDataset",
+                                            "batch_size_per_gpu": 2, "num_worker_per_gpu": 0,
+                                            "io_backend": {"type": "disk"}})
+    dist_val += [f"datasets:val:dataroot_gt={work / 'val' / 'd1_derain' / 'gt'}",
+                 f"datasets:val:dataroot_lq={work / 'val' / 'd1_derain' / 'lq'}"]
+    dist_args = ["-opt", str(DIST_YML), "--force_yml", *force, *dist_val, *common, "val:val_freq=100",
+                 "train:total_iter=3", "train:accumulate_steps=2",
+                 f"path:pretrain_network_g={stage1 / 'net_g_latest.pth'}",
+                 f"path:pretrain_network_dc={stage1 / 'net_dc_latest.pth'}"]
+    sums, seen = [], []
+    real_step, real_val = DCDistModel.optimize_parameters, DCDistModel.nondist_validation
+
+    def summed_step(self, current_iter):
+        if not sums:
+            sums.append(_params_sum(self.net_g))
+        real_step(self, current_iter)
+        sums.append(_params_sum(self.net_g))
+
+    def recorded_dist_val(self, dataloader, current_iter, tb_logger, save_img, clamp=True, dataset_idx=0):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        real_val(self, dataloader, current_iter, tb_logger, save_img, clamp, dataset_idx)
+        torch.cuda.synchronize()
+        seen.append((dataloader, dict(self.metric_results), 1e3 * (time.perf_counter() - t)))
+
+    _zero_launches()
+    t0 = time.perf_counter()
+    with mock.patch.object(DCDistModel, "optimize_parameters", summed_step), \
+            mock.patch.object(DCDistModel, "nondist_validation", recorded_dist_val):
+        dist = train_pipeline(str(work), args=dist_args)
+    torch.cuda.synchronize()
+    step = dist.optimizer_g.state_dict()["state"][0]["step"].item()
+    loader, metrics, dist_val_ms = seen[-1]
+    print(f"[23] fine-tune, {DIST_YML.name} with train:accumulate_steps=2 from [7]'s stage-1 snapshots, 3 "
+          f"iterations: {time.perf_counter() - t0:.1f} s; sum |net_g| before and after each iteration "
+          f"{[f'{v:.6f}' for v in sums]}, optimizer at step {step:.0f}, micro-step {dist._acc_step}, losses "
+          f"{dict(dist.log_dict)}; PSNR / SSIM on the EMA net after the final save {metrics} ({dist_val_ms:.1f} ms)",
+          flush=True)
+    if not (sums[1] == sums[0] and sums[2] != sums[1] and sums[3] == sums[2]) or step != 1 or dist._acc_step != 1:
+        raise RuntimeError(f"[23] accumulate_steps 2: parameter sums {sums}, optimizer step {step}")
+    if set(dist.log_dict) != {"l_pixel", "l_classify"} or not all(np.isfinite(v) for v in dist.log_dict.values()):
+        raise RuntimeError(f"[23] fine-tune losses {dist.log_dict}")
+    dist_per_step = {"naf_block_fused": 36, "naf_block_bwd": 36, "layer_norm_2d": 2 * K3_PER_STEP}
+    _check_launches("[23] fine-tune 3 iterations and the validation (1 batch of 2) after the final save:",
+                    {"naf_block_fused": 3 * 36 + 36, "naf_block_bwd": 3 * 36, "layer_norm_2d": 3 * 2 * K3_PER_STEP})
+    with plain_path():
+        dist.nondist_validation(loader, 4, None, False)
+    print(f"[23] fine-tune PSNR / SSIM on the plain path {dist.metric_results} (kernels {metrics})", flush=True)
+    if abs(dist.metric_results["psnr"] - metrics["psnr"]) > 1e-3:
+        raise RuntimeError(f"[23] PSNR through K1 {metrics['psnr']} against the plain route "
+                           f"{dist.metric_results['psnr']}: more than 1e-3 dB apart")
+    grads = check_step_gradients(dist, "[23] fine-tune", batch_size=8, float64_batch=2)
+    out["finetune"] = {"psnr": metrics["psnr"],
+                       "plain_psnr": dist.metric_results["psnr"], "val_ms": dist_val_ms,
+                       "loss": dict(dist.log_dict), "grad_worst_ratio": grads["worst_ratio"]}
+
+    # -- one mixed step of each, the step times -----------------------------------------------
+    plain_calls = {"block": 0, "block_bwd": 0, "layer_norm_2d": 0}
+
+    def counted(key, fn):
+        def wrapper(*a, **k):
+            plain_calls[key] += 1
+            return fn(*a, **k)
+        return wrapper
+
+    dist.accumulate_steps = 1  # a step of the optimizer at every call from here on
+    for name, model, per_step in (("probe", probe, probe_per_step), ("finetune", dist, dist_per_step)):
+        model.feed_data(grad_batch(8))
+        _zero_launches()  # one fp32 step counted on its own: the kernels line's launches a step
+        model.optimize_parameters(0)
+        torch.cuda.synchronize()
+        out[name]["launches_per_step"] = _check_launches(f"[23] {name}, one fp32 step at batch 8:", per_step)
+        model.mixed_precision = True
+        _zero_launches()
+        with mock.patch.object(nb, "_ref_forward", counted("block", nb._ref_forward)), \
+                mock.patch.object(nbb, "naf_block_bwd_ref", counted("block_bwd", nbb.naf_block_bwd_ref)), \
+                mock.patch.object(ln, "layer_norm_2d_ref", counted("layer_norm_2d", ln.layer_norm_2d_ref)):
+            model.optimize_parameters(0)
+            torch.cuda.synchronize()
+        got = _check_launches(f"[23] {name}, one mixed-precision step at batch 8 (plain versions run {plain_calls}):",
+                              per_step)
+        if any(plain_calls.values()) or not all(np.isfinite(v) for v in model.log_dict.values()):
+            raise RuntimeError(f"[23] {name} mixed step: plain versions {plain_calls}, losses {model.log_dict}")
+        bf16_ms, bf16_peak = ms_per_step(model, 3)
+        model.mixed_precision = False
+        fp32_ms, fp32_peak = ms_per_step(model, 3)
+        print(f"[23] {name} step at batch 8, 128 x 128: fp32 {fp32_ms:.2f} ms/step (peak {fp32_peak:.0f} MiB), bf16 "
+              f"{bf16_ms:.2f} ms/step (peak {bf16_peak:.0f} MiB), through K1 / K2 / K3 ({card_line()})", flush=True)
+        out[name].update(bf16_launches_per_step=got, fp32_ms=fp32_ms, fp32_peak_mib=fp32_peak, bf16_ms=bf16_ms,
+                         bf16_peak_mib=bf16_peak)
+    del probe, dist
+    return out
+
+
 PHASE_RESULT = "CHIP_SMOKE_PHASE_RESULT "
 PHASE_LOST = "CHIP_SMOKE_PHASE_NO_DEVICE_TIME"  # a --serve process's line when a profile recorded no device time
 NO_DEVICE_TIME = 3  # a fresh process's exit code when a profile of its phase recorded no device time
@@ -3529,6 +3825,15 @@ def _main(torch) -> int:
         + " (K11 at 128x128x180, shift 4; K14 one enc1 block's qkv + project_in, C 48 at 128x128, by pass; K5' at "
         "C 512 on 16x16, by pass; K13 at (8, 48, 16384), ReLU, by pass)", flush=True)
 
+    print("[23] DCPT's stage 2 (the probe, DCModel) and stage 3 (the fine-tune, DCDistModel) through train_pipeline "
+          "at full width, batch 8, the dehaze set as .jpg", flush=True)
+    stages = run_phase(run_probe_finetune, profiles=False)
+    for name in ("probe", "finetune"):
+        st = stages[name]
+        print(f"[23] {name}: {st['fp32_ms']:.2f} ms/step fp32 (peak {st['fp32_peak_mib']:.0f} MiB), "
+              f"{st['bf16_ms']:.2f} ms/step bf16 (peak {st['bf16_peak_mib']:.0f} MiB), validation "
+              f"{st['val_ms']:.1f} ms; K1 / K2 / K3 launches a step {st['launches_per_step']}", flush=True)
+
     launches = dict(train["launches"], mdta_block_fused=k6_launches["Restormer"],
                     mdta_block_bwd=transformer_train["Restormer"]["launches"]["mdta_block_bwd"],
                     fused_swin_block=swin_slice["launches"]["K8"]["fused_swin_block"],
@@ -3593,6 +3898,9 @@ def _main(torch) -> int:
     for entry in (kernels[13], kernels[15]):
         entry.update(launches_per_restormer_forward=path["per_net"]["Restormer"][entry["name"]],
                      launches_per_promptir_forward=path["per_net"]["PromptIR"][entry["name"]])
+    for entry in kernels[:3]:  # the probe's and the fine-tune's launches in one step, fp32 and bf16, counted in [23]
+        entry.update({f"{stage}_{prec}launches_per_step": stages[stage][f"{prec}launches_per_step"][entry["name"]]
+                      for stage in ("probe", "finetune") for prec in ("", "bf16_")})
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,8 @@ The inverse of ``dcpt_tpu/convert/torch_checkpoint.py``: ``translate_tensor``'s
 layout rules (HWIO kernel -> OIHW weight, (I, O) -> (O, I), (1, 1, 1, C) ->
 (1, C, 1, 1)) and each arch's ``torch_key_map`` renames.  Takes the nested
 dict of numpy arrays that ``state_dict_to_params`` returns (optionally under a
-``params`` key) and imports neither JAX nor dcpt_tpu.
+``params`` key) and imports neither JAX nor dcpt_tpu.  ``load_tree_npz``
+reads dcpt_tpu's ``.npz`` network snapshots into such trees.
 """
 
 from __future__ import annotations
@@ -94,3 +95,19 @@ def params_to_state_dict(params: dict, arch: str) -> dict[str, torch.Tensor]:
             key = pat.sub(repl, key)
         state[key] = torch.from_numpy(np.array(value))  # a writable copy
     return state
+
+
+def load_tree_npz(path: str) -> dict[str, dict]:
+    """A dcpt_tpu ``.npz`` snapshot -> ``{param_key: nested tree}``: its entries
+    are ``{param_key}::{flat path}`` with ``/``-joined paths (dcpt_tpu's
+    ``utils/tree_io.py::save_tree_npz``)."""
+    by_key: dict[str, dict] = {}
+    with np.load(path) as data:
+        for full_key in data.files:
+            param_key, flat_key = full_key.split("::", 1)
+            *parents, leaf = flat_key.split("/")
+            node = by_key.setdefault(param_key, {})
+            for part in parents:
+                node = node.setdefault(part, {})
+            node[leaf] = data[full_key]
+    return by_key

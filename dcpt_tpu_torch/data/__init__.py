@@ -33,10 +33,10 @@ def build_dataloader(dataset, dataset_opt: dict, num_gpu: int = 1, sampler=None,
 
     train: ``batch_size_per_gpu`` and ``num_worker_per_gpu`` times the device
     count, the sampler's order, ``drop_last``, seeded workers (and, as in
-    dcpt_tpu, this process seeded with worker 0's seed).  test: batch 1, in
-    order, in this process."""
+    dcpt_tpu, this process seeded with worker 0's seed).  val: the same, in
+    order.  test: batch 1, in order, in this process."""
     phase = dataset_opt["phase"]
-    if phase == "train":
+    if phase in ("train", "val"):
         multiplier = 1 if num_gpu == 0 else num_gpu
         num_workers = dataset_opt["num_worker_per_gpu"] * multiplier
         init = None
@@ -44,8 +44,9 @@ def build_dataloader(dataset, dataset_opt: dict, num_gpu: int = 1, sampler=None,
             worker_init_fn(0, num_workers, 0, seed)
             init = partial(worker_init_fn, num_workers=num_workers, rank=0, seed=seed)
         return DataLoader(dataset, batch_size=dataset_opt["batch_size_per_gpu"] * multiplier,
-                          shuffle=sampler is None, sampler=sampler, drop_last=True, num_workers=num_workers,
-                          worker_init_fn=init, pin_memory=pin_memory, persistent_workers=False)
+                          shuffle=sampler is None and phase == "train", sampler=sampler, drop_last=True,
+                          num_workers=num_workers, worker_init_fn=init, pin_memory=pin_memory,
+                          persistent_workers=False)
     if phase == "test":
         return DataLoader(dataset, batch_size=1, shuffle=False, num_workers=0)
-    raise NotImplementedError(f"dcpt_tpu_torch builds train- and test-phase loaders (got phase {phase!r})")
+    raise ValueError(f"Wrong dataset phase: {phase}. Supported ones are 'train', 'val' and 'test'.")

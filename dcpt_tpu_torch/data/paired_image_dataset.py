@@ -43,7 +43,7 @@ class _BaseDataset:
         if self.file_client is None:
             backend_opt = dict(self.io_backend_opt)
             self.file_client = FileClient(backend_opt.pop("type"), **backend_opt)
-        return imfrombytes(self.file_client.get(path), flag=self.flag, float32=True)
+        return imfrombytes(self.file_client.get(path), flag=self.flag, float32=True, path=path)
 
     def _crop(self, img_gt, img_lq, gt_path, scale: int = 1):
         if self.train:

@@ -4,7 +4,12 @@ from copy import deepcopy
 
 from ..utils.logger import get_root_logger
 from ..utils.registry import MODEL_REGISTRY
-from . import degradation_classification_model, degradation_classification_pretrain_model, sr_model  # noqa: F401
+from . import (  # noqa: F401  (register the models)
+    degradation_classification_distillation_model,
+    degradation_classification_model,
+    degradation_classification_pretrain_model,
+    sr_model,
+)
 
 __all__ = ["build_model"]
 

@@ -7,10 +7,14 @@ Optimizers make the update dcpt_tpu's optax chains make (``get_optimizer``):
 where it has not; the schedules are ``step -> lr`` functions and
 ``update_learning_rate`` writes each optimizer's ``param_group["lr"]`` every
 iteration, as dcpt_tpu multiplies its update by the host-scheduled lr.
+``train.accumulate_steps`` k is dcpt_tpu's ``optax.MultiSteps`` around each
+optimizer's chain: the k micro-batch gradients kept as a running mean, the
+clip and one step at the k-th micro-iteration (``step_optimizers``).
 Networks are saved as ``{param_key: state_dict}`` ``.pth`` files (the
 reference's format) and training states with ``torch.save``, the newest
-``logger.keep_checkpoints`` of them kept; dcpt_tpu's npz and orbax files do not
-load here.
+``logger.keep_checkpoints`` of them kept; ``load_network`` also reads
+dcpt_tpu's ``.npz`` network snapshots (its orbax training states do not load
+here).
 """
 
 from __future__ import annotations
@@ -21,9 +25,23 @@ from collections import OrderedDict
 from copy import deepcopy
 
 import torch
+from torch.func import functional_call
 
+from ..convert.jax_params import load_tree_npz, params_to_state_dict
 from ..utils.logger import get_root_logger
 from .lr_scheduler import build_schedule
+
+
+# the restoration nets whose blocks have bf16 kernels for the backward (train.mixed_precision)
+MIXED_PRECISION_ARCHS = ("NAFNetBaseline", "Restormer", "Restormer_origin", "PromptIR", "SwinIR")
+
+
+def bf16_call(net: torch.nn.Module):
+    """``net`` called on bf16 copies of its fp32 parameters (``p.to(torch.bfloat16)``
+    through ``functional_call``, so the gradients flow back through the cast into
+    the fp32 masters): dcpt_tpu's mixed-precision recipe, not autocast."""
+    params = {name: p.to(torch.bfloat16) for name, p in net.named_parameters()}
+    return lambda *args, **kwargs: functional_call(net, params, args, kwargs)
 
 
 class OptaxRMSprop(torch.optim.Optimizer):
@@ -77,6 +95,10 @@ class OptaxRprop(torch.optim.Optimizer):
 
 
 class BaseModel:
+    # the nets a training run loads and never trains or saves: a resume keeps
+    # their configured snapshot (``utils/misc.py::check_resume``)
+    FROZEN_NETWORKS: tuple[str, ...] = ()
+
     def __init__(self, opt: dict):
         self.opt = opt
         self.is_train = opt.get("is_train", False)
@@ -86,6 +108,9 @@ class BaseModel:
         self.schedulers: list = []
         self.log_dict: OrderedDict = OrderedDict()
         self._current_lrs: list[float] = []
+        self.accumulate_steps = 1
+        self._acc_step = 0  # micro-iterations summed into _acc_grads since the last step
+        self._acc_grads = None  # per optimizer, per parameter: the running mean of the gradients, or None
 
     # -- optimizers and schedules ------------------------------------------
 
@@ -120,14 +145,54 @@ class BaseModel:
         raise NotImplementedError(f"optimizer {optim_type} is not supported yet.")
 
     def _check_train_options(self) -> None:
-        """Options of dcpt_tpu's training that the port does not have yet raise
-        (``mixed_precision`` is the model's own to check: ``DCPTModel``)."""
+        """Options of dcpt_tpu's training that the port does not have yet raise,
+        and so does ``train.mixed_precision`` for a net without bf16 backward
+        kernels; reads ``train.accumulate_steps`` and ``train.mixed_precision``."""
         train_opt = self.opt.get("train") or {}
         for key in ("batched_trunk", "zero_sharding"):
             if train_opt.get(key):
                 raise NotImplementedError(f"train.{key} is not ported to dcpt_tpu_torch yet (ROADMAP Q1)")
-        if int(train_opt.get("accumulate_steps", 1) or 1) > 1:
-            raise NotImplementedError("train.accumulate_steps is not ported to dcpt_tpu_torch yet (ROADMAP Q1)")
+        self.accumulate_steps = int(train_opt.get("accumulate_steps", 1) or 1)
+        self.mixed_precision = bool(train_opt.get("mixed_precision", False))
+        if self.mixed_precision and (arch := self.opt["network_g"]["type"]) not in MIXED_PRECISION_ARCHS:
+            raise NotImplementedError(
+                f"train.mixed_precision with {arch} is not ported to dcpt_tpu_torch: its blocks have no bf16 "
+                f"backward kernels (the nets that have them: {', '.join(MIXED_PRECISION_ARCHS)})")
+
+    def _params(self, optimizer: torch.optim.Optimizer) -> list[torch.Tensor]:
+        return [p for group in optimizer.param_groups for p in group["params"]]
+
+    def step_optimizers(self) -> bool:
+        """Clip the gradients and step every optimizer; returns whether they stepped.
+
+        Under ``train.accumulate_steps`` k (dcpt_tpu's ``optax.MultiSteps``,
+        ``base_model.py:113-121`` there) each micro-iteration's gradients go
+        into a running mean, ``acc + (g - acc) / (n + 1)`` as optax keeps it,
+        and the parameters stay as they are; at the k-th the mean takes the
+        gradients' place, is clipped, and one step is taken with that
+        iteration's lr.  A parameter that no loss reaches keeps no gradient."""
+        if self.accumulate_steps > 1:
+            if self._acc_grads is None:
+                self._acc_grads = [[None] * len(self._params(o)) for o in self.optimizers]
+            n = self._acc_step
+            with torch.no_grad():
+                for optimizer, accs in zip(self.optimizers, self._acc_grads):
+                    for i, p in enumerate(self._params(optimizer)):
+                        if p.grad is not None:
+                            acc = accs[i] if accs[i] is not None else torch.zeros_like(p)
+                            accs[i] = acc + (p.grad - acc) / (n + 1)
+                            p.grad = None
+            self._acc_step = n + 1
+            if self._acc_step < self.accumulate_steps:
+                return False
+            for optimizer, accs in zip(self.optimizers, self._acc_grads):
+                for p, acc in zip(self._params(optimizer), accs):
+                    p.grad = acc
+            self._acc_step, self._acc_grads = 0, None
+        self.clip_gradients()
+        for optimizer in self.optimizers:
+            optimizer.step()
+        return True
 
     def setup_schedulers(self) -> None:
         """One schedule per optimizer, warm-up folded in (reference: base_model.py:141-160)."""
@@ -175,8 +240,9 @@ class BaseModel:
 
     # -- validation bookkeeping -------------------------------------------------
 
-    def validation(self, dataloader, current_iter, tb_logger, save_img=False):
-        self.nondist_validation(dataloader, current_iter, tb_logger, save_img)
+    def validation(self, dataloader, current_iter, tb_logger, save_img=False, clamp=True):
+        """One process: ``nondist_validation`` (reference: base_model.py:40-56)."""
+        self.nondist_validation(dataloader, current_iter, tb_logger, save_img, clamp)
 
     def _initialize_best_metric_results(self, dataset_name: str) -> None:
         """Track the best value of each metric per dataset (reference: base_model.py:58-76)."""
@@ -199,16 +265,27 @@ class BaseModel:
     # -- checkpoints ---------------------------------------------------------------
 
     def load_network(self, net: torch.nn.Module, load_path: str, strict: bool = True, param_key: str | None = "params") -> None:
-        """Load a reference ``.pth`` (``{param_key: state_dict}``) into ``net``,
-        falling back from a missing ``params_ema`` to ``params`` and dropping a
-        DDP ``module.`` prefix (reference: base_model.py:300-369)."""
+        """Load a reference ``.pth`` (``{param_key: state_dict}``) or a dcpt_tpu
+        ``.npz`` snapshot (``{param_key}::{flat path}`` entries, the tree mapped
+        by ``params_to_state_dict`` for ``net``'s arch) into ``net``, falling
+        back from a missing ``params_ema`` to ``params`` and dropping a DDP
+        ``module.`` prefix (reference: base_model.py:300-369; dcpt_tpu's
+        ``load_network_params``, which takes the first key where neither is
+        there)."""
         logger = get_root_logger()
-        load_net = torch.load(load_path, map_location="cpu", weights_only=True)
-        if param_key is not None:
-            if param_key not in load_net and "params" in load_net:
-                param_key = "params"
-                logger.info("Loading: params_ema does not exist, use params.")
-            load_net = load_net[param_key]
+        if load_path.endswith(".npz"):
+            trees = load_tree_npz(load_path)
+            if param_key not in trees:
+                param_key = "params" if param_key == "params_ema" and "params" in trees else next(iter(trees))
+                logger.info(f"Loading: the requested param key does not exist, use {param_key}.")
+            load_net = params_to_state_dict(trees[param_key], type(net).__name__)
+        else:
+            load_net = torch.load(load_path, map_location="cpu", weights_only=True)
+            if param_key is not None:
+                if param_key not in load_net and "params" in load_net:
+                    param_key = "params"
+                    logger.info("Loading: params_ema does not exist, use params.")
+                load_net = load_net[param_key]
         logger.info(f"Loading {net.__class__.__name__} model from {load_path}, with param key: [{param_key}].")
         load_net = {(k[len("module."):] if k.startswith("module.") else k): v for k, v in load_net.items()}
         net.load_state_dict(load_net, strict=strict)
@@ -230,6 +307,8 @@ class BaseModel:
         if current_iter == -1:
             return
         state = {"epoch": epoch, "iter": current_iter, "optimizers": [o.state_dict() for o in self.optimizers]}
+        if self.accumulate_steps > 1:  # dcpt_tpu keeps both in MultiSteps' optimizer state
+            state["accumulate"] = {"step": self._acc_step, "grads": self._acc_grads}
         root = self.opt["path"]["training_states"]
         os.makedirs(root, exist_ok=True)
         torch.save(state, osp.join(root, f"{current_iter}.state"))  # written when it returns
@@ -240,12 +319,19 @@ class BaseModel:
                 os.remove(osp.join(root, old))
 
     def resume_training(self, resume_state: dict) -> None:
-        """Restore the optimizers' states (reference: base_model.py:413-430)."""
+        """Restore the optimizers' states and the gradients accumulated so far
+        (reference: base_model.py:413-430)."""
         saved = resume_state["optimizers"]
         if len(saved) != len(self.optimizers):
             raise ValueError(f"training state has {len(saved)} optimizers, the model has {len(self.optimizers)}")
         for optimizer, state in zip(self.optimizers, saved):
             optimizer.load_state_dict(state)
+        if self.accumulate_steps > 1 and "accumulate" in resume_state:
+            acc = resume_state["accumulate"]
+            self._acc_step = int(acc["step"])
+            self._acc_grads = None if acc["grads"] is None else [
+                [None if g is None else g.to(p.device) for g, p in zip(grads, self._params(o))]
+                for grads, o in zip(acc["grads"], self.optimizers)]
 
     def print_network(self, net: torch.nn.Module) -> None:
         n_params = sum(p.numel() for p in net.parameters())

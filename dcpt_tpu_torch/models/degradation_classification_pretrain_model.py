@@ -24,42 +24,35 @@ through ``torch.func.functional_call``, so the gradients flow back through the
 cast into the fp32 masters), on bf16 ``lq`` and ``gt``; the pixel loss is taken
 on ``output.float()`` against the fp32 ``gt`` and the cross-entropy on
 ``logits.float()``; the clip, the optimizers, the schedules and the checkpoints
-stay on the fp32 masters.  On the card the blocks run their kernels in bf16,
+stay on the fp32 masters (``base_model.py::bf16_call``).  On the card the blocks run their kernels in bf16,
 each keeping fp32 residuals and doing fp32 math: the NAFBlocks K1 and K2, the
 Restormer / PromptIR TransformerBlocks K6 and K7, the SwinIR Swin blocks K8
-and K9; the classifier's wide LayerNorms are K3 in bf16.  dcpt_tpu's
-``batched_trunk``, ``accumulate_steps`` and ``zero_sharding`` are not ported
-yet and raise.
+and K9; the classifier's wide LayerNorms are K3 in bf16.
+``train.accumulate_steps`` steps both optimizers once in k iterations on the
+mean gradient (``BaseModel.step_optimizers``); dcpt_tpu's ``batched_trunk``
+and ``zero_sharding`` are not ported yet and raise.
 """
 
 from __future__ import annotations
 
 import torch
-from torch.func import functional_call
 
 from ..losses import build_loss
 from ..utils.registry import MODEL_REGISTRY
+from .base_model import bf16_call
 from .dc_util import select_taps
 from .degradation_classification_model import DCModel
 
 
 @MODEL_REGISTRY.register()
 class DCPTModel(DCModel):
+    FROZEN_NETWORKS = ()  # DCPT trains and saves both nets
     # what the pixel-loss forward consumes: the clean gt for DCPT (...pretrain:140)
     _pixel_input = "gt"
-
-    # the restoration nets whose blocks have bf16 kernels for the backward
-    MIXED_PRECISION_ARCHS = ("NAFNetBaseline", "Restormer", "Restormer_origin", "PromptIR", "SwinIR")
 
     def init_training_settings(self) -> None:
         self._check_train_options()
         train_opt = self.opt["train"]
-        self.mixed_precision = bool(train_opt.get("mixed_precision", False))
-        arch = self.opt["network_g"]["type"]
-        if self.mixed_precision and arch not in self.MIXED_PRECISION_ARCHS:
-            raise NotImplementedError(
-                f"train.mixed_precision with {arch} is not ported to dcpt_tpu_torch: its blocks have no bf16 "
-                f"backward kernels (the nets that have them: {', '.join(self.MIXED_PRECISION_ARCHS)})")
         self.net_g.train()
         self.net_dc.train()
         self.cri_pixel = build_loss(train_opt["pixel_opt"]) if train_opt.get("pixel_opt") else None
@@ -103,19 +96,12 @@ class DCPTModel(DCModel):
         of their fp32 parameters and the batch in bf16."""
         if not self.mixed_precision:
             return self.net_g, self.net_dc, self.lq, self.gt
-
-        def bf16_call(net):
-            params = {name: p.to(torch.bfloat16) for name, p in net.named_parameters()}
-            return lambda *args, **kwargs: functional_call(net, params, args, kwargs)
-
         gt = self.gt.to(torch.bfloat16) if self.gt is not None else None
         return bf16_call(self.net_g), bf16_call(self.net_dc), self.lq.to(torch.bfloat16), gt
 
     def optimize_parameters(self, current_iter: int) -> None:
         losses = self.compute_gradients()
-        self.clip_gradients()
-        for optimizer in self.optimizers:
-            optimizer.step()
+        self.step_optimizers()
         self.log_dict = self.reduce_loss_dict({k: v.detach() for k, v in losses.items()})
 
     def save(self, epoch: int, current_iter: int) -> None:

@@ -19,14 +19,21 @@ Static ``__shared__`` arrays are not emulated.  It catches indexing and
 barrier faults, and a launch past the card's limits (1024 threads, 232448
 bytes of shared memory, 65535 blocks along y or z), not nvcc's own
 complaints.  Each library also exports ``cuda_emu_launches()``: the kernel
-launches it has run, for a test to count.
+launches it has run, for a test to count.  A library is compiled once for
+each content of its inputs (every rewritten csrc file, the emulation headers
+and the command): later builds of the same content, from any process, copy
+it from ``build/cuda_emu/cache/<hash>``.
 """
 
 from __future__ import annotations
 
+import hashlib
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
@@ -40,19 +47,33 @@ def rewrite(text: str) -> str:
 
 
 def build(source: str, out: Path = OUT) -> Path:
-    """Rewrite every csrc file into ``out`` and compile ``source`` there; returns
-    the library's path, or raises with g++'s errors."""
+    """Rewrite every csrc file into ``out`` and compile ``source`` there (or copy
+    the library compiled from the same content before); returns the library's
+    path, or raises with g++'s errors."""
     out.mkdir(parents=True, exist_ok=True)
-    for f in CSRC.glob("*.cu*"):
-        (out / f.name).write_text(rewrite(f.read_text()))
-    for f in INCLUDE.glob("*.cuh"):  # the emulations of csrc's PTX headers
-        (out / f.name).write_text(f.read_text())
+    inputs = {f.name: rewrite(f.read_text()) for f in sorted(CSRC.glob("*.cu*"))}
+    # the emulations of csrc's PTX headers, and the headers g++ reads from include/
+    inputs.update({f.name: f.read_text() for f in sorted(INCLUDE.glob("*.cuh"))})
+    for name, text in inputs.items():
+        (out / name).write_text(text)
     lib = out / f"lib{Path(source).stem}.so"
     cmd = ["g++", "-std=c++20", "-O2", "-shared", "-fPIC", "-pthread", "-w", f"-I{INCLUDE}",
            "-include", "cuda_runtime.h", "-x", "c++", str(out / source), "-o", str(lib)]
+    key = hashlib.sha256(repr((source, cmd[:-4], sorted(inputs.items()),
+                               sorted((f.name, f.read_bytes()) for f in INCLUDE.rglob("*") if f.is_file())))
+                         .encode()).hexdigest()[:24]
+    cached = OUT / "cache" / key / lib.name
+    if cached.exists():
+        shutil.copyfile(cached, lib)
+        return lib
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"g++ failed on {source}:\n{proc.stderr[-4000:]}")
+    cached.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=cached.parent, suffix=".so.tmp")  # another process may be writing it too
+    os.close(fd)
+    shutil.copyfile(lib, tmp)
+    os.replace(tmp, cached)
     return lib
 
 

@@ -4,14 +4,18 @@ Usage::
 
     python -m dcpt_tpu_torch.train -opt options/all_in_one/train/train_NAFNet_dcpt_5d.yml [--auto_resume]
 
-The BasicSR-style loop: resume, the train loader over an EnlargedSampler, a
-prefetcher, then per iteration ``update_learning_rate`` / ``feed_data`` /
-``optimize_parameters`` / log / save.  DCPT's multi-degradation training uses
-``datasets.train.type: ConcatDataset`` with one dataset config per
-degradation, built in sorted key order; the concat stamps ``dataset_idx``, the
-classification label.  ``num_gpu: 0`` trains on the CPU, otherwise on the
-card.  One process.  dcpt_tpu's SIGTERM preemption save and validation inside
-the loop are not ported yet: a yml with a ``val`` section raises.
+The BasicSR-style loop: resume, the train loader over an EnlargedSampler, the
+``val*`` loaders, a prefetcher, then per iteration ``update_learning_rate`` /
+``feed_data`` / ``optimize_parameters`` / log / save / validate (every
+``val.val_freq`` iterations, and once more after the final save).  DCPT's
+multi-degradation training uses ``datasets.train.type: ConcatDataset`` with one
+dataset config per degradation, built in sorted key order; the concat stamps
+``dataset_idx``, the classification label (a ``val*`` set may be one too: the
+probe's top-1 validation reads it).  A SIGTERM (in the main thread) lets the
+step in flight finish, then the model and the training state are saved at that
+iteration and the run returns; ``--auto_resume`` continues from there
+(dcpt_tpu/train.py:185-209, 255-263).  ``num_gpu: 0`` trains on the CPU,
+otherwise on the card.  One process.
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ import logging
 import math
 import os
 import os.path as osp
+import signal
+import threading
 import time
 
 import torch
@@ -37,6 +43,7 @@ from dcpt_tpu_torch.models import build_model
 from dcpt_tpu_torch.utils.logger import AvgTimer, MessageLogger, get_env_info, get_root_logger, init_tb_logger
 from dcpt_tpu_torch.utils.misc import check_resume, get_time_str, make_exp_dirs, mkdir_and_rename
 from dcpt_tpu_torch.utils.options import copy_opt_file, dict2str, parse_options
+from dcpt_tpu_torch.utils.registry import MODEL_REGISTRY
 
 
 def _build_train_dataset(dataset_opt: dict):
@@ -56,12 +63,18 @@ def _build_train_dataset(dataset_opt: dict):
     return ds
 
 
-def create_train_dataloader(opt: dict, logger):
+def create_train_val_dataloader(opt: dict, logger):
+    """The train loader and sampler, the ``val*`` loaders, the epochs and the
+    iterations (reference: dcpt_tpu/train.py:73-114); an unknown phase raises."""
+    val_loaders = []
+    for phase, dataset_opt in opt["datasets"].items():
+        if phase.split("_")[0] == "val":
+            val_set = _build_train_dataset(dataset_opt)
+            val_loaders.append(build_dataloader(val_set, dataset_opt, num_gpu=opt["num_gpu"], seed=opt["manual_seed"]))
+            logger.info(f"Number of val images/folders in {dataset_opt['name']}: {len(val_set)}")
+        elif phase != "train":
+            raise ValueError(f"Dataset phase {phase} is not recognized.")
     dataset_opt = opt["datasets"]["train"]
-    unknown = [phase for phase in opt["datasets"] if phase != "train"]
-    if unknown or opt.get("val") is not None:
-        raise NotImplementedError(f"validation inside the training loop is not ported to dcpt_tpu_torch yet "
-                                  f"(datasets {unknown}, val: {opt.get('val') is not None})")
     ratio = dataset_opt.get("dataset_enlarge_ratio", 1)
     train_set = _build_train_dataset(dataset_opt)
     sampler = EnlargedSampler(train_set, opt["world_size"], opt["rank"], ratio,
@@ -78,7 +91,7 @@ def create_train_dataloader(opt: dict, logger):
                 f"\n\tWorld size: {opt['world_size']}"
                 f"\n\tRequire iter number per epoch: {iters_per_epoch}"
                 f"\n\tTotal epochs: {total_epochs}; iters: {total_iters}.")
-    return loader, sampler, total_epochs, total_iters
+    return loader, sampler, val_loaders, total_epochs, total_iters
 
 
 def load_resume_state(opt: dict):
@@ -115,12 +128,13 @@ def train_pipeline(root_path: str, args=None):
     logger.info(dict2str(opt))
     tb_logger = init_tb_logger(osp.join(root_path, "tb_logger", opt["name"])) if use_tb else None
 
-    train_loader, train_sampler, total_epochs, total_iters = create_train_dataloader(opt, logger)
+    train_loader, train_sampler, val_loaders, total_epochs, total_iters = create_train_val_dataloader(opt, logger)
 
     resume_state = None
     if resume_state_path:
         resume_state = torch.load(resume_state_path, map_location="cpu", weights_only=True)
-        check_resume(opt, resume_state["iter"])  # the nets load from the run's own snapshots
+        # the nets the run trains load from its own snapshots; the frozen ones keep theirs
+        check_resume(opt, resume_state["iter"], MODEL_REGISTRY.get(opt["model_type"]).FROZEN_NETWORKS)
     model = build_model(opt)
     if resume_state:
         model.resume_training(resume_state)
@@ -134,16 +148,34 @@ def train_pipeline(root_path: str, args=None):
     if prefetch_mode in ("device", "cuda") and model.device.type != "cuda":
         prefetch_mode = "cpu"  # a CPU run has no device to copy to
     logger.info(f"Use {prefetch_mode} prefetcher")
+
+    # the preemption save: the handler only records the signal, the loop saves after the step in flight
+    stop = {"signum": None}
+    prev_handler = None
+    in_main = threading.current_thread() is threading.main_thread()  # signal handlers bind there only
+    if in_main:
+        def _request_stop(signum, frame):  # noqa: ARG001
+            stop["signum"] = signum
+
+        prev_handler = signal.signal(signal.SIGTERM, _request_stop)
     try:
-        return _train_loop(opt, logger, msg_logger, model, train_sampler, train_loader, total_epochs, total_iters,
-                           start_epoch, current_iter, prefetch_mode)
+        return _train_loop(opt, logger, msg_logger, tb_logger, model, train_sampler, train_loader, val_loaders,
+                           total_epochs, total_iters, start_epoch, current_iter, prefetch_mode, stop)
     finally:
+        if in_main:
+            # None: the previous handler was installed from C and cannot be put back from Python
+            signal.signal(signal.SIGTERM, prev_handler if prev_handler is not None else signal.SIG_DFL)
         if tb_logger is not None:
             tb_logger.close()
 
 
-def _train_loop(opt, logger, msg_logger, model, train_sampler, train_loader, total_epochs, total_iters,
-                start_epoch, current_iter, prefetch_mode):
+def _validate(opt, model, val_loaders, current_iter, tb_logger) -> None:
+    for val_loader in val_loaders:
+        model.validation(val_loader, current_iter, tb_logger, opt["val"].get("save_img", False))
+
+
+def _train_loop(opt, logger, msg_logger, tb_logger, model, train_sampler, train_loader, val_loaders, total_epochs,
+                total_iters, start_epoch, current_iter, prefetch_mode, stop):
     data_timer, iter_timer = AvgTimer(), AvgTimer()
     start_time = time.time()
     epoch = start_epoch
@@ -173,6 +205,13 @@ def _train_loop(opt, logger, msg_logger, model, train_sampler, train_loader, tot
             if current_iter % opt["logger"]["save_checkpoint_freq"] == 0:
                 logger.info("Saving models and training states.")
                 model.save(epoch, current_iter)
+            if opt.get("val") is not None and current_iter % opt["val"]["val_freq"] == 0:
+                _validate(opt, model, val_loaders, current_iter, tb_logger)
+            if stop["signum"] is not None:
+                logger.warning(f"Received signal {stop['signum']}: saving the model and the training state at "
+                               f"iteration {current_iter} and returning; resume with --auto_resume.")
+                model.save(epoch, current_iter)
+                return model
             data_timer.start()
             iter_timer.start()
             train_data = prefetcher.next()
@@ -182,6 +221,8 @@ def _train_loop(opt, logger, msg_logger, model, train_sampler, train_loader, tot
     logger.info(f"End of training. Time consumed: {datetime.timedelta(seconds=int(time.time() - start_time))}")
     logger.info("Save the latest model.")
     model.save(epoch=-1, current_iter=-1)
+    if opt.get("val") is not None:
+        _validate(opt, model, val_loaders, current_iter, tb_logger)
     return model
 
 

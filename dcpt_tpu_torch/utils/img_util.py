@@ -1,8 +1,9 @@
 """Image I/O and numpy <-> tensor conversion (dcpt_tpu/utils/img_util.py).
 
 Host images are HWC numpy BGR, as OpenCV would give them; tensors are CHW
-(or NCHW) RGB float in [0, 1], as in the reference.  Decoding goes through
-the port's PNG codec: JPEG decode is not ported yet and raises.
+(or NCHW) RGB float in [0, 1], as in the reference.  PNGs decode through
+the port's own codec; any other buffer (the OTS dehaze set's JPEGs) through
+``cv2.imdecode`` with dcpt_tpu's flags, cv2 imported at the first such buffer.
 """
 
 from __future__ import annotations
@@ -15,14 +16,40 @@ import torch
 from . import png
 
 
-def imfrombytes(content: bytes, flag: str = "color", float32: bool = False) -> np.ndarray:
-    """Decode an 8-bit PNG byte buffer the way ``cv2.imdecode`` does.
+_CV2_FLAGS = {"color": "IMREAD_COLOR", "grayscale": "IMREAD_GRAYSCALE", "unchanged": "IMREAD_UNCHANGED"}
+
+
+def _cv2_decode(content: bytes, flag: str, path: str | None) -> np.ndarray:
+    """A non-PNG buffer through ``cv2.imdecode`` as dcpt_tpu decodes it
+    (its img_util.py:20-40); grayscale gains a channel axis."""
+    if flag not in _CV2_FLAGS:
+        raise ValueError(f"imfrombytes: unknown flag {flag!r}")
+    try:
+        import cv2
+    except ImportError as e:
+        raise ImportError(f"imfrombytes: {path or 'the buffer'} is not a PNG, and decoding it needs cv2 "
+                          f"(OpenCV), which does not import: {e}") from e
+    img = cv2.imdecode(np.frombuffer(content, np.uint8), getattr(cv2, _CV2_FLAGS[flag]))
+    if img is None:
+        raise ValueError(f"imfrombytes: cv2 cannot decode {path or 'the buffer'}")
+    return img[..., None] if flag == "grayscale" else img
+
+
+def imfrombytes(content: bytes, flag: str = "color", float32: bool = False, path: str | None = None) -> np.ndarray:
+    """Decode an 8-bit image byte buffer the way ``cv2.imdecode`` does.
 
     ``flag``: ``color`` (3-channel BGR; gray is replicated, alpha dropped),
-    ``grayscale`` (gray PNGs only, with a channel axis) or ``unchanged``.
+    ``grayscale`` (with a channel axis; a colour PNG raises) or ``unchanged``.
+    ``path`` only names the file in an error.
     """
     if content[:8] != png.SIGNATURE:
-        raise ValueError("imfrombytes: only PNG decodes in dcpt_tpu_torch (JPEG decode is not ported yet)")
+        img = _cv2_decode(content, flag, path)
+        if float32:
+            # dcpt_tpu's rounding: the reciprocal product on HWC uint8, a division otherwise
+            if img.dtype == np.uint8 and img.ndim == 3:
+                return img.astype(np.float32) * np.float32(1 / 255)
+            return img.astype(np.float32) / 255.0
+        return img
     img = png.decode(content)
     if flag == "color":
         if img.ndim == 2:

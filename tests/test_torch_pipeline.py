@@ -10,9 +10,11 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+
 import _torch_threads  # noqa: F401
 from dcpt_tpu.data import build_dataset as jax_build_dataset
-from dcpt_tpu.test import test_pipeline as jax_test_pipeline
+from dcpt_tpu.test import test_pipeline as _jax_test_pipeline
 from dcpt_tpu_torch.archs import build_network
 from dcpt_tpu_torch.archs.nafnet_arch import NAFNetBaseline
 from dcpt_tpu_torch.data import build_dataset
@@ -67,6 +69,26 @@ def _checkpoint(path):
                 p.copy_(torch.randn(p.shape, generator=gen) * 0.5 + (1.0 if name.endswith("norm1.weight") or
                                                                     name.endswith("norm2.weight") else 0.0))
     torch.save({"params_ema": net.state_dict()}, path)
+
+
+def jax_test_pipeline(root, args):
+    """dcpt_tpu's eval pipeline with its net's flax init compiled as one program.
+
+    flax's init runs eagerly, each initialiser and layer compiled on its own
+    (515 XLA programs for the PromptIR below); under ``jax.jit`` it traces the
+    same code once.  The parameters have the same
+    tree, shapes and dtypes, and the strict checkpoint load that follows
+    replaces every value, so the pipeline's output is the same."""
+    import flax.linen
+
+    real_init = flax.linen.Module.init
+
+    def init(self, rngs, *a, **kwargs):
+        return jax.jit(lambda r, *x: real_init(self, r, *x, **kwargs))(rngs, *a)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(flax.linen.Module, "init", init)
+        return _jax_test_pipeline(root, args=args)
 
 
 @pytest.fixture(scope="module")

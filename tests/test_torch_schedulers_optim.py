@@ -60,9 +60,13 @@ def test_adam_and_sgd_match_the_optax_chains():
 
 
 def test_unported_training_options_raise():
-    for key, value in (("batched_trunk", True), ("zero_sharding", True), ("accumulate_steps", 4)):
+    """batched_trunk and zero_sharding raise; accumulate_steps is read."""
+    for key, value in (("batched_trunk", True), ("zero_sharding", True)):
         with pytest.raises(NotImplementedError, match=key):
             BaseModel({"num_gpu": 0, "train": {key: value}})._check_train_options()
+    model = BaseModel({"num_gpu": 0, "train": {"accumulate_steps": 4}})
+    model._check_train_options()
+    assert model.accumulate_steps == 4
 
 
 def test_ema_update_matches_jax():
